@@ -1,0 +1,46 @@
+"""Serving: a run config and trained weights -> `fn(batch) -> predictions`.
+
+Port of `egt_tpu/serving.py::load_serving` for the eager PyTorch model. The
+batch is the JAX model's batch dict: `node_features (b, l)`,
+`feature_matrix (b, l, l)` and `graph_matrix (b, l, l)` numpy arrays (ints,
+-1 padding; the adjacency may be a narrow integer type). On a CUDA device the
+layers run through the hand-written kernels (see `models/layers.py`). An
+exported, self-contained artifact (the JAX StableHLO export) has no
+counterpart yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .models.graph_model import EGTGraphModel
+from .schemes import model_config_from_config
+from .weights import load_flat_params, load_npz
+
+
+def load_model(config, weights, device=None) -> EGTGraphModel:
+    """The model of a run config (a dict or JSON path) with `weights` (a
+    {JAX flat name: array} dict or a flat npz path) loaded, on `device`
+    (CUDA unless the caller names a device; raises with no GPU)."""
+    cfg = model_config_from_config(config)
+    model = EGTGraphModel(cfg, device=device)
+    if isinstance(weights, str):
+        load_npz(model, weights)
+    else:
+        load_flat_params(model, weights)
+    return model.eval()
+
+
+def load_predictor(config, weights, device=None):
+    """Returns `fn(batch) -> np.ndarray` of (b, num_targets) f32 predictions."""
+    model = load_model(config, weights, device)
+
+    def predict(batch: dict) -> np.ndarray:
+        with torch.inference_mode():
+            out = model({k: batch[k] for k in ("node_features",
+                                               "feature_matrix",
+                                               "graph_matrix")})
+        return out.cpu().numpy()
+
+    return predict

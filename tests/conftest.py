@@ -24,6 +24,8 @@ import pytest  # noqa: E402
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running tests (multi-process spawns etc.)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (skips without one)")
 
 
 @pytest.fixture(scope="session")
