@@ -7,20 +7,33 @@ Phases, in order (any failure makes the exit code non-zero and suppresses the
 final result line):
   1. host record: `nvidia-smi` name and power limit, torch and CUDA versions,
      `nvcc --version`;
-  2. build both CUDA kernels from `egt_torch/csrc` (one nvcc each, in
+  2. build the five CUDA kernels from `egt_torch/csrc` (one nvcc each, in
      parallel);
   3. each kernel against its plain PyTorch version on the card, at the
-     ZINC-500k serving shapes in f32 and bf16 with ragged node masks, plus one
-     awkward shape; errors, kernel / plain times (CUDA events, median of 30
-     launches with L2 flushed before each) and the reckoned bound;
-  4. path A: `load_predictor` on configs/main/zinc/500k/egt.json with seeded
-     weights under the JAX names answers 4 requests of 128 synthetic
+     ZINC-500k shapes in f32 and bf16 with ragged node masks, plus one
+     awkward shape (l 37, ew 32, h 4, hard mask): the forwards K1 and K3 at
+     inference and in training mode (random mask 0.1 and dropout 0.1 live,
+     h_hat out), the backwards K4, K5 and K2 with the same draws; errors,
+     kernel / plain times (CUDA events, median of 30 launches with L2 flushed
+     before each) and the reckoned bound;
+  4. serving path A: `load_predictor` on configs/main/zinc/500k/egt.json with
+     seeded weights under the JAX names answers 4 requests of 128 synthetic
      ZINC-shaped graphs through the whole-layer kernel (10 launches a
      request), checked against the model's plain path;
-  5. path B: the same with use_pallas true, use_pallas_layer false (the
-     attention kernel, 10 launches a request);
-  6. one JSON line listing every kernel with its launches on the main paths;
-  7. last line: {"ok": true, "device": {...}}.
+  5. serving path B: the same with use_pallas true, use_pallas_layer false
+     (the attention kernel, 10 launches a request);
+  6. training path A: `load_trainer` on the same config and weights takes a
+     warm-up step, then 4 timed steps on 128-graph batches (bf16, random
+     mask 0.1 live) through K3, K4 and K5 (10 launches each a step, K1 and K2
+     none); its first-step gradients of every parameter and its losses over
+     3 steps agree with the plain path's (f32 and bf16, same weights and
+     seeds, the same draws); 20 steps on one batch lower the loss;
+  7. training path B: the same through K1 and K2 (10 each a step, K3-K5
+     none);
+  8. one JSON line listing every kernel with its launches on its training
+     path, its times and its bound;
+  9. last line: {"ok": true, "device": {...}}.
+TF32 is off for matrix products and convolutions (full f32 references).
 Exits non-zero without a result when no CUDA device is present or when run
 outside a checkout of the repository.
 """
@@ -38,6 +51,9 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 CONFIG = REPO / "configs" / "main" / "zinc" / "500k" / "egt.json"
 N_REQUESTS, GRAPHS, PAD = 4, 128, 40
+N_STEPS, N_FALL = 4, 20          # timed training steps; the loss-falls run
+SOURCES = ("fused_layer_fwd", "egt_attention_fwd", "fused_layer_bwd_tail",
+           "fused_layer_bwd_attn", "egt_attention_bwd")
 
 # published dense peaks (NVIDIA data sheets): memory B/s, bf16 tensor-core
 # FLOP/s, f32 FLOP/s outside the tensor cores; matched on the device name
@@ -57,6 +73,16 @@ TOL = {"float32": (1e-4, 1e-4), "bfloat16": (5e-2, 2e-2)}   # (atol, rtol)
 # in bf16 the plain path rounds the gates, the edge bias and h_hat to bf16
 # where the kernels keep f32, and 10 layers compound it
 MODEL_TOL = {"float32": 5e-4, "bfloat16": 5e-2}
+# training agreement with the plain path (same weights, seeds and draws):
+# losses relative; each parameter's step-1 gradient by max |kernel - plain|
+# over max(max |plain|, 1e-2 G), G the largest gradient of the model, so a
+# parameter whose gradient is only rounding noise (the key bias: softmax is
+# shift-invariant) is held in absolute terms. f32: summation order, and a
+# pair whose logit sits at the clip edge may fall on the other side of the
+# whole-layer backward's strict in-range test on the saved h_hat. bf16: the
+# plain path rounds the gates, the edge bias and h_hat where the kernels keep
+# f32, through 10 layers forward and back.
+TRAIN_TOL = {"float32": (1e-4, 1e-3), "bfloat16": (5e-3, 5e-2)}  # loss, grad
 
 failures: list[str] = []
 
@@ -98,6 +124,7 @@ def main() -> int:
     from egt_torch.ops import _cuda
     from egt_torch.ops import egt_attention as att
     from egt_torch.ops import fused_layer as fl
+    from egt_torch.training.steps import load_trainer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -119,7 +146,7 @@ def main() -> int:
 
     # ---- 2. build
     t0 = time.perf_counter()
-    logs = _cuda.build(["fused_layer_fwd", "egt_attention_fwd"])
+    logs = _cuda.build(SOURCES)
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(logs) or 'cached'})")
     for src, log in logs.items():
@@ -155,13 +182,28 @@ def main() -> int:
         return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                            else "operations")
 
-    def max_err(out, ref, dtype):
+    def max_err(out, ref, dtype, scaled=False):
+        """Largest |kernel - plain| and whether every element is within
+        atol + rtol |plain|; `scaled` multiplies atol by max(1, max |plain|)
+        (weight gradients, sums over every pair)."""
         atol, rtol = TOL[str(dtype).split(".")[-1]]
         out, ref = out.float(), ref.float()
+        if scaled:
+            atol *= max(1.0, float(ref.abs().max()))
         err = (out - ref).abs()
         ok = bool(torch.all(err <= atol + rtol * ref.abs())) and \
             bool(torch.isfinite(out).all())
         return float(err.max()), ok
+
+    def report(tag, errs, ms, plain, nbytes, mm, elementwise, dtype):
+        err = max(x[0] for x in errs)
+        check(all(x[1] for x in errs), f"{tag}: max |kernel - plain| {err:.3g}")
+        bnd, by = bound_ms(nbytes, mm, elementwise, dtype)
+        print(f"  {tag}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+              f"{bnd:.4f} ms ({by}); {mm / 1e9:.3f} GFLOP in products, "
+              f"{nbytes / 1e6:.1f} MB", flush=True)
+        return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
+                    bound_by=by)
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -174,44 +216,78 @@ def main() -> int:
 
     results = {}
 
-    # ---- 3a. attention kernel (K1) against its plain version
-    def attention_case(b, h, l, d, dtype, gated=True, hard=False):
+    def timed(tag, errs, kernel_fn, plain_fn, nbytes, mm, elementwise, dtype,
+              timing=True):
+        if not timing:
+            err = max(x[0] for x in errs)
+            check(all(x[1] for x in errs),
+                  f"{tag}: max |kernel - plain| {err:.3g}")
+            return None
+        return report(tag, errs, time_ms(kernel_fn), time_ms(plain_fn),
+                      nbytes, mm, elementwise, dtype)
+
+    # ---- 3a. attention kernels (K1 forward, K2 backward)
+    def attention_case(b, h, l, d, dtype, gated=True, hard=False,
+                       training=False, timing=True):
         q, k, v = (randn(b, h, l, d).to(dtype) for _ in range(3))
         e = randn(b, h, l, l).to(dtype)
         g = randn(b, h, l, l).to(dtype) if gated else None
         madd = (ragged_mask(b, l, lo=min(9, l), hi=min(38, l)) - 1.0) * 1e9
         maddf = ((torch.rand((b, l, l), generator=gen, device=dev) < 0.6)
                  .float() - 1.0) * 1e9 if hard else None
-        args = (q, k, v, e, g, madd, maddf, (-5.0, 5.0))
+        draws = att.Draws(123, 0.1, 0.1) if training else att.OFF
+        args = (q, k, v, e, g, madd, maddf, (-5.0, 5.0), draws)
         out = att._egt_core_fwd_cuda(*args)
         ref = att.egt_core_fwd_plain(*args)
         torch.cuda.synchronize()
         errs = [max_err(o, r, dtype) for o, r in zip(out, ref)
                 if r is not None]
-        err = max(x[0] for x in errs)
-        tag = f"attention_fwd b{b} h{h} l{l} d{d} {str(dtype)[6:]}" + \
-            (" hard-mask" if hard else "") + ("" if gated else " ungated")
-        check(all(x[1] for x in errs), f"{tag}: max |kernel - plain| {err:.3g}")
+        shape = (f"b{b} h{h} l{l} d{d} {str(dtype)[6:]}" +
+                 (" hard-mask" if hard else "") + ("" if gated else " ungated"))
         it = q.element_size()
-        nbytes = (3 * b * h * l * d + (2 if gated else 1) * b * h * l * l
-                  + b * h * l * d + b * h * l * l) * it + b * l * 4 + \
+        pairs = b * h * l * l
+        nbytes = (3 * b * h * l * d + (2 if gated else 1) * pairs
+                  + b * h * l * d + pairs) * it + b * l * 4 + \
             (b * h * l * 4 if gated else 0) + (b * l * l * 4 if hard else 0)
-        bnd, by = bound_ms(nbytes, 4 * b * h * l * l * d, 15 * b * h * l * l,
-                           dtype)
-        ms = time_ms(lambda: att._egt_core_fwd_cuda(*args))
-        plain = time_ms(lambda: att.egt_core_fwd_plain(*args))
-        print(f"  {tag}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-              f"bound {bnd:.4f} ms ({by})", flush=True)
-        return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
-                    bound_by=by)
+        res = {"fwd": timed(
+            f"attention_fwd{' training' if training else ''} {shape}", errs,
+            lambda: att._egt_core_fwd_cuda(*args),
+            lambda: att.egt_core_fwd_plain(*args), nbytes, 4 * pairs * d,
+            15 * pairs, dtype, timing)}
+        if not training:
+            return res
+        # K2 from the forward's h_hat, with the cotangents of v_att, h_hat
+        # and (gated) the degrees
+        h_hat = ref[1]
+        gv, gh = randn(b, h, l, d).to(dtype), randn(b, h, l, l).to(dtype)
+        gdeg = randn(b, h, l) if gated else None
+        bargs = (q, k, v, g, madd, maddf, h_hat, gv, gh, gdeg, (-5.0, 5.0),
+                 draws)
+        out = att._egt_core_bwd_cuda(*bargs)
+        ref = att.egt_core_bwd_plain(*bargs)
+        torch.cuda.synchronize()
+        errs = [max_err(o, r, dtype, scaled=True) for o, r in zip(out, ref)
+                if r is not None]
+        nbytes = (3 * b * h * l * d + (3 if gated else 2) * pairs
+                  + 2 * b * h * l * d + (2 if gated else 1) * pairs) * it + \
+            2 * b * h * l * d * 4 + b * l * 4 + \
+            (b * h * l * 4 if gated else 0) + (b * l * l * 4 if hard else 0)
+        res["bwd"] = timed(f"attention_bwd {shape}", errs,
+                           lambda: att._egt_core_bwd_cuda(*bargs),
+                           lambda: att.egt_core_bwd_plain(*bargs), nbytes,
+                           10 * pairs * d, 30 * pairs, dtype, timing)
+        return res
 
-    # ---- 3b. whole-layer kernel (K3) against its plain version
-    def layer_case(b, l, ew, h, dh, dtype, constrained=False):
+    # ---- 3b. whole-layer kernels (K3 forward, K4 and K5 backward)
+    def layer_case(b, l, ew, h, dh, dtype, constrained=False, training=False,
+                   timing=True):
         hid = 2 * ew
         spec = fl.LayerSpec(l=l, ew=ew, h=h, dh=dh, hidden=hid, gated=True,
                             constrained=constrained, clip=(-5.0, 5.0),
                             edge_act=None, act="elu",
-                            scale=float(dh // h) ** -0.5)
+                            scale=float(dh // h) ** -0.5,
+                            random_mask_prob=0.1, attn_dropout=0.1,
+                            training=training)
 
         def dense(i, o):
             lim = (6.0 / (i + o)) ** 0.5
@@ -231,42 +307,88 @@ def main() -> int:
         mask = ragged_mask(b, l, lo=min(9, l), hi=min(38, l))
         am = ((torch.rand((b, l, l), generator=gen, device=dev) < 0.3)
               .float() if constrained else None)
-        args = (spec, e, qkv, mask, am, w)
+        args = (spec, e, qkv, mask, am, w, 77, training)
         out = fl._fused_layer_cuda(*args)
         ref = fl.fused_layer_plain(*args)
         torch.cuda.synchronize()
         errs = [max_err(o, r, dtype) for o, r in zip(out, ref)]
-        err = max(x[0] for x in errs)
-        tag = (f"fused_layer_fwd b{b} l{l} ew{ew} h{h} dh{dh} "
-               f"{str(dtype)[6:]}" + (" constrained" if constrained else ""))
-        check(all(x[1] for x in errs), f"{tag}: max |kernel - plain| {err:.3g}")
+        shape = (f"b{b} l{l} ew{ew} h{h} dh{dh} {str(dtype)[6:]}"
+                 + (" constrained" if constrained else ""))
         it = e.element_size()
         pairs = b * l * l
-        nbytes = (2 * pairs * ew + b * l * 3 * dh + b * l * dh
-                  + 2 * ew * h + h * ew + 2 * ew * hid) * it + b * l * 4 + \
-            (pairs * 4 if constrained else 0)
+        wbytes = (2 * ew * h + h * ew + 2 * ew * hid) * it
+        nbytes = (2 * pairs * ew + b * l * 3 * dh + b * l * dh) * it + \
+            wbytes + b * l * 4 + (pairs * 4 if constrained else 0) + \
+            (pairs * h * it if training else 0)
         mm = pairs * (2 * ew * 2 * h + 2 * dh + 2 * dh + 2 * h * ew
                       + 2 * 2 * ew * hid)
-        elementwise = pairs * (20 * ew + hid + 15 * h)
-        bnd, by = bound_ms(nbytes, mm, elementwise, dtype)
-        ms = time_ms(lambda: fl._fused_layer_cuda(*args))
-        plain = time_ms(lambda: fl.fused_layer_plain(*args))
-        print(f"  {tag}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-              f"bound {bnd:.4f} ms ({by}); {mm / 1e9:.2f} GFLOP in products, "
-              f"{nbytes / 1e6:.1f} MB", flush=True)
-        return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
-                    bound_by=by)
+        res = {"fwd": timed(
+            f"fused_layer_fwd{' training' if training else ''} {shape}", errs,
+            lambda: fl._fused_layer_cuda(*args),
+            lambda: fl.fused_layer_plain(*args), nbytes, mm,
+            pairs * (20 * ew + hid + 15 * h), dtype, timing)}
+        if not training:
+            return res
+        # K4 and K5 from an h_hat drawn on its own (3 sigma): many pairs lie
+        # beyond the clip, none at its edge. (A forward's own h_hat puts
+        # every clipped pair at hh - E = lo or hi up to an ulp, where the
+        # strict in-range test of K5 follows the last bit of E, which the
+        # kernel and its plain version sum in another order.)
+        hh = randn(b, l, l, h, scale=3.0).to(dtype)
+        ge, gv = randn(b, l, l, ew).to(dtype), randn(b, l, dh).to(dtype)
+        targs = (spec, e, hh, ge, w)
+        out = fl._bwd_tail_cuda(*targs)
+        tref = fl.fused_layer_bwd_tail_plain(*targs)
+        torch.cuda.synchronize()
+        errs = [max_err(o, r, dtype) for o, r in zip(out[:2], tref[:2])]
+        errs += [max_err(out[2][k], r, dtype, scaled=True)
+                 for k, r in tref[2].items()]
+        nw = h * ew + 3 * ew + 2 * ew * hid + hid + ew
+        nbytes = (3 * pairs * ew + 2 * pairs * h) * it + \
+            (h * ew + 2 * ew * hid) * it + (4 * ew + hid) * 4 + nw * 4
+        mm = pairs * 2 * (3 * h * ew + 5 * ew * hid)
+        res["tail"] = timed(f"fused_layer_bwd_tail {shape}", errs,
+                            lambda: fl._bwd_tail_cuda(*targs),
+                            lambda: fl.fused_layer_bwd_tail_plain(*targs),
+                            nbytes, mm, pairs * (30 * ew + 5 * hid), dtype,
+                            timing)
+        # K5 from h_hat, K4's outputs and a cotangent of v_att
+        de_mid, dhh = tref[0], tref[1]
+        aargs = (spec, e, qkv, mask, am, w, hh, dhh, de_mid, gv, 77)
+        out = fl._bwd_attn_cuda(*aargs)
+        aref = fl.fused_layer_bwd_attn_plain(*aargs)
+        torch.cuda.synchronize()
+        errs = [max_err(o, r, dtype, scaled=True)
+                for o, r in zip(out[:4], aref[:4])]
+        errs += [max_err(out[4][k], r, dtype, scaled=True)
+                 for k, r in aref[4].items()]
+        nproj = 2 * h
+        nbytes = (3 * pairs * ew + 2 * pairs * h + b * l * 3 * dh
+                  + 2 * b * l * dh + 2 * ew * h) * it + \
+            (2 * b * l * dh + ew * nproj + nproj + 2 * ew) * 4 + b * l * 4 + \
+            (pairs * 4 if constrained else 0)
+        mm = pairs * (6 * ew * nproj + 8 * dh)
+        res["attn"] = timed(f"fused_layer_bwd_attn {shape}", errs,
+                            lambda: fl._bwd_attn_cuda(*aargs),
+                            lambda: fl.fused_layer_bwd_attn_plain(*aargs),
+                            nbytes, mm, pairs * (20 * ew + 40 * h), dtype,
+                            timing)
+        return res
 
     try:
         for dtype in (torch.float32, torch.bfloat16):
-            results[("attention", dtype)] = attention_case(GRAPHS, 8, PAD, 8,
-                                                           dtype)
-            results[("layer", dtype)] = layer_case(GRAPHS, PAD, 64, 8, 64,
-                                                   dtype)
-        attention_case(16, 4, 37, 8, torch.float32, gated=False, hard=True)
-        attention_case(16, 4, 37, 8, torch.bfloat16, hard=True)
-        layer_case(16, 37, 32, 4, 32, torch.float32, constrained=True)
-        layer_case(16, 37, 32, 4, 32, torch.bfloat16, constrained=True)
+            for training in (False, True):
+                results[("attention", dtype, training)] = attention_case(
+                    GRAPHS, 8, PAD, 8, dtype, training=training)
+                results[("layer", dtype, training)] = layer_case(
+                    GRAPHS, PAD, 64, 8, 64, dtype, training=training)
+            for training in (False, True):
+                attention_case(16, 4, 37, 8, dtype, gated=False, hard=True,
+                               training=training, timing=False)
+                attention_case(16, 4, 37, 8, dtype, hard=True,
+                               training=training, timing=False)
+                layer_case(16, 37, 32, 4, 32, dtype, constrained=True,
+                           training=training, timing=False)
     except Exception:                               # noqa: BLE001 - report
         traceback.print_exc()
         check(False, "phase 3: kernels against their plain versions")
@@ -284,11 +406,14 @@ def main() -> int:
     ref_out = [plain_bf16(r) for r in requests]
 
     def serve(tag, overrides, kernel, other):
+        """Serve N_REQUESTS requests; check launches, outputs and agreement
+        with the plain path."""
         predict = serving.load_predictor(
             {**raw, **overrides} if overrides else str(CONFIG), flat)
         predict(requests[0])                       # warm-up
         torch.cuda.synchronize()
-        fl.KERNEL.launches = att.KERNEL.launches = 0
+        for kern in (fl.KERNEL, att.KERNEL):
+            kern.launches = 0
         lat, outs = [], []
         for r in requests:
             t = time.perf_counter()
@@ -320,33 +445,133 @@ def main() -> int:
         print(f"  {tag}: request latency ms {[round(x * 1e3, 3) for x in lat]}"
               f", median {med * 1e3:.3f} ms, {GRAPHS / med:.1f} graphs/s "
               f"(batch {GRAPHS}, 10 layers, bf16)", flush=True)
-        return launches[0]
 
-    launches = {}
     try:
-        launches["layer"] = serve("path A (whole-layer kernel)", {},
-                                  fl.KERNEL, att.KERNEL)
-        launches["attention"] = serve(
-            "path B (attention kernel)",
-            {"use_pallas": True, "use_pallas_layer": False},
-            att.KERNEL, fl.KERNEL)
+        serve("serving path A (whole-layer kernel)", {}, fl.KERNEL,
+              att.KERNEL)
+        serve("serving path B (attention kernel)",
+              {"use_pallas": True, "use_pallas_layer": False},
+              att.KERNEL, fl.KERNEL)
     except Exception:                               # noqa: BLE001 - report
         traceback.print_exc()
         check(False, "phases 4-5: serving paths")
 
-    # ---- 6. kernels line
+    # ---- 6-7. the training paths
+    kernels = {"K1": att.KERNEL, "K2": att.BWD_KERNEL, "K3": fl.KERNEL,
+               "K4": fl.BWD_TAIL_KERNEL, "K5": fl.BWD_ATTN_KERNEL}
+    trng = np.random.default_rng(1)
+    train_batches = [synthetic.zinc_batch(trng, GRAPHS, PAD)
+                     for _ in range(N_STEPS + 1)]
+
+    def run_steps(overrides, dtype, n=3):
+        """Losses of n steps on train_batches and the first step's
+        gradients, from the seeded weights."""
+        tr = load_trainer({**raw, **overrides, "compute_dtype": dtype}, flat)
+        losses, grads = [], None
+        for i in range(n):
+            losses.append(tr.train_step(train_batches[i])["loss"])
+            if i == 0:
+                grads = {k: (None if p.grad is None else p.grad.clone())
+                         for k, p in tr.model.named_parameters()}
+        return losses, grads
+
+    plain_ref = {}
+
+    def agreement(tag, overrides, dtype):
+        if dtype not in plain_ref:
+            plain_ref[dtype] = run_steps(plain_cfg, dtype)
+        (lp, gp), (lk, gk) = plain_ref[dtype], run_steps(overrides, dtype)
+        ltol, gtol = TRAIN_TOL[dtype]
+        dl = max(abs(a - b) / max(abs(b), 1e-6) for a, b in zip(lk, lp))
+        check(dl <= ltol and np.all(np.isfinite(lk)),
+              f"{tag} {dtype}: losses {[round(x, 6) for x in lk]} vs plain "
+              f"{[round(x, 6) for x in lp]}, max rel diff {dl:.3g} "
+              f"(tol {ltol})")
+        top = max(float(g.abs().max()) for g in gp.values() if g is not None)
+        worst, where = 0.0, ""
+        for k, g in gp.items():
+            if g is None:
+                # no loss reaches it: the kernel path may hand back zeros
+                # (the last layer's unused edge output); both leave the
+                # parameter unchanged
+                if gk[k] is not None and bool(gk[k].any()):
+                    check(False, f"{tag}: {k} has a nonzero gradient only "
+                          "on the kernel path")
+                continue
+            e = float((gk[k] - g).abs().max()) / max(float(g.abs().max()),
+                                                     1e-2 * top)
+            if not e <= worst:
+                worst, where = e, k
+        check(worst <= gtol,
+              f"{tag} {dtype}: step-1 gradients of every parameter, worst "
+              f"normalised |kernel - plain| {worst:.3g} at {where} "
+              f"(tol {gtol}; largest gradient {top:.3g})")
+
+    def train(tag, overrides, on):
+        tr = load_trainer({**raw, **overrides}, flat)      # bf16, as shipped
+        tr.train_step(train_batches[0])                    # warm-up
+        torch.cuda.synchronize()
+        for kern in kernels.values():
+            kern.launches = 0
+        times, losses = [], []
+        for bt in train_batches[1:]:
+            t = time.perf_counter()
+            losses.append(tr.train_step(bt)["loss"])       # .item(): synced
+            times.append(time.perf_counter() - t)
+        launches = {k: kern.launches for k, kern in kernels.items()}
+        want = {k: (10 * N_STEPS if k in on else 0) for k in kernels}
+        check(launches == want, f"{tag}: launches in {N_STEPS} steps "
+              f"{launches} (expected {want})")
+        check(bool(np.all(np.isfinite(losses))),
+              f"{tag}: losses finite {[round(x, 5) for x in losses]}")
+        med = statistics.median(times)
+        print(f"  {tag}: step ms {[round(x * 1e3, 3) for x in times]}, "
+              f"median {med * 1e3:.3f} ms, {GRAPHS / med:.1f} graphs/s "
+              f"(batch {GRAPHS}, 10 layers, bf16)", flush=True)
+        for dtype in ("float32", "bfloat16"):
+            agreement(tag, overrides, dtype)
+        fall = load_trainer({**raw, **overrides}, flat)
+        fl_losses = [fall.train_step(train_batches[0])["loss"]
+                     for _ in range(N_FALL)]
+        first, last = np.mean(fl_losses[:5]), np.mean(fl_losses[-5:])
+        check(last < first, f"{tag}: {N_FALL} steps on one batch, mean loss "
+              f"of the first 5 {first:.5f} -> last 5 {last:.5f}")
+        return launches
+
+    train_launches = {}
+    try:
+        launches = train("training path A (K3, K4, K5)", {},
+                         ("K3", "K4", "K5"))
+        train_launches.update({k: launches[k] for k in ("K3", "K4", "K5")})
+        launches = train("training path B (K1, K2)",
+                         {"use_pallas": True, "use_pallas_layer": False},
+                         ("K1", "K2"))
+        train_launches.update({k: launches[k] for k in ("K1", "K2")})
+    except Exception:                               # noqa: BLE001 - report
+        traceback.print_exc()
+        check(False, "phases 6-7: training paths")
+
+    # ---- 8. kernels line: the training-mode cases at the flagship shape,
+    # bf16, each kernel's launches on its training path
     rows = []
-    for key, source, replaces in (
-            ("layer", "egt_torch/csrc/fused_layer_fwd.cu",
+    for key, case, part, source, replaces in (
+            ("K1", "attention", "fwd", "egt_torch/csrc/egt_attention_fwd.cu",
+             "egt_tpu/ops/egt_pallas.py:116"),
+            ("K2", "attention", "bwd", "egt_torch/csrc/egt_attention_bwd.cu",
+             "egt_tpu/ops/egt_pallas.py:184"),
+            ("K3", "layer", "fwd", "egt_torch/csrc/fused_layer_fwd.cu",
              "egt_tpu/ops/fused_layer_pallas.py:373"),
-            ("attention", "egt_torch/csrc/egt_attention_fwd.cu",
-             "egt_tpu/ops/egt_pallas.py:116")):
-        r = results.get((key, torch.bfloat16))
-        if r is None or key not in launches:
+            ("K4", "layer", "tail", "egt_torch/csrc/fused_layer_bwd_tail.cu",
+             "egt_tpu/ops/fused_layer_pallas.py:789"),
+            ("K5", "layer", "attn", "egt_torch/csrc/fused_layer_bwd_attn.cu",
+             "egt_tpu/ops/fused_layer_pallas.py:868")):
+        r = results.get((case, torch.bfloat16, True), {}).get(part)
+        if r is None or key not in train_launches:
             continue
         rows.append({"name": Path(source).stem, "route": "cuda",
                      "source": source, "replaces": replaces,
-                     "launches": launches[key], **r, "library_ms": None})
+                     "launches": train_launches[key], **r,
+                     "library_ms": None})
     print(json.dumps({"kernels": rows}))
 
     if failures:

@@ -1,15 +1,18 @@
-// EGT attention core, forward (inference), for sm_90a.
+// EGT attention core, forward (inference and training), for sm_90a.
 //
 // Replaces: egt_tpu/ops/egt_pallas.py::_fwd_kernel, called through
 // _egt_core_fwd / egt_attention_fused.
 //
 // Computes, for each (graph b, head hh, query row i), head-major:
 //   h_hat[i, j] = clip(q_i . k_j * d^-1/2) + e[i, j]            (written out)
-//   logits      = h_hat + madd[j] (+ maddf[i, j])
-//   gates       = g[i, j] + madd[j] (+ maddf[i, j])
+//   logits      = h_hat + madd[j] (+ maddf[i, j]) (+ rmask[i, j])
+//   gates       = g[i, j] + madd[j] (+ maddf[i, j]) (+ rmask[i, j])
 //   a[i, j]     = softmax_j(logits) * sigmoid(gates)
 //   deg[i]      = sum_j sigmoid(gates)                          (f32, gated only)
+//   a[i, j]     = kept[i, j] ? a[i, j] / keep : 0                (training dropout)
 //   v_att[i, :] = sum_j a[i, j] * v_j
+// The random mask (rmask, -1e9) and dropout draw from philox.cuh, draws 0
+// and 1 of (b, i, j, head).
 // Math is f32; q, k, v, e, g, h_hat and v_att are stored in the working type
 // (f32 or bf16), rounded where the JAX kernel rounds (h_hat and a before A.V,
 // v_att on store). The degree scaler stays in the Python wrapper.
@@ -28,35 +31,14 @@
 // Tensor cores are not used: d = 8 makes the products tiny, and the kernel
 // is bound by the per-pair bytes anyway.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math.h>
+#include "common.cuh"
+#include "philox.cuh"
 
 namespace {
 
+using namespace egt;
+
 constexpr int WARPS = 4;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-// round an f32 value through the storage type, as the JAX kernel's casts do
-template <typename T> __device__ __forceinline__ float rnd(float x) {
-  return to_f(from_f<T>(x));
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
 
 template <typename T>
 __global__ void __launch_bounds__(WARPS * 32)
@@ -67,14 +49,16 @@ egt_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const float* __restrict__ maddf,
                          T* __restrict__ vatt, T* __restrict__ hhat,
                          float* __restrict__ deg, int H, int lq, int lk, int d,
-                         int has_clip, float lo, float hi, float scale) {
+                         int has_clip, float lo, float hi, float scale,
+                         Draws dr) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int rowblocks = (lq + WARPS - 1) / WARPS;
   const int bh = blockIdx.x / rowblocks;
   const int i = (blockIdx.x % rowblocks) * WARPS + warp;
   if (i >= lq) return;  // whole warps leave; no block-wide barrier follows
-  const int b = bh / H;
+  const int b = bh / H, hd = bh % H;
+  const bool dropping = dr.dropping();
 
   float* lm = smem + (size_t)warp * (2 * lk + d + 32);  // logits, then A
   float* sg = lm + lk;                                   // sigmoid(gates)
@@ -100,14 +84,16 @@ egt_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (has_clip) s = fminf(fmaxf(s, lo), hi);
     const float hh = s + to_f(e[prow + j]);
     hhat[prow + j] = from_f<T>(hh);
+    const float rm = dr.mask_add(b, i, j, hd);
     float l = hh + mrow[j];
     if (frow) l += frow[j];
+    l += rm;
     lm[j] = l;
     mx = fmaxf(mx, l);
     if (g) {
       float gm = to_f(g[prow + j]) + mrow[j];
       if (frow) gm += frow[j];
-      sg[j] = 1.f / (1.f + expf(-gm));
+      sg[j] = sigmoid(gm + rm);
     }
   }
   mx = warp_max(mx);
@@ -124,6 +110,7 @@ egt_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int j = lane; j < lk; j += 32) {
     float a = lm[j] / den;
     if (g) a *= sg[j];
+    if (dropping) a = dr.kept(b, i, j, hd) ? a / dr.keep : 0.f;
     lm[j] = rnd<T>(a);
   }
   __syncwarp();
@@ -161,7 +148,7 @@ template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* e,
            const void* g, const float* madd, const float* maddf, void* vatt,
            void* hhat, float* deg, int B, int H, int lq, int lk, int d,
-           int has_clip, float lo, float hi, float scale,
+           int has_clip, float lo, float hi, float scale, Draws dr,
            cudaStream_t stream) {
   const size_t smem = (size_t)WARPS * (2 * lk + d + 32) * sizeof(float);
   auto kern = egt_attention_fwd_kernel<T>;
@@ -171,27 +158,33 @@ int launch(const void* q, const void* k, const void* v, const void* e,
   const long long blocks = (long long)B * H * ((lq + WARPS - 1) / WARPS);
   kern<<<(unsigned)blocks, WARPS * 32, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)e, (const T*)g, madd,
-      maddf, (T*)vatt, (T*)hhat, deg, H, lq, lk, d, has_clip, lo, hi, scale);
+      maddf, (T*)vatt, (T*)hhat, deg, H, lq, lk, d, has_clip, lo, hi, scale,
+      dr);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. g, maddf and deg may be null (ungated /
-// no hard mask). Returns cudaGetLastError() after the launch.
+// no hard mask). mask_p / drop_p 0 switch the draws off (inference).
+// Returns cudaGetLastError() after the launch.
 extern "C" int egt_attention_fwd(int dtype, const void* q, const void* k,
                                  const void* v, const void* e, const void* g,
                                  const float* madd, const float* maddf,
                                  void* vatt, void* hhat, float* deg, int B,
                                  int H, int lq, int lk, int d, int has_clip,
                                  float lo, float hi, float scale,
+                                 unsigned seed_lo, unsigned seed_hi,
+                                 float mask_p, float drop_p, float keep,
                                  void* stream) {
+  const Draws dr{seed_lo, seed_hi, mask_p, drop_p, keep};
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return launch<float>(q, k, v, e, g, madd, maddf, vatt, hhat, deg, B, H,
-                         lq, lk, d, has_clip, lo, hi, scale, s);
+                         lq, lk, d, has_clip, lo, hi, scale, dr, s);
   if (dtype == 1)
     return launch<__nv_bfloat16>(q, k, v, e, g, madd, maddf, vatt, hhat, deg,
-                                 B, H, lq, lk, d, has_clip, lo, hi, scale, s);
+                                 B, H, lq, lk, d, has_clip, lo, hi, scale,
+                                 dr, s);
   return (int)cudaErrorInvalidValue;
 }

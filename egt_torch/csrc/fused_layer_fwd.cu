@@ -1,4 +1,4 @@
-// Whole EGT layer edge core, forward (inference), for sm_90a.
+// Whole EGT layer edge core, forward (inference and training), for sm_90a.
 //
 // Replaces: egt_tpu/ops/fused_layer_pallas.py::_fwd_kernel, called through
 // _fused_layer_fwd_call / fused_layer_apply.
@@ -8,13 +8,21 @@
 //   x      = LN(e[b, i, j, :])                       (eps 1e-3)
 //   G      = x . Wg + bg,  E = act_e(x . Wb + bb)    (ew -> h)
 //   h_hat  = clip(q_i . k_j * d^-1/2) + E            (per head)
-//   A      = softmax_j(h_hat + madd_j [+ aadd_ij]) * sigmoid(G + madd_j [+ aadd_ij])
+//   A      = softmax_j(h_hat + madd_j [+ aadd_ij] [+ rmask_ij])
+//            * sigmoid(G + madd_j [+ aadd_ij] [+ rmask_ij])
+//   A      = kept_ij ? A / keep : 0                    (training dropout)
 //   v_att_i = sum_j A_ij v_j                          (written, (b, l, dh))
+//   hh     = h_hat                                     (written when asked,
+//                                                       (b, l, l, h), for the
+//                                                       split backward)
 //   e_mid  = h_hat . Wr + br + e[b, i, j, :]          (h -> ew)
 //   e_out  = act(LN(e_mid) . W1 + b1) . W2 + b2 + e_mid   (written)
 // Math is f32; e, qkv, the weight matrices, e_out and v_att are in the
 // working type (f32 or bf16), rounded where the JAX kernel rounds: the LN
 // outputs, h_hat before Wr, A before A.V, and the FFN hidden activations.
+// The random mask and dropout (training) draw from philox.cuh: draw 0 and 1
+// of (b, i, j, head). Only v_att sees them: e_out depends on the pre-mask
+// h_hat.
 //
 // What bounds it on an H100: at the ZINC-500k serving shape (b 128, l 40,
 // ew 64, h 8, hidden 128, bf16) it must move ~55 MB (e in, e_out out, qkv,
@@ -33,48 +41,15 @@
 // v_att are written once; no per-pair intermediate goes to device memory.
 // wgmma tiles for the edge FFN and TMA loads of e are the next step.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math.h>
+#include "common.cuh"
+#include "philox.cuh"
 
 namespace {
 
+using namespace egt;
+
 constexpr int NT = 256;  // threads per block
 constexpr int TJ = 32;   // keys per chunk (a multiple of 4)
-constexpr float LN_EPS = 1e-3f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-template <typename T> __device__ __forceinline__ float rnd(float x) {
-  return to_f(from_f<T>(x));
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-// 0 identity, 1 elu, 2 relu, 3 leaky relu (alpha)
-__device__ __forceinline__ float act_fn(int kind, float alpha, float x) {
-  switch (kind) {
-    case 1: return x > 0.f ? x : expm1f(x);
-    case 2: return fmaxf(x, 0.f);
-    case 3: return x > 0.f ? x : alpha * x;
-    default: return x;
-  }
-}
-
-__device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
 
 // Y[jj][n] = sum_k XT[k][jj] * W[k][n] for jj < nj, n < N, handed to
 // epi(jj, n, y). XT is (K, TJ) f32 in shared memory, W is (K, N) row-major.
@@ -148,11 +123,12 @@ struct Params {
   const float* g1; const float* b1; const void* wr; const float* br;
   const float* g2; const float* b2; const void* w1; const float* bb1;
   const void* w2; const float* bb2;
-  void* eout; void* vatt;
+  void* eout; void* vatt; void* hhout;
   int B, l, ew, h, dh, hid, gated, has_clip;
   float lo, hi, scale;
   int edge_act, act;
   float edge_alpha, act_alpha;
+  Draws dr;
 };
 
 // shared-memory carve-up, in floats then working-type elements
@@ -224,10 +200,12 @@ __global__ void __launch_bounds__(NT) fused_layer_fwd_kernel(Params p) {
   const T* QKV = (const T*)p.qkv;
   T* EO = (T*)p.eout;
   T* VA = (T*)p.vatt;
+  T* HO = (T*)p.hhout;
   const int rows = p.B * l;
+  const bool dropping = p.dr.dropping();
 
   for (int row = blockIdx.x; row < rows; row += gridDim.x) {
-    const int b = row / l;
+    const int b = row / l, i = row % l;
     const size_t ebase = (size_t)row * l * ew;  // e[b, i, 0, 0]
     const float* mrow = p.mask + (size_t)b * l;
     const float* arow = p.amask ? p.amask + (size_t)row * l : nullptr;
@@ -261,14 +239,16 @@ __global__ void __launch_bounds__(NT) fused_layer_fwd_kernel(Params p) {
         if (p.has_clip) s = fminf(fmaxf(s, p.lo), p.hi);
         const float hv = s + hh_s[j * h + hh];
         hh_s[j * h + hh] = hv;
+        if (HO) HO[((size_t)row * l + j) * h + hh] = from_f<T>(hv);
         const float madd = (mrow[j] - 1.f) * 1e9f;
+        const float rm = p.dr.mask_add(b, i, j, hh);
         float lg = hv + madd;
         if (arow) lg += (arow[j] - 1.f) * 1e9f;
-        lm_s[j * h + hh] = lg;
+        lm_s[j * h + hh] = lg + rm;
         if (p.gated) {
           float gm = gpre[t] + madd;
           if (arow) gm += (arow[j] - 1.f) * 1e9f;
-          sg_s[j * h + hh] = sigmoid(gm);
+          sg_s[j * h + hh] = sigmoid(gm + rm);
         }
       }
       __syncthreads();
@@ -289,6 +269,7 @@ __global__ void __launch_bounds__(NT) fused_layer_fwd_kernel(Params p) {
       for (int j = lane; j < l; j += 32) {
         float a = lm_s[j * h + hh] / den;
         if (p.gated) a *= sg_s[j * h + hh];
+        if (dropping) a = p.dr.kept(b, i, j, hh) ? a / p.dr.keep : 0.f;
         lm_s[j * h + hh] = rnd<T>(a);
       }
     }
@@ -368,8 +349,9 @@ int launch(const Params& p, cudaStream_t stream) {
 
 // dtype: 0 = float32, 1 = bfloat16. Weight matrices (wg, wb: (ew, h);
 // wr: (h, ew); w1: (ew, hid); w2: (hid, ew)) are in the working type;
-// biases and LN parameters are f32. amask and (when not gated) wg / bg may
-// be null. Activation codes: 0 identity, 1 elu, 2 relu, 3 leaky relu.
+// biases and LN parameters are f32. amask, hhout (inference) and (when not
+// gated) wg / bg may be null. Activation codes: 0 identity, 1 elu, 2 relu,
+// 3 leaky relu. mask_p / drop_p 0 switch the draws off (inference).
 // Returns cudaGetLastError() after the launch.
 extern "C" int fused_layer_fwd(
     int dtype, const void* e, const void* qkv, const float* mask,
@@ -377,12 +359,14 @@ extern "C" int fused_layer_fwd(
     const float* bb, const float* g1, const float* b1, const void* wr,
     const float* br, const float* g2, const float* b2, const void* w1,
     const float* bb1, const void* w2, const float* bb2, void* eout,
-    void* vatt, int B, int l, int ew, int h, int dh, int hid, int gated,
-    int has_clip, float lo, float hi, float scale, int edge_act,
-    float edge_alpha, int act, float act_alpha, void* stream) {
+    void* vatt, void* hhout, int B, int l, int ew, int h, int dh, int hid,
+    int gated, int has_clip, float lo, float hi, float scale, int edge_act,
+    float edge_alpha, int act, float act_alpha, unsigned seed_lo,
+    unsigned seed_hi, float mask_p, float drop_p, float keep, void* stream) {
   Params p{e, qkv, mask, amask, wg, bg, wb, bb, g1, b1, wr, br, g2, b2,
-           w1, bb1, w2, bb2, eout, vatt, B, l, ew, h, dh, hid, gated,
-           has_clip, lo, hi, scale, edge_act, act, edge_alpha, act_alpha};
+           w1, bb1, w2, bb2, eout, vatt, hhout, B, l, ew, h, dh, hid, gated,
+           has_clip, lo, hi, scale, edge_act, act, edge_alpha, act_alpha,
+           Draws{seed_lo, seed_hi, mask_p, drop_p, keep}};
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) return launch<float>(p, s);
   if (dtype == 1) return launch<__nv_bfloat16>(p, s);

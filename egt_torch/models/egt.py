@@ -1,9 +1,13 @@
-"""The EGT attention op (plain model path), inference only.
+"""The EGT attention op (plain model path).
 
 Port of `egt_tpu/models/egt.py::split_qkv` and `egt_attention_core`: scaled
 QK^T logits, clipping, additive edge bias, additive `(mask-1)*1e9` key masking
-on BOTH logits and gates, optional hard mask, softmax(keys) x sigmoid gating,
-value aggregation and the degree scaler with virtual-node rows pinned to 1.
+on BOTH logits and gates, optional hard mask, the training-time random
+attention mask and attention dropout, softmax(keys) x sigmoid gating, value
+aggregation and the degree scaler with virtual-node rows pinned to 1. The
+draws come from `ops/rng.py` (draw 0 the random mask, draw 1 dropout, keyed
+by (b, i, j, head)), the generator the attention kernels use, so the plain
+path and the kernel paths draw the same bits.
 
 Layout follows the reference: the flat qkv feature axis factors as [3, d, h];
 per-pair tensors are (b, l_q, l_k, h). Products take working-type operands and
@@ -18,11 +22,13 @@ from typing import NamedTuple
 
 import torch
 
+from ..ops import rng
+
 
 class EGTOutput(NamedTuple):
     v_att: torch.Tensor         # (b, l_q, d*h) aggregated values (degree-scaled)
     h_hat: torch.Tensor         # (b, l_q, l_k, h) logits+edge bias
-    a_tild: torch.Tensor        # (b, l_q, l_k, h) post-gating attention matrix
+    a_tild: torch.Tensor        # (b, l_q, l_k, h) post-gating, post-dropout
 
 
 def split_qkv(qkv: torch.Tensor, num_heads: int):
@@ -49,15 +55,17 @@ def egt_attention_core(
     random_mask_prob=0.0,
     attn_dropout=0.0,
     training=False,
+    seed=None,                  # keys the training draws (the JAX rng)
     chain_f32=True,
 ) -> EGTOutput:
     if scale_degree and gates is None:
         raise ValueError("scale_degree requires gated attention")
     if scaler_type not in ("log", "linear"):
         raise ValueError(f"scaler_type must be log or linear, got {scaler_type}")
-    if training and (random_mask_prob > 0.0 or attn_dropout > 0.0):
-        raise NotImplementedError("random attention masking and attention "
-                                  "dropout (training) are not ported yet")
+    if training and (random_mask_prob > 0.0 or attn_dropout > 0.0) \
+            and seed is None:
+        raise ValueError("random_mask_prob / attn_dropout require a seed at "
+                         "training time")
 
     b, lq, d, h = q.shape
     out_dtype = q.dtype
@@ -85,13 +93,26 @@ def egt_attention_core(
         if g is not None:
             g = g + aadd
 
+    if training and random_mask_prob > 0.0:
+        u = rng.pair_uniform(seed, logits.shape, rng.RANDOM_MASK, q.device)
+        rmask = torch.where(u < random_mask_prob, -1e9, 0.0).to(ct)
+        logits = logits + rmask
+        if g is not None:
+            g = g + rmask
+
     a_tild = torch.softmax(logits, dim=2)
     sg = None
     if g is not None:
         sg = torch.sigmoid(g)
         a_tild = a_tild * sg
 
-    v_att = torch.einsum("blmh,bmdh->bldh", a_tild.to(out_dtype).float(),
+    a_drop = a_tild
+    if training and attn_dropout > 0.0:
+        u = rng.pair_uniform(seed, a_tild.shape, rng.DROPOUT, q.device)
+        a_drop = torch.where(u >= attn_dropout,
+                             a_tild / (1.0 - attn_dropout), 0.0)
+
+    v_att = torch.einsum("blmh,bmdh->bldh", a_drop.to(out_dtype).float(),
                          v.float())
 
     if scale_degree:
@@ -104,4 +125,4 @@ def egt_attention_core(
 
     v_att = v_att.to(out_dtype).reshape(b, lq, d * h)
     return EGTOutput(v_att=v_att, h_hat=h_hat.to(out_dtype),
-                     a_tild=a_tild.to(out_dtype))
+                     a_tild=a_drop.to(out_dtype))

@@ -1,6 +1,6 @@
 """Feature embeddings, initialisers and the adjacency hop stack.
 
-Port of the parts of `egt_tpu/models/features.py` the ZINC serving path runs:
+Port of the parts of `egt_tpu/models/features.py` the ZINC path runs:
 Keras-style initialisers (drawn from an explicit `torch.Generator`), `dense`,
 the -1-masked token embedding and the clipped hop stack.
 """
@@ -49,9 +49,20 @@ def dense(p, x):
 # ----------------------------------------------------------------------- embeddings
 
 
+# Below this vocab size a lookup is a one-hot product: the table's gradient
+# is then a small matrix product, where indexing's is a scatter-add of
+# b * l * l rows onto a handful of table rows (the edge-token table has 5).
+_ONEHOT_VOCAB_MAX = 64
+
+
 def token_embed(p, ids):
     """-1-masked token lookup: table[ids + 1] (-1 padding hits row 0)."""
-    return p["table"][ids.long() + 1]
+    table = p["table"]
+    idx = ids.long() + 1
+    if table.shape[0] <= _ONEHOT_VOCAB_MAX:
+        oh = torch.nn.functional.one_hot(idx, table.shape[0]).to(table.dtype)
+        return oh @ table
+    return table[idx]
 
 
 # -------------------------------------------------------------- adjacency structure

@@ -1,8 +1,9 @@
-"""EGTGraphModel: config + `nn.Module` with the inference forward pass.
+"""EGTGraphModel: config + `nn.Module` with the forward pass.
 
-Port of `egt_tpu/models/graph_model.py` for the ZINC serving path: token node
-and edge embeddings plus the adjacency-hop embedding, the layer stack, the
-final norms and the masked mean-pool graph readout. `GraphModelConfig` is
+Port of `egt_tpu/models/graph_model.py` for the ZINC path: token node and
+edge embeddings plus the adjacency-hop embedding, the layer stack (with the
+training draws and dropout when `training`), the final norms and the masked
+mean-pool graph readout. `GraphModelConfig` is
 redeclared with the JAX fields, defaults and checks (the JAX module imports
 jax). Parameters carry the JAX params-tree names, so a state-dict key such
 as `stack.layers.0.dense_qkv.kernel` is the flat npz key
@@ -204,12 +205,27 @@ class EGTGraphModel(nn.Module):
         return (torch.bfloat16 if self.cfg.compute_dtype == "bfloat16"
                 else torch.float32)
 
-    def forward(self, batch: dict) -> torch.Tensor:
+    def output_mask(self, batch):
+        """The mask Keras would feed into compiled losses and metrics: none
+        for a graph readout, token validity for a node or edge readout."""
+        kind = self.cfg.readout_kind
+        if kind == "graph":
+            return None
+        key = {"node": "node_features", "edge": "feature_matrix"}[kind]
+        return torch.as_tensor(batch[key], device=self.device) >= 0
+
+    def forward(self, batch: dict, training: bool = False,
+                seeds=None) -> torch.Tensor:
         """batch: node_features (b, l) int, feature_matrix (b, l, l) int and
         graph_matrix (b, l, l) (any numeric dtype), as tensors or numpy
-        arrays. Returns the (b, num_targets) f32 predictions."""
+        arrays. Returns the (b, num_targets) f32 predictions. `seeds` holds
+        one seed per layer for this step (`fold_rng(rng, 1000 + i)` in JAX);
+        training draws and dropout need it."""
         cfg = self.cfg
         dev = self.device
+        if seeds is not None and len(seeds) != cfg.model_height:
+            raise ValueError(f"need {cfg.model_height} layer seeds, got "
+                             f"{len(seeds)}")
         nf = torch.as_tensor(batch["node_features"], device=dev)
         fm = torch.as_tensor(batch["feature_matrix"], device=dev)
         # the dataset ships the adjacency in a narrow integer dtype
@@ -226,8 +242,9 @@ class EGTGraphModel(nn.Module):
         dtype = self.compute_dtype
         h = h.to(dtype)
         e = e.to(dtype)
-        for layer in self.stack["layers"]:
-            h, e = layer(h, e, node_mask, edge_mask)
+        for i, layer in enumerate(self.stack["layers"]):
+            h, e = layer(h, e, node_mask, edge_mask, training,
+                         None if seeds is None else seeds[i])
         if (not cfg.add_n_norm) and cfg.do_final_norm:
             # the graph readout reads no edges, so `edge_norm_final` (kept for
             # the weight names) is not applied

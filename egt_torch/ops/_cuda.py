@@ -2,9 +2,10 @@
 
 Each `csrc/<name>.cu` exports a plain C function that returns
 `cudaGetLastError()`. It is compiled by `nvcc` into
-`build/egt_torch/<name>-<hash>.so` at first use (the hash covers the source and
-the flags, so an edited source rebuilds) and loaded with `ctypes`. Nothing here
-runs at import time: this module is imported on machines without `nvcc`.
+`build/egt_torch/<name>-<hash>.so` at first use (the hash covers the source,
+the shared `csrc/*.cuh` headers and the flags, so an edit rebuilds) and loaded
+with `ctypes`. Nothing here runs at import time: this module is imported on
+machines without `nvcc`.
 """
 
 from __future__ import annotations
@@ -37,6 +38,8 @@ def _nvcc() -> str:
 
 def library_path(source: str) -> Path:
     src = (_CSRC / f"{source}.cu").read_bytes()
+    for header in sorted(_CSRC.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{source}-{digest[:16]}.so"
 
@@ -82,19 +85,32 @@ class CudaKernel:
         self.source = source
         self.argtypes = argtypes
         self.launches = 0
+        self._lib = None
         self._fn = None
 
-    def _load(self):
-        if self._fn is None:
+    def _library(self):
+        if self._lib is None:
             job = _start_build(self.source)
             if job is not None:
                 _finish_build(self.source, job)
-            lib = ctypes.CDLL(str(library_path(self.source)))
-            fn = getattr(lib, self.source)
+            self._lib = ctypes.CDLL(str(library_path(self.source)))
+        return self._lib
+
+    def _load(self):
+        if self._fn is None:
+            fn = getattr(self._library(), self.source)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
             self._fn = fn
         return self._fn
+
+    def query(self, symbol: str, spec: str, *args) -> int:
+        """Call a helper `long long symbol(...)` of the same library (for
+        example the shared memory a shape needs); not a launch."""
+        fn = getattr(self._library(), symbol)
+        fn.argtypes = [_ARG[c] for c in spec.replace(" ", "")]
+        fn.restype = ctypes.c_longlong
+        return int(fn(*args))
 
     def __call__(self, *args) -> None:
         fn = self._load()
@@ -122,11 +138,12 @@ def check_cuda(name: str, t: torch.Tensor, shape: tuple, dtype) -> None:
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
-_ARG = dict(p=ctypes.c_void_p, i=ctypes.c_int, f=ctypes.c_float)
+_ARG = dict(p=ctypes.c_void_p, i=ctypes.c_int, f=ctypes.c_float,
+            u=ctypes.c_uint32, L=ctypes.c_longlong)
 
 
 def argtypes(spec: str) -> list:
-    """'ppi f' -> [c_void_p, c_void_p, c_int, c_float]: pointers, ints and
-    floats of a C entry point, in order; the trailing stream pointer is
-    appended."""
+    """'ppi f' -> [c_void_p, c_void_p, c_int, c_float]: pointers (p), ints
+    (i), unsigned 32-bit ints (u), long longs (L) and floats (f) of a C entry
+    point, in order; the trailing stream pointer is appended."""
     return [_ARG[c] for c in spec.replace(" ", "")] + [ctypes.c_void_p]

@@ -28,10 +28,14 @@ PATHS = {"A": {}, "B": {"use_pallas": True, "use_pallas_layer": False}}
 
 
 def device_kernels(prof) -> dict[str, tuple[float, int]]:
-    """{kernel / copy name: (device microseconds, count)} of a profile."""
+    """{kernel / copy name: (device microseconds, count)} of a profile.
+    User annotations on the device timeline (for example the optimizer's
+    `Optimizer.step` range) span kernels already counted, so they are left
+    out."""
     out: dict[str, tuple[float, int]] = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if e.device_type == torch.autograd.DeviceType.CUDA and \
+                not getattr(e, "is_user_annotation", False):
             us, n = out.get(e.name, (0.0, 0))
             out[e.name] = (us + e.time_range.elapsed_us(), n + 1)
     return out

@@ -1,5 +1,5 @@
-"""Config resolution for serving: a run config (the JSON files under
-`configs/`) -> `GraphModelConfig`.
+"""Config resolution: a run config (the JSON files under `configs/`) ->
+`GraphModelConfig`, and the ZINC loss binding.
 
 Port of the serving side of the JAX package's config chain: the trainer
 defaults (`egt_tpu/training/trainer.py::TrainingBase.get_default_config`),
@@ -12,7 +12,10 @@ a ZINC config may hold, including those serving ignores.
 
 from __future__ import annotations
 
+import torch
+
 from .models.graph_model import GraphModelConfig
+from .training import metrics as M
 from .utils.hparams import Derived, HParams, join_path, read_config_from_file
 
 ZINC_MAX_LENGTH = 40     # the ZINC dataset's declared pad length
@@ -216,3 +219,10 @@ def model_config_from_config(config: dict | str) -> GraphModelConfig:
     rm = c.remat
     cfg.remat = rm if rm == "dots" else bool(rm)
     return cfg
+
+
+def loss_and_metrics(pred, target, mask, sample_mask):
+    """The ZINC schemes' loss (`egt_tpu/training/schemes/zinc.py:46-49`):
+    the MAE of the graph target, with its (sum, count) pair as `mae`."""
+    s, c = M.mae_loss(pred, target, mask, sample_mask)
+    return s / torch.clamp(c, min=1.0), {"mae": (s, c)}

@@ -1,11 +1,13 @@
 """Seeded stand-ins for trained weights and ZINC batches, for runs on a
-machine that holds neither (the chip smoke test and the serving profile).
+machine that holds neither (the chip smoke test and the serving and
+training profiles).
 
 `random_flat_params` draws a {JAX flat name: array} dict, the form a JAX
 `saved/*.npz` snapshot takes, so loading it exercises the weight transfer.
 `zinc_batch` draws ZINC-shaped graphs in the JAX batch format: 9-38 atoms
 padded to 40, atom tokens 0-27, bond tokens 0-3 on a spanning tree plus a few
-ring closures (symmetric), -1 padding, a self-looped uint8 adjacency.
+ring closures (symmetric), -1 padding, a self-looped uint8 adjacency, and a
+standard-normal f32 regression `target (b, 1)`.
 """
 
 from __future__ import annotations
@@ -52,4 +54,6 @@ def zinc_batch(rng: np.random.Generator, b: int, pad: int = 40,
                 fm[i, s, t] = fm[i, t, s] = rng.integers(0, 4)
                 adj[i, s, t] = adj[i, t, s] = 1
         adj[i, np.arange(n), np.arange(n)] = 1
-    return {"node_features": nf, "feature_matrix": fm, "graph_matrix": adj}
+    target = rng.normal(size=(b, 1)).astype(np.float32)
+    return {"node_features": nf, "feature_matrix": fm, "graph_matrix": adj,
+            "target": target}

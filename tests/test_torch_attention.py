@@ -106,10 +106,20 @@ def test_attention_wrapper_matches_jax_kernel(name):
 
 
 def test_stochastic_attention_not_ported():
+    """The training draws are ported: like JAX without an rng, they raise
+    without a seed; with one, both ops draw the same bits (ops/rng.py), so
+    the kernel wrapper and the plain op agree with the draws live."""
     q, k, v, e, g, mask, _ = make_inputs(0)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         tatt.egt_attention_fused(*map(_t, (q, k, v, e, g)), training=True,
                                  random_mask_prob=0.1)
-    q, k, v, e, g = (_t(_bldh(x)) for x in (q, k, v, e, g))
-    with pytest.raises(NotImplementedError):
-        tegt.egt_attention_core(q, k, v, e, g, training=True, attn_dropout=0.1)
+    hm = [_t(_bldh(x)) for x in (q, k, v, e, g)]
+    with pytest.raises(ValueError):
+        tegt.egt_attention_core(*hm, training=True, attn_dropout=0.1)
+    kw = dict(training=True, random_mask_prob=0.2, attn_dropout=0.1, seed=3)
+    fused = tatt.egt_attention_fused(*map(_t, (q, k, v, e, g)),
+                                     node_mask=_t(mask), **kw)
+    plain = tegt.egt_attention_core(*hm, node_mask=_t(mask), **kw)
+    np.testing.assert_allclose(fused.v_att.numpy(), plain.v_att.numpy(), **TOL)
+    off = tegt.egt_attention_core(*hm, node_mask=_t(mask))
+    assert not np.allclose(plain.v_att.numpy(), off.v_att.numpy())

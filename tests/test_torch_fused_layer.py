@@ -110,16 +110,25 @@ INELIGIBLE = [dict(edge_channel_type="bias"), dict(add_n_norm=True),
               dict(combine_layer_repr=True)]
 
 
-@pytest.mark.parametrize("kw", [dict(), dict(fused_layer="auto")] + INELIGIBLE,
+# edge dropout is refused only at training time (the kernel has none)
+TRAINING = [dict(training=True), dict(edge_dropout=0.1),
+            dict(edge_dropout=0.1, training=True)]
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(fused_layer="auto")] + INELIGIBLE
+                         + TRAINING,
                          ids=lambda kw: ",".join(kw) or "eligible")
 def test_can_fuse_layer_agrees_with_jax(kw):
     """The structural rule is the JAX one; "auto" is on in the port (the JAX
     "auto" consults TPU measurements, so it is compared as True)."""
     kw = {"fused_layer": True, **kw}
+    training = kw.pop("training", False)
     jkw = {**kw, "fused_layer": True}
-    port = tfl.can_fuse_layer(TCfg(**BASE, upto_hop=2, **kw))
-    ref = jfl.can_fuse_layer(JCfg(**BASE, upto_hop=2, **jkw), False, None,
+    port = tfl.can_fuse_layer(TCfg(**BASE, upto_hop=2, **kw), training)
+    ref = jfl.can_fuse_layer(JCfg(**BASE, upto_hop=2, **jkw), training, None,
                              False, 12)
     assert port == ref
-    assert port == (kw in ({"fused_layer": True},
-                           {"fused_layer": "auto"}))
+    eligible = kw in ({"fused_layer": True}, {"fused_layer": "auto"})
+    if kw == {"fused_layer": True, "edge_dropout": 0.1}:
+        eligible = not training
+    assert port == eligible

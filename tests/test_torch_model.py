@@ -221,9 +221,11 @@ def test_port_imports_no_jax_at_runtime():
 
 
 def test_kernel_sources_exist_and_cpu_takes_plain_path():
-    for name in ("fused_layer_fwd", "egt_attention_fwd"):
-        assert (REPO / "egt_torch" / "csrc" / f"{name}.cu").is_file()
-    launches = (tfl.KERNEL.launches, tatt.KERNEL.launches)
+    kernels = (tfl.KERNEL, tfl.BWD_TAIL_KERNEL, tfl.BWD_ATTN_KERNEL,
+               tatt.KERNEL, tatt.BWD_KERNEL)
+    for kern in kernels:
+        assert (REPO / "egt_torch" / "csrc" / f"{kern.source}.cu").is_file()
+    launches = tuple(k.launches for k in kernels)
     for kw in (PATHS["whole_layer_kernel"], PATHS["attention_kernel"]):
         run_both(kw)
-    assert (tfl.KERNEL.launches, tatt.KERNEL.launches) == launches == (0, 0)
+    assert tuple(k.launches for k in kernels) == launches == (0,) * 5
