@@ -29,7 +29,10 @@
 // A.V passes; K and V are read through L1. Nothing of the per-pair chain is
 // written to device memory except h_hat, which the edge stream needs.
 // Tensor cores are not used: d = 8 makes the products tiny, and the kernel
-// is bound by the per-pair bytes anyway.
+// is bound by the per-pair bytes anyway. The draws are a template switch:
+// with the Philox code compiled in, ptxas gives the kernel 56 registers a
+// thread instead of 40, fewer warps fit an SM, and the inference launch ran
+// 25% slower on an H100 (PERF.md).
 
 #include "common.cuh"
 #include "philox.cuh"
@@ -40,7 +43,7 @@ using namespace egt;
 
 constexpr int WARPS = 4;
 
-template <typename T>
+template <typename T, bool DRAWS>
 __global__ void __launch_bounds__(WARPS * 32)
 egt_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ e,
@@ -58,7 +61,7 @@ egt_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int i = (blockIdx.x % rowblocks) * WARPS + warp;
   if (i >= lq) return;  // whole warps leave; no block-wide barrier follows
   const int b = bh / H, hd = bh % H;
-  const bool dropping = dr.dropping();
+  const bool dropping = DRAWS && dr.dropping();
 
   float* lm = smem + (size_t)warp * (2 * lk + d + 32);  // logits, then A
   float* sg = lm + lk;                                   // sigmoid(gates)
@@ -84,7 +87,7 @@ egt_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (has_clip) s = fminf(fmaxf(s, lo), hi);
     const float hh = s + to_f(e[prow + j]);
     hhat[prow + j] = from_f<T>(hh);
-    const float rm = dr.mask_add(b, i, j, hd);
+    const float rm = DRAWS ? dr.mask_add(b, i, j, hd) : 0.f;
     float l = hh + mrow[j];
     if (frow) l += frow[j];
     l += rm;
@@ -151,7 +154,9 @@ int launch(const void* q, const void* k, const void* v, const void* e,
            int has_clip, float lo, float hi, float scale, Draws dr,
            cudaStream_t stream) {
   const size_t smem = (size_t)WARPS * (2 * lk + d + 32) * sizeof(float);
-  auto kern = egt_attention_fwd_kernel<T>;
+  auto kern = (dr.mask_p > 0.f || dr.drop_p > 0.f)
+                  ? egt_attention_fwd_kernel<T, true>
+                  : egt_attention_fwd_kernel<T, false>;
   if (smem > 48 * 1024)
     cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smem);

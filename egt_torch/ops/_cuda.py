@@ -11,6 +11,7 @@ machines without `nvcc`.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -119,6 +120,20 @@ class CudaKernel:
         if rc != 0:
             raise RuntimeError(f"{self.source}: CUDA error {rc} at launch")
         self.launches += 1
+
+
+def dispatch(plain, cuda):
+    """Make the decorated stub (its signature and docstring) the public form
+    of a kernel: `plain` when the first tensor argument lies on the CPU, else
+    `cuda`, which launches the kernel or raises (no fallback from a CUDA
+    tensor)."""
+    def wrap(stub):
+        @functools.wraps(stub)
+        def fn(*args, **kwargs):
+            t = next(a for a in args if isinstance(a, torch.Tensor))
+            return (plain if t.device.type == "cpu" else cuda)(*args, **kwargs)
+        return fn
+    return wrap
 
 
 def ptr(t: torch.Tensor | None) -> int | None:

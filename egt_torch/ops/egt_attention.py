@@ -115,11 +115,10 @@ def _egt_core_fwd_cuda(q, k, v, e, g, madd, maddf, clip, draws: Draws = OFF):
     return v_att, h_hat, deg
 
 
+@_cuda.dispatch(egt_core_fwd_plain, _egt_core_fwd_cuda)
 def egt_core_fwd(q, k, v, e, g, madd, maddf, clip, draws: Draws = OFF):
     """(v_att (b, h, lq, d), h_hat (b, h, lq, lk), degrees (b, h, lq) | None):
-    the kernel on CUDA tensors, its plain version on CPU tensors."""
-    fn = egt_core_fwd_plain if q.device.type == "cpu" else _egt_core_fwd_cuda
-    return fn(q, k, v, e, g, madd, maddf, clip, draws)
+    K1 on CUDA tensors, its plain version on CPU tensors."""
 
 
 def egt_core_bwd_plain(q, k, v, g, madd, maddf, h_hat, gv, gh, gdeg, clip,
@@ -207,12 +206,11 @@ def _egt_core_bwd_cuda(q, k, v, g, madd, maddf, h_hat, gv, gh, gdeg, clip,
     return dq, dk, dv, de, dg
 
 
+@_cuda.dispatch(egt_core_bwd_plain, _egt_core_bwd_cuda)
 def egt_core_bwd(q, k, v, g, madd, maddf, h_hat, gv, gh, gdeg, clip,
                  draws: Draws = OFF):
     """(dq, dk, dv, de, dg): K2 on CUDA tensors, its plain version on CPU
     tensors."""
-    fn = egt_core_bwd_plain if q.device.type == "cpu" else _egt_core_bwd_cuda
-    return fn(q, k, v, g, madd, maddf, h_hat, gv, gh, gdeg, clip, draws)
 
 
 class EGTCoreFn(torch.autograd.Function):

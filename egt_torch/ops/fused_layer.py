@@ -338,13 +338,11 @@ def _fused_layer_cuda(spec: LayerSpec, e, qkv, mask, amask, w, seed: int = 0,
     return (e_out, v_att, hh) if save_hh else (e_out, v_att)
 
 
+@_cuda.dispatch(fused_layer_plain, _fused_layer_cuda)
 def fused_layer_core(spec: LayerSpec, e, qkv, mask, amask, w, seed: int = 0,
                      save_hh: bool = False):
-    """(e_out, v_att[, hh]): the kernel on CUDA tensors, its plain version on
-    CPU tensors."""
-    if e.device.type == "cpu":
-        return fused_layer_plain(spec, e, qkv, mask, amask, w, seed, save_hh)
-    return _fused_layer_cuda(spec, e, qkv, mask, amask, w, seed, save_hh)
+    """(e_out, v_att[, hh]): K3 on CUDA tensors, its plain version on CPU
+    tensors."""
 
 
 # ------------------------------------------------------------------ backward
@@ -406,11 +404,10 @@ def _bwd_tail_cuda(spec: LayerSpec, e, hh, g_eout, w):
                          for k, x in zip(_TAIL_KEYS, parts)}
 
 
+@_cuda.dispatch(fused_layer_bwd_tail_plain, _bwd_tail_cuda)
 def fused_layer_bwd_tail(spec: LayerSpec, e, hh, g_eout, w):
-    """K4 on CUDA tensors, its plain version on CPU tensors."""
-    if e.device.type == "cpu":
-        return fused_layer_bwd_tail_plain(spec, e, hh, g_eout, w)
-    return _bwd_tail_cuda(spec, e, hh, g_eout, w)
+    """(de_mid, dhh, dw): K4 on CUDA tensors, its plain version on CPU
+    tensors."""
 
 
 def fused_layer_bwd_attn_plain(spec: LayerSpec, e, qkv, mask, amask, w, hh,
@@ -518,12 +515,11 @@ def _bwd_attn_cuda(spec: LayerSpec, e, qkv, mask, amask, w, hh, dhh, de_mid,
     return de, dq, dk, dv, grads
 
 
+@_cuda.dispatch(fused_layer_bwd_attn_plain, _bwd_attn_cuda)
 def fused_layer_bwd_attn(spec: LayerSpec, e, qkv, mask, amask, w, hh, dhh,
                          de_mid, g_vatt, seed: int = 0):
-    """K5 on CUDA tensors, its plain version on CPU tensors."""
-    fn = (fused_layer_bwd_attn_plain if e.device.type == "cpu"
-          else _bwd_attn_cuda)
-    return fn(spec, e, qkv, mask, amask, w, hh, dhh, de_mid, g_vatt, seed)
+    """(de, dq, dk, dv, dw): K5 on CUDA tensors, its plain version on CPU
+    tensors."""
 
 
 class FusedLayerFn(torch.autograd.Function):

@@ -1,9 +1,10 @@
 """Where a training step's time goes on the card.
 
-    python -m egt_torch.profile_training [--path A|B] [--steps N]
+    python -m egt_torch.profile_training [--path A|B]
 
-Trains the flagship ZINC-500k config (seeded weights, synthetic 128-graph
-batches; see `egt_torch.synthetic`) and prints the wall time per step
+Trains the flagship ZINC-500k config (seeded weights, STEPS synthetic batches
+of GRAPHS graphs, the config's batch size; see `egt_torch.synthetic`) and
+prints the wall time per step
 (without the profiler, which slows the host), the device-busy time per step
 under `torch.profiler` and the device's idle share (1 - busy / wall), then
 the operators ranked by device time. Path A is the config as
@@ -25,12 +26,12 @@ from . import schemes, synthetic
 from .profile_serving import CONFIG, PATHS, device_kernels
 from .training.steps import load_trainer
 
+STEPS, GRAPHS = 6, 128
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--path", choices=sorted(PATHS), default="A")
-    ap.add_argument("--steps", type=int, default=6)
-    ap.add_argument("--graphs", type=int, default=128)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_training needs a CUDA device")
@@ -39,8 +40,7 @@ def main(argv=None) -> int:
     flat = synthetic.random_flat_params(schemes.model_config_from_config(raw))
     trainer = load_trainer(raw, flat)
     rng = np.random.default_rng(1)
-    batches = [synthetic.zinc_batch(rng, args.graphs)
-               for _ in range(args.steps)]
+    batches = [synthetic.zinc_batch(rng, GRAPHS) for _ in range(STEPS)]
     for b in batches[:2]:
         trainer.train_step(b)                        # warm-up
     torch.cuda.synchronize()
@@ -49,7 +49,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         for b in batches:
             trainer.train_step(b)                    # ends in .item(): synced
-        return (time.perf_counter() - t0) / args.steps
+        return (time.perf_counter() - t0) / STEPS
 
     wall = run()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -57,16 +57,16 @@ def main(argv=None) -> int:
     with torch.profiler.profile(activities=acts) as prof:
         wall_prof = run()
     kernels = device_kernels(prof)
-    busy = sum(us for us, _ in kernels.values()) / 1e6 / args.steps
-    print(f"path {args.path}: {args.steps} steps x {args.graphs} graphs, "
+    busy = sum(us for us, _ in kernels.values()) / 1e6 / STEPS
+    print(f"path {args.path}: {STEPS} steps x {GRAPHS} graphs, "
           f"wall {wall * 1e3:.3f} ms/step ({wall_prof * 1e3:.3f} under the "
           f"profiler), device busy {busy * 1e3:.3f} ms/step, device idle "
           f"share {max(0.0, 1 - busy / wall):.3f}")
     print(f"{'device ms/step':>14} {'share':>6} {'calls/step':>10}  kernel")
     for name, (us, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:20]:
-        print(f"{us / 1e3 / args.steps:14.4f} "
-              f"{us / 1e6 / args.steps / busy:6.3f} "
-              f"{n / args.steps:10.1f}  {name[:90]}")
+        print(f"{us / 1e3 / STEPS:14.4f} "
+              f"{us / 1e6 / STEPS / busy:6.3f} "
+              f"{n / STEPS:10.1f}  {name[:90]}")
     return 0
 
 
