@@ -7,32 +7,38 @@ Phases, in order (any failure makes the exit code non-zero and suppresses the
 final result line):
   1. host record: `nvidia-smi` name and power limit, torch and CUDA versions,
      `nvcc --version`;
-  2. build the five CUDA kernels from `egt_torch/csrc` (one nvcc each, in
+  2. build the nine CUDA kernels from `egt_torch/csrc` (one nvcc each, in
      parallel);
   3. each kernel against its plain PyTorch version on the card, at the
      ZINC-500k shapes in f32 and bf16 with ragged node masks, plus one
-     awkward shape (l 37, ew 32, h 4, hard mask): the forwards K1 and K3 at
-     inference and in training mode (random mask 0.1 and dropout 0.1 live,
-     h_hat out), the backwards K4, K5 and K2 with the same draws; errors,
-     kernel / plain times (CUDA events, median of 30 launches with L2 flushed
-     before each) and the reckoned bound;
-  4. serving path A: `load_predictor` on configs/main/zinc/500k/egt.json with
+     awkward shape: the forwards K1 and K3 at inference and in training mode
+     (random mask 0.1 and dropout 0.1 live, h_hat out), the backwards K4, K5,
+     K7 (merged), K6 (mono) and K2 with the same draws (awkward: l 37, ew 32,
+     h 4, hard mask); the edge block's K8 and K9 with h_hat head-major, as
+     path C hands it over (awkward: ew 32, hidden 64, h 4, rows, a pair
+     count that is no multiple of the 32-pair tile); errors, kernel / plain
+     times (CUDA events, median of 30 launches with L2 flushed before each)
+     and the reckoned bound;
+  4. serving paths: `load_predictor` on configs/main/zinc/500k/egt.json with
      seeded weights under the JAX names answers 4 requests of 128 synthetic
-     ZINC-shaped graphs through the whole-layer kernel (10 launches a
-     request), checked against the model's plain path;
-  5. serving path B: the same with use_pallas true, use_pallas_layer false
-     (the attention kernel, 10 launches a request);
-  6. training path A: `load_trainer` on the same config and weights takes a
+     ZINC-shaped graphs, checked against the model's plain path (bf16 and
+     f32): path A through the whole-layer kernel K3 (10 launches a request);
+     path B (use_pallas true, use_pallas_layer false) through the attention
+     kernel K1; path C (also use_pallas_edge true) through K1 and the edge
+     block K8 (10 launches each a request);
+  5. training paths: `load_trainer` on the same config and weights takes a
      warm-up step, then 4 timed steps on 128-graph batches (bf16, random
-     mask 0.1 live) through K3, K4 and K5 (10 launches each a step, K1 and K2
-     none); its first-step gradients of every parameter and its losses over
-     3 steps agree with the plain path's (f32 and bf16, same weights and
-     seeds, the same draws); 20 steps on one batch lower the loss;
-  7. training path B: the same through K1 and K2 (10 each a step, K3-K5
-     none);
-  8. one JSON line listing every kernel with its launches on its training
+     mask 0.1 live); each path's launches a step are checked, its
+     first-step gradients of every parameter and its losses over 3 steps
+     agree with the plain path's (f32 and bf16, same weights and seeds, the
+     same draws), and 20 steps on one batch lower the loss. Path A (K3; K4
+     and K5), path B (K1; K2), path C (K1, K8; K9, K2: 9 K9 launches a step,
+     as the last layer's edge output feeds no loss and autograd never runs
+     its backward), A-merged (K3; K7) and A-mono (K3; K6), the last two with
+     `fused_layer.BWD_IMPL` set as `EGT_FUSED_BWD` would set it;
+  6. one JSON line listing every kernel with its launches on its training
      path, its times and its bound;
-  9. last line: {"ok": true, "device": {...}}.
+  7. last line: {"ok": true, "device": {...}}.
 TF32 is off for matrix products and convolutions (full f32 references).
 Exits non-zero without a result when no CUDA device is present or when run
 outside a checkout of the repository.
@@ -53,7 +59,8 @@ CONFIG = REPO / "configs" / "main" / "zinc" / "500k" / "egt.json"
 N_REQUESTS, GRAPHS, PAD = 4, 128, 40
 N_STEPS, N_FALL = 4, 20          # timed training steps; the loss-falls run
 SOURCES = ("fused_layer_fwd", "egt_attention_fwd", "fused_layer_bwd_tail",
-           "fused_layer_bwd_attn", "egt_attention_bwd")
+           "fused_layer_bwd_attn", "egt_attention_bwd", "fused_layer_bwd_merged",
+           "fused_layer_bwd_mono", "edge_block_fwd", "edge_block_bwd")
 
 # published dense peaks (NVIDIA data sheets): memory B/s, bf16 tensor-core
 # FLOP/s, f32 FLOP/s outside the tensor cores; matched on the device name
@@ -122,6 +129,7 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from egt_torch import schemes, serving, synthetic
     from egt_torch.ops import _cuda
+    from egt_torch.ops import edge_block as eb
     from egt_torch.ops import egt_attention as att
     from egt_torch.ops import fused_layer as fl
     from egt_torch.training.steps import load_trainer
@@ -372,6 +380,80 @@ def main() -> int:
                             lambda: fl.fused_layer_bwd_attn_plain(*aargs),
                             nbytes, mm, pairs * (20 * ew + 40 * h), dtype,
                             timing)
+        # K7 from the same h_hat and cotangents; K6 recomputes h_hat from
+        # q.k (random q, k: no raw logit within an ulp of the clip)
+        bytes_k6 = (3 * pairs * ew + b * l * 3 * dh + 2 * b * l * dh) * it + \
+            (h * ew + 2 * ew * hid + 2 * ew * h) * it + \
+            (2 * b * l * dh + nw + ew * nproj + nproj + 2 * ew) * 4 + \
+            b * l * 4 + (pairs * 4 if constrained else 0)
+        mm_k6 = pairs * 2 * (3 * h * ew + 5 * ew * hid) + \
+            pairs * (6 * ew * nproj + 8 * dh)
+        for key, name, kfn, pfn, rargs, nbytes, mm in (
+                ("merged", "fused_layer_bwd_merged", fl._bwd_merged_cuda,
+                 fl.fused_layer_bwd_merged_plain,
+                 (spec, e, qkv, mask, am, w, hh, ge, gv, 77),
+                 bytes_k6 + pairs * h * it, mm_k6),
+                ("mono", "fused_layer_bwd_mono", fl._bwd_mono_cuda,
+                 fl.fused_layer_bwd_mono_plain,
+                 (spec, e, qkv, mask, am, w, ge, gv, 77), bytes_k6,
+                 mm_k6 + pairs * 2 * dh)):
+            out, ref = kfn(*rargs), pfn(*rargs)
+            torch.cuda.synchronize()
+            errs = [max_err(o, r, dtype, scaled=i >= 2)
+                    for i, (o, r) in enumerate(zip(out[:4], ref[:4]))]
+            errs += [max_err(out[4][k], r, dtype, scaled=True)
+                     for k, r in ref[4].items()]
+            res[key] = timed(f"{name} {shape}", errs,
+                             lambda: kfn(*rargs), lambda: pfn(*rargs),
+                             nbytes, mm, pairs * (50 * ew + 5 * hid + 40 * h),
+                             dtype, timing)
+        return res
+
+    # ---- 3c. edge block (K8 forward, K9 backward)
+    def edge_case(b, l, ew, h, dtype, head_major, timing=True):
+        hid = 2 * ew
+        w = dict(wr=randn(h, ew, scale=0.3).to(dtype), br=randn(ew, scale=0.1),
+                 g2=1 + randn(ew, scale=0.1), b2=randn(ew, scale=0.1),
+                 w1=randn(ew, hid, scale=0.2).to(dtype),
+                 bb1=randn(hid, scale=0.1),
+                 w2=randn(hid, ew, scale=0.2).to(dtype),
+                 bb2=randn(ew, scale=0.1))
+        # path C hands K8 the attention kernel's head-major h_hat
+        hh = randn(b, h, l, l, scale=2.0).to(dtype).permute(0, 2, 3, 1)
+        if not head_major:
+            hh = hh.contiguous()
+        e, g = randn(b, l, l, ew).to(dtype), randn(b, l, l, ew).to(dtype)
+        shape = (f"n{b * l * l} ew{ew} h{h} hidden{hid} {str(dtype)[6:]} "
+                 + ("head-major" if head_major else "rows"))
+        it = e.element_size()
+        n = b * l * l
+        wbytes = (h * ew + 2 * ew * hid) * it + (4 * ew + hid) * 4
+        out = eb._edge_block_fwd_cuda(hh, e, w)
+        ref = eb.edge_block_fwd_plain(hh, e, w)
+        torch.cuda.synchronize()
+        res = {"fwd": timed(
+            f"edge_block_fwd {shape}", [max_err(out, ref, dtype)],
+            lambda: eb._edge_block_fwd_cuda(hh, e, w),
+            lambda: eb.edge_block_fwd_plain(hh, e, w),
+            n * (h + 2 * ew) * it + wbytes,
+            n * 2 * (h * ew + 2 * ew * hid), n * (12 * ew + 2 * hid), dtype,
+            timing)}
+        out = eb._edge_block_bwd_cuda(hh, e, g, w)
+        ref = eb.edge_block_bwd_plain(hh, e, g, w)
+        torch.cuda.synchronize()
+        errs = [max_err(o, r, dtype) for o, r in zip(out[:2], ref[:2])]
+        errs += [max_err(out[2][k], r, dtype, scaled=True)
+                 for k, r in ref[2].items()]
+        check(out[0].stride() == hh.stride(),
+              f"edge_block_bwd {shape}: dhh in h_hat's layout")
+        nw = h * ew + 3 * ew + 2 * ew * hid + hid + ew
+        res["bwd"] = timed(
+            f"edge_block_bwd {shape}", errs,
+            lambda: eb._edge_block_bwd_cuda(hh, e, g, w),
+            lambda: eb.edge_block_bwd_plain(hh, e, g, w),
+            n * (2 * h + 3 * ew) * it + wbytes + nw * 4,
+            n * 2 * (3 * h * ew + 5 * ew * hid), n * (30 * ew + 5 * hid),
+            dtype, timing)
         return res
 
     try:
@@ -381,6 +463,9 @@ def main() -> int:
                     GRAPHS, 8, PAD, 8, dtype, training=training)
                 results[("layer", dtype, training)] = layer_case(
                     GRAPHS, PAD, 64, 8, 64, dtype, training=training)
+            results[("edge", dtype)] = edge_case(GRAPHS, PAD, 64, 8, dtype,
+                                                 head_major=True)
+            edge_case(5, 7, 32, 4, dtype, head_major=False, timing=False)
             for training in (False, True):
                 attention_case(16, 4, 37, 8, dtype, gated=False, hard=True,
                                training=training, timing=False)
@@ -392,7 +477,7 @@ def main() -> int:
         traceback.print_exc()
         check(False, "phase 3: kernels against their plain versions")
 
-    # ---- 4-5. the serving paths
+    # ---- 4. the serving paths
     raw = json.loads(CONFIG.read_text())
     # seeded weights under the JAX flat names: loading them exercises the
     # weight transfer
@@ -404,25 +489,41 @@ def main() -> int:
     plain_bf16 = serving.load_predictor(plain_cfg, flat)
     ref_out = [plain_bf16(r) for r in requests]
 
-    def serve(tag, overrides, kernel, other):
-        """Serve N_REQUESTS requests; check launches, outputs and agreement
-        with the plain path."""
+    kernels = {"K1": att.KERNEL, "K2": att.BWD_KERNEL, "K3": fl.KERNEL,
+               "K4": fl.BWD_TAIL_KERNEL, "K5": fl.BWD_ATTN_KERNEL,
+               "K6": fl.BWD_MONO_KERNEL, "K7": fl.BWD_MERGED_KERNEL,
+               "K8": eb.KERNEL, "K9": eb.BWD_KERNEL}
+
+    def counted(run, want, what):
+        """Run `run` with every count set to 0; check the launches against
+        `want` ({kernel: launches}, the others 0) and return them."""
+        for kern in kernels.values():
+            kern.launches = 0
+        out = run()
+        launches = {k: kern.launches for k, kern in kernels.items()}
+        full = {k: want.get(k, 0) for k in kernels}
+        check(launches == full, f"{what}: launches {launches} "
+              f"(expected {full})")
+        return out, launches
+
+    def serve(tag, overrides, on):
+        """Serve N_REQUESTS requests; check launches (10 a request for each
+        kernel in `on`), outputs and agreement with the plain path."""
         predict = serving.load_predictor(
             {**raw, **overrides} if overrides else str(CONFIG), flat)
         predict(requests[0])                       # warm-up
         torch.cuda.synchronize()
-        for kern in (fl.KERNEL, att.KERNEL):
-            kern.launches = 0
-        lat, outs = [], []
-        for r in requests:
-            t = time.perf_counter()
-            outs.append(predict(r))                # returns host numpy: synced
-            lat.append(time.perf_counter() - t)
-        launches = (kernel.launches, other.launches)
-        check(launches == (10 * N_REQUESTS, 0),
-              f"{tag}: {kernel.source} launched {launches[0]} times, "
-              f"{other.source} {launches[1]} times for {N_REQUESTS} requests "
-              f"(expected {10 * N_REQUESTS}, 0)")
+
+        def run():
+            lat, outs = [], []
+            for r in requests:
+                t = time.perf_counter()
+                outs.append(predict(r))            # returns host numpy: synced
+                lat.append(time.perf_counter() - t)
+            return lat, outs
+
+        (lat, outs), _ = counted(run, {k: 10 * N_REQUESTS for k in on},
+                                 f"{tag}, {N_REQUESTS} requests")
         ok_shape = all(o.shape == (GRAPHS, 1) and np.isfinite(o).all()
                        for o in outs)
         check(ok_shape, f"{tag}: outputs finite, shape ({GRAPHS}, 1)")
@@ -445,19 +546,18 @@ def main() -> int:
               f", median {med * 1e3:.3f} ms, {GRAPHS / med:.1f} graphs/s "
               f"(batch {GRAPHS}, 10 layers, bf16)", flush=True)
 
+    path_b = {"use_pallas": True, "use_pallas_layer": False}
+    path_c = {**path_b, "use_pallas_edge": True}
     try:
-        serve("serving path A (whole-layer kernel)", {}, fl.KERNEL,
-              att.KERNEL)
-        serve("serving path B (attention kernel)",
-              {"use_pallas": True, "use_pallas_layer": False},
-              att.KERNEL, fl.KERNEL)
+        serve("serving path A (whole-layer kernel)", {}, ("K3",))
+        serve("serving path B (attention kernel)", path_b, ("K1",))
+        serve("serving path C (attention kernel, edge block)", path_c,
+              ("K1", "K8"))
     except Exception:                               # noqa: BLE001 - report
         traceback.print_exc()
-        check(False, "phases 4-5: serving paths")
+        check(False, "phase 4: serving paths")
 
-    # ---- 6-7. the training paths
-    kernels = {"K1": att.KERNEL, "K2": att.BWD_KERNEL, "K3": fl.KERNEL,
-               "K4": fl.BWD_TAIL_KERNEL, "K5": fl.BWD_ATTN_KERNEL}
+    # ---- 5. the training paths
     trng = np.random.default_rng(1)
     train_batches = [synthetic.zinc_batch(trng, GRAPHS, PAD)
                      for _ in range(N_STEPS + 1)]
@@ -506,51 +606,69 @@ def main() -> int:
               f"normalised |kernel - plain| {worst:.3g} at {where} "
               f"(tol {gtol}; largest gradient {top:.3g})")
 
-    def train(tag, overrides, on):
-        tr = load_trainer({**raw, **overrides}, flat)      # bf16, as shipped
-        tr.train_step(train_batches[0])                    # warm-up
-        torch.cuda.synchronize()
-        for kern in kernels.values():
-            kern.launches = 0
-        times, losses = [], []
-        for bt in train_batches[1:]:
-            t = time.perf_counter()
-            losses.append(tr.train_step(bt)["loss"])       # .item(): synced
-            times.append(time.perf_counter() - t)
-        launches = {k: kern.launches for k, kern in kernels.items()}
-        want = {k: (10 * N_STEPS if k in on else 0) for k in kernels}
-        check(launches == want, f"{tag}: launches in {N_STEPS} steps "
-              f"{launches} (expected {want})")
-        check(bool(np.all(np.isfinite(losses))),
-              f"{tag}: losses finite {[round(x, 5) for x in losses]}")
-        med = statistics.median(times)
-        print(f"  {tag}: step ms {[round(x * 1e3, 3) for x in times]}, "
-              f"median {med * 1e3:.3f} ms, {GRAPHS / med:.1f} graphs/s "
-              f"(batch {GRAPHS}, 10 layers, bf16)", flush=True)
-        for dtype in ("float32", "bfloat16"):
-            agreement(tag, overrides, dtype)
-        fall = load_trainer({**raw, **overrides}, flat)
-        fl_losses = [fall.train_step(train_batches[0])["loss"]
-                     for _ in range(N_FALL)]
-        first, last = np.mean(fl_losses[:5]), np.mean(fl_losses[-5:])
-        check(last < first, f"{tag}: {N_FALL} steps on one batch, mean loss "
-              f"of the first 5 {first:.5f} -> last 5 {last:.5f}")
-        return launches
+    def train(tag, overrides, want, impl="split"):
+        """Timed steps with the launches a step in `want`, agreement with
+        the plain path, and a falling loss; the whole-layer backward is
+        `impl` (fused_layer.BWD_IMPL) for the phase."""
+        fl.BWD_IMPL = impl
+        try:
+            tr = load_trainer({**raw, **overrides}, flat)  # bf16, as shipped
+            tr.train_step(train_batches[0])                # warm-up
+            torch.cuda.synchronize()
 
+            def run():
+                times, losses = [], []
+                for bt in train_batches[1:]:
+                    t = time.perf_counter()
+                    losses.append(tr.train_step(bt)["loss"])  # .item(): synced
+                    times.append(time.perf_counter() - t)
+                return times, losses
+
+            (times, losses), launches = counted(
+                run, {k: n * N_STEPS for k, n in want.items()},
+                f"{tag}, {N_STEPS} steps")
+            check(bool(np.all(np.isfinite(losses))),
+                  f"{tag}: losses finite {[round(x, 5) for x in losses]}")
+            med = statistics.median(times)
+            print(f"  {tag}: step ms {[round(x * 1e3, 3) for x in times]}, "
+                  f"median {med * 1e3:.3f} ms, {GRAPHS / med:.1f} graphs/s "
+                  f"(batch {GRAPHS}, 10 layers, bf16)", flush=True)
+            for dtype in ("float32", "bfloat16"):
+                agreement(tag, overrides, dtype)
+            fall = load_trainer({**raw, **overrides}, flat)
+            fl_losses = [fall.train_step(train_batches[0])["loss"]
+                         for _ in range(N_FALL)]
+            first, last = np.mean(fl_losses[:5]), np.mean(fl_losses[-5:])
+            check(last < first, f"{tag}: {N_FALL} steps on one batch, mean "
+                  f"loss of the first 5 {first:.5f} -> last 5 {last:.5f}")
+            return launches
+        finally:
+            fl.BWD_IMPL = "split"
+
+    # each kernel's launches on the training path that runs it; path C
+    # launches K9 9 times a step: the last layer's edge output feeds no loss,
+    # so autograd never runs that layer's edge-block backward (its tail
+    # parameters get no gradient, as on the plain path)
     train_launches = {}
-    try:
-        launches = train("training path A (K3, K4, K5)", {},
-                         ("K3", "K4", "K5"))
-        train_launches.update({k: launches[k] for k in ("K3", "K4", "K5")})
-        launches = train("training path B (K1, K2)",
-                         {"use_pallas": True, "use_pallas_layer": False},
-                         ("K1", "K2"))
-        train_launches.update({k: launches[k] for k in ("K1", "K2")})
-    except Exception:                               # noqa: BLE001 - report
-        traceback.print_exc()
-        check(False, "phases 6-7: training paths")
+    for tag, overrides, want, impl in (
+            ("training path A (K3; K4, K5)", {},
+             dict(K3=10, K4=10, K5=10), "split"),
+            ("training path B (K1; K2)", path_b, dict(K1=10, K2=10), "split"),
+            ("training path C (K1, K8; K9, K2)", path_c,
+             dict(K1=10, K8=10, K9=9, K2=10), "split"),
+            ("training path A-merged (K3; K7)", {}, dict(K3=10, K7=10),
+             "merged"),
+            ("training path A-mono (K3; K6)", {}, dict(K3=10, K6=10),
+             "mono")):
+        try:
+            launches = train(tag, overrides, want, impl)
+            train_launches.update({k: launches[k] for k in want
+                                   if k not in train_launches})
+        except Exception:                           # noqa: BLE001 - report
+            traceback.print_exc()
+            check(False, f"phase 5: {tag}")
 
-    # ---- 8. kernels line: the training-mode cases at the flagship shape,
+    # ---- 6. kernels line: the training-mode cases at the flagship shape,
     # bf16, each kernel's launches on its training path
     rows = []
     for key, case, part, source, replaces in (
@@ -563,8 +681,19 @@ def main() -> int:
             ("K4", "layer", "tail", "egt_torch/csrc/fused_layer_bwd_tail.cu",
              "egt_tpu/ops/fused_layer_pallas.py:789"),
             ("K5", "layer", "attn", "egt_torch/csrc/fused_layer_bwd_attn.cu",
-             "egt_tpu/ops/fused_layer_pallas.py:868")):
-        r = results.get((case, torch.bfloat16, True), {}).get(part)
+             "egt_tpu/ops/fused_layer_pallas.py:868"),
+            ("K6", "layer", "mono", "egt_torch/csrc/fused_layer_bwd_mono.cu",
+             "egt_tpu/ops/fused_layer_pallas.py:438"),
+            ("K7", "layer", "merged",
+             "egt_torch/csrc/fused_layer_bwd_merged.cu",
+             "egt_tpu/ops/fused_layer_pallas.py:1021"),
+            ("K8", "edge", "fwd", "egt_torch/csrc/edge_block_fwd.cu",
+             "egt_tpu/ops/edge_block_pallas.py:92"),
+            ("K9", "edge", "bwd", "egt_torch/csrc/edge_block_bwd.cu",
+             "egt_tpu/ops/edge_block_pallas.py:101")):
+        key_ = (case, torch.bfloat16) if case == "edge" else \
+            (case, torch.bfloat16, True)
+        r = results.get(key_, {}).get(part)
         if r is None or key not in train_launches:
             continue
         rows.append({"name": Path(source).stem, "route": "cuda",

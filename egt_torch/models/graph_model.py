@@ -92,7 +92,7 @@ class GraphModelConfig:
     attn_chain_f32: bool = True           # False: logits/softmax/gate chain in
     #   the compute dtype
     fused_attention: bool | str = False   # attention kernel; "auto" = on
-    fused_edge_block: bool = False        # edge-block kernel (not ported)
+    fused_edge_block: bool = False        # edge-block kernel
     fused_layer: bool | str = False       # whole-layer kernel; "auto" = on
     compute_dtype: str = "float32"        # float32 | bfloat16
     remat: bool | str = False             # training only
@@ -139,8 +139,6 @@ def unsupported(cfg: GraphModelConfig) -> list[str]:
     if cfg.max_degree_enc > 0 or cfg.max_diffuse_t > 0 or cfg.node2edge_embed \
             or cfg.include_xpose:
         out.append("degree / diffusion / node2edge / transposed-hop encodings")
-    if cfg.fused_edge_block:
-        out.append("the edge-block kernel (fused_edge_block)")
     if cfg.activation not in ("elu", "relu") \
             and not str(cfg.activation).startswith("lrelu"):
         out.append(f"activation {cfg.activation!r}")

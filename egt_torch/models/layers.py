@@ -3,14 +3,16 @@
 Port of `egt_tpu/models/layers.py` for the residual / constrained edge
 channels with LayerNorm and no cross-talk: `layer_norm` (eps 1e-3, f32
 island), `activation`, `dropout`, `_attention`, `_mha_block`, `edge_update`,
-`ffn_block` and `layer_forward` with its whole-layer branch. A layer is an
+`ffn_block`, `can_fuse_edge_block` and `layer_forward` with its whole-layer
+and edge-block branches. A layer is an
 `nn.ModuleDict` whose keys are the JAX parameter names, so the functions below
 read it as they read the JAX params tree.
 
 Dispatch per layer: the whole-layer kernel when `can_fuse_layer` holds; else
-the attention kernel when `cfg.fused_attention` is on; else the plain
-`egt_attention_core`. Each kernel wrapper takes its plain version on CPU
-tensors.
+the attention kernel when `cfg.fused_attention` is on, or the plain
+`egt_attention_core`, followed by the edge-block kernel for the edge tail
+when `can_fuse_edge_block` holds. Each kernel wrapper takes its plain
+version on CPU tensors.
 
 Training: one seed per layer and step (`seed`). It keys the attention
 draws (the random mask and attention dropout, `ops/rng.py`) directly, and
@@ -23,6 +25,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..ops.edge_block import edge_block_apply
 from ..ops.egt_attention import egt_attention_fused
 from ..ops.fused_layer import can_fuse_layer, fused_layer_apply
 from ..ops.rng import fold_seed
@@ -138,9 +141,10 @@ def _edge_bias(p, cfg, e):
 
 
 def edge_update(p, cfg, h, e, node_mask, edge_mask, training=False,
-                seed=None):
+                seed=None, defer_edge_tail: bool = False):
     """The attention sub-layer of the residual / constrained edge channels.
-    Returns (h, e)."""
+    Returns (h, e); with `defer_edge_tail`, the edge tail is left to the
+    edge-block kernel and `e` comes back as the pair (h_hat, e_residual)."""
     if cfg.edge_channel_type not in ("residual", "constrained"):
         raise NotImplementedError(f"edge_channel_type "
                                   f"{cfg.edge_channel_type!r} is not ported yet")
@@ -151,6 +155,8 @@ def edge_update(p, cfg, h, e, node_mask, edge_mask, training=False,
     eb = _edge_bias(p, cfg, e)
     h, h_hat = _mha_block(p, cfg, h, eb, gates, node_mask, edge_mask,
                           training, seed)
+    if defer_edge_tail:
+        return h, (h_hat, y_e)
     e = dropout(dense(p["dense_edge_r"], h_hat), cfg.edge_dropout, training,
                 _sub_seed(seed, 3)) + y_e
     if cfg.add_n_norm:
@@ -243,5 +249,28 @@ def layer_forward(p, cfg, h, e, node_mask, edge_mask, training=False,
         h, _ = ffn_block(p, cfg, h, None, skip_edge=True, training=training,
                          seed=seed)
         return h, e
-    h, e = edge_update(p, cfg, h, e, node_mask, edge_mask, training, seed)
+    fuse_edge = can_fuse_edge_block(cfg, training)
+    h, e = edge_update(p, cfg, h, e, node_mask, edge_mask, training, seed,
+                       defer_edge_tail=fuse_edge)
+    if fuse_edge:
+        # edge-block kernel: dense_edge_r + residual + edge FFN in one pass
+        h_hat, y_e = e
+        e = edge_block_apply(p, h_hat, y_e)
+        h, _ = ffn_block(p, cfg, h, None, skip_edge=True, training=training,
+                         seed=seed)
+        return h, e
     return ffn_block(p, cfg, h, e, training=training, seed=seed)
+
+
+def can_fuse_edge_block(cfg, training: bool = False) -> bool:
+    """Eligibility of the edge-block kernel: the JAX `can_fuse_edge_block`
+    (without sequence parallelism or analysis capture, which the port does
+    not run). Like the JAX rule it does not look at `cfg.activation`: the
+    kernel's activation is ELU."""
+    return (bool(cfg.fused_edge_block)
+            and cfg.edge_width >= 64
+            and cfg.edge_channel_type in ("residual", "constrained")
+            and not cfg.add_n_norm
+            and cfg.edge_normalization == "layer"
+            and not (training and cfg.edge_dropout > 0)
+            and cfg.node2edge_xtalk == 0.0 and cfg.edge2node_xtalk == 0.0)

@@ -2,8 +2,9 @@
 backward.
 
 Port of `egt_tpu/ops/fused_layer_pallas.py::fused_layer_apply`,
-`_fused_layer_fwd_call`, the split backward (`_fused_layer_bwd_call_split`:
-`_bwd_tail_kernel`, `_bwd_attn_kernel`), `make_spec` and `can_fuse_layer`:
+`_fused_layer_fwd_call`, its three backwards (`_fused_layer_bwd`:
+`_bwd_tail_kernel` and `_bwd_attn_kernel` split, `_bwd_merged_kernel`,
+`_bwd_kernel` "mono"), `make_spec` and `can_fuse_layer`:
 
     e_ln = LayerNorm(e)                       # pre-LN on the edge channel
     G    = e_ln @ Wg + bg                     # attention gates
@@ -20,10 +21,16 @@ not exist here. Each op dispatches on the device of its inputs: a CPU tensor
 takes the plain PyTorch version, a CUDA tensor launches the kernel (or
 raises):
 
-- forward: `csrc/fused_layer_fwd.cu` (K3); in training it also writes h_hat;
-- backward, split as in JAX: `csrc/fused_layer_bwd_tail.cu` (K4: the edge
-  tail from the saved h_hat) then `csrc/fused_layer_bwd_attn.cu` (K5: the
-  softmax chain re-entered at h_hat, the edge head).
+- forward: `csrc/fused_layer_fwd.cu` (K3); in training it also writes h_hat
+  unless the backward is "mono";
+- backward, chosen by `EGT_FUSED_BWD` (read at import into `BWD_IMPL`, as
+  JAX reads it into `_BWD_IMPL`; a caller may set the attribute):
+  "split" (default): `csrc/fused_layer_bwd_tail.cu` (K4: the edge tail from
+  the saved h_hat) then `csrc/fused_layer_bwd_attn.cu` (K5: the softmax chain
+  re-entered at h_hat, the edge head); "merged": both bodies in one kernel,
+  `csrc/fused_layer_bwd_merged.cu` (K7), de_mid and dhh kept on chip;
+  "mono": `csrc/fused_layer_bwd_mono.cu` (K6), nothing saved but the inputs,
+  q.k and h_hat recomputed.
 
 `FusedLayerFn` is the `torch.autograd.Function` around them. The random
 mask and dropout draw from `ops/rng.py` (Philox; `csrc/philox.cuh`).
@@ -31,6 +38,7 @@ mask and dropout draw from `ops/rng.py` (Philox; `csrc/philox.cuh`).
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import torch
@@ -43,6 +51,14 @@ BWD_TAIL_KERNEL = _cuda.CudaKernel("fused_layer_bwd_tail", _cuda.argtypes(
     "i ppp pppp pppp pp pp i L iii if"))
 BWD_ATTN_KERNEL = _cuda.CudaKernel("fused_layer_bwd_attn", _cuda.argtypes(
     "i pppp pppp pp pppp pppp pp iiiii ii fff if uu fff"))
+_ROW_ARGS = "i pppp pppp pp pppp pppp ppp pppp pp iiiiii ii fff ifif uu fff"
+BWD_MERGED_KERNEL = _cuda.CudaKernel("fused_layer_bwd_merged",
+                                     _cuda.argtypes(_ROW_ARGS))
+BWD_MONO_KERNEL = _cuda.CudaKernel("fused_layer_bwd_mono",
+                                   _cuda.argtypes(_ROW_ARGS))
+
+BWD_IMPLS = ("split", "merged", "mono")
+BWD_IMPL = os.environ.get("EGT_FUSED_BWD", "split")
 
 _EPS = 1e-3                 # Keras LayerNormalization default
 _LANES = 128                # the TPU kernel's lane->head mapping needs h | 128
@@ -50,7 +66,7 @@ _ACT_CODES = {None: 0, "elu": 1, "relu": 2}
 _SMEM_MAX = 227 * 1024      # shared memory a block may use on an H100
 W_KEYS = ("wg", "bg", "wb", "bb", "g1", "b1", "wr", "br", "g2", "b2",
           "w1", "bb1", "w2", "bb2")
-_TAIL_KEYS = ("wr", "br", "g2", "b2", "w1", "bb1", "w2", "bb2")
+TAIL_KEYS = ("wr", "br", "g2", "b2", "w1", "bb1", "w2", "bb2")
 
 
 class LayerSpec(NamedTuple):
@@ -284,10 +300,8 @@ def fused_layer_plain(spec: LayerSpec, e, qkv, mask, amask, w, seed: int = 0,
     hh = s + E                                                  # h_hat
     a = _softmax_gate(spec, hh, G, mask, amask, seed)[3]
     v_att = torch.einsum("bijh,bjdh->bidh", a.to(dt).float(), v.float())
-    e_mid = _mm(hh.to(dt), w["wr"]) + w["br"] + e.float()
-    x2 = (w["g2"] * _ln_stats(e_mid)[0] + w["b2"]).to(dt)
-    hid = _act(spec.act, _mm(x2, w["w1"]) + w["bb1"]).to(dt)
-    e_out = _mm(hid, w["w2"]) + w["bb2"] + e_mid
+    t = tail_fwd(spec.act, hh, e, w)
+    e_out = tail_out(t, w)
     out = (e_out.to(dt), v_att.reshape(b, l, spec.dh).to(dt))
     return out + (hh.to(dt).contiguous(),) if save_hh else out
 
@@ -348,29 +362,61 @@ def fused_layer_core(spec: LayerSpec, e, qkv, mask, amask, w, seed: int = 0,
 # ------------------------------------------------------------------ backward
 
 
+class TailFwd(NamedTuple):
+    """The edge tail's forward intermediates (f32 unless noted)."""
+    e_mid: torch.Tensor
+    x2: torch.Tensor          # LN(e_mid) normalised
+    rstd2: torch.Tensor
+    xn2: torch.Tensor         # g2 x2 + b2, in the working type
+    pre: torch.Tensor
+    hid: torch.Tensor         # act(pre)
+
+
+def tail_fwd(act, hh, e, w) -> TailFwd:
+    """The edge tail up to the FFN hidden layer, from h_hat (rounded to the
+    working type of e) and the residual e: the JAX kernels'
+    `_edge_tail_fwd` / `_recompute_fwd`."""
+    dt = e.dtype
+    e_mid = _mm(hh.to(dt), w["wr"]) + w["br"] + e.float()
+    x2, rstd2 = _ln_stats(e_mid)
+    xn2 = (w["g2"] * x2 + w["b2"]).to(dt)
+    pre = _mm(xn2, w["w1"]) + w["bb1"]
+    return TailFwd(e_mid, x2, rstd2, xn2, pre, _act(act, pre))
+
+
+def tail_out(t: TailFwd, w):
+    """e_out (f32) = rnd(hid) W2 + b2 + e_mid."""
+    return _mm(t.hid.to(w["w2"].dtype), w["w2"]) + w["bb2"] + t.e_mid
+
+
+def tail_bwd(act, e, hh, g_eout, w):
+    """The edge tail's backward by recomputation from h_hat: the math of K4
+    (`_bwd_tail_kernel`) and of the edge block's `_bwd_kernel`. Returns
+    de_mid and dhh in f32 (each caller rounds where its kernel does) and the
+    eight f32 weight gradients {wr, br, g2, b2, w1, bb1, w2, bb2}."""
+    dt = e.dtype
+    t = tail_fwd(act, hh, e, w)
+    g_out = g_eout.float()
+    dpre = _mm(g_eout, w["w2"].T) * _act_grad(act, t.pre, t.hid)
+    dpre_dt = dpre.to(dt)
+    dxn2 = _mm(dpre_dt, w["w1"].T)
+    de_mid = _ln_bwd(dxn2, w["g2"], t.x2, t.rstd2) + g_out
+    de_mid_dt = de_mid.to(dt)
+    dhh = _mm(de_mid_dt, w["wr"].T)
+    dw = dict(wr=_wgrad(hh.to(dt), de_mid_dt), br=_colsum(de_mid),
+              g2=_colsum(dxn2 * t.x2), b2=_colsum(dxn2),
+              w1=_wgrad(t.xn2, dpre_dt), bb1=_colsum(dpre),
+              w2=_wgrad(t.hid.to(dt), g_eout), bb2=_colsum(g_out))
+    return de_mid, dhh, dw
+
+
 def fused_layer_bwd_tail_plain(spec: LayerSpec, e, hh, g_eout, w):
     """Plain PyTorch version of K4 (`_bwd_tail_kernel`): recompute e_mid,
     LN2 and the FFN from the saved h_hat, then the FFN / LN2 / Wr backward.
     Returns (de_mid, dhh) in the working type and the eight f32 weight
     gradients {wr, br, g2, b2, w1, bb1, w2, bb2}."""
-    dt = e.dtype
-    e_mid = _mm(hh, w["wr"]) + w["br"] + e.float()
-    x2, rstd2 = _ln_stats(e_mid)
-    xn2 = (w["g2"] * x2 + w["b2"]).to(dt)
-    pre = _mm(xn2, w["w1"]) + w["bb1"]
-    hid = _act(spec.act, pre)
-    g_out = g_eout.float()
-    dpre = _mm(g_eout, w["w2"].T) * _act_grad(spec.act, pre, hid)
-    dpre_dt = dpre.to(dt)
-    dxn2 = _mm(dpre_dt, w["w1"].T)
-    de_mid = _ln_bwd(dxn2, w["g2"], x2, rstd2) + g_out
-    de_mid_dt = de_mid.to(dt)
-    dhh = _mm(de_mid_dt, w["wr"].T).to(dt)
-    dw = dict(wr=_wgrad(hh, de_mid_dt), br=_colsum(de_mid),
-              g2=_colsum(dxn2 * x2), b2=_colsum(dxn2),
-              w1=_wgrad(xn2, dpre_dt), bb1=_colsum(dpre),
-              w2=_wgrad(hid.to(dt), g_eout), bb2=_colsum(g_out))
-    return de_mid_dt, dhh, dw
+    de_mid, dhh, dw = tail_bwd(spec.act, e, hh, g_eout, w)
+    return de_mid.to(e.dtype), dhh.to(e.dtype), dw
 
 
 def _bwd_tail_cuda(spec: LayerSpec, e, hh, g_eout, w):
@@ -381,7 +427,7 @@ def _bwd_tail_cuda(spec: LayerSpec, e, hh, g_eout, w):
     h, hid = spec.h, spec.hidden
     for name, t, width in (("e", e, ew), ("hh", hh, h), ("g_eout", g_eout, ew)):
         _cuda.check_cuda(name, t, (b, l, l, width), dt)
-    _check_weights(spec, w, dt, _TAIL_KEYS)
+    _check_weights(spec, w, dt, TAIL_KEYS)
     de_mid = torch.empty_like(e)
     dhh = torch.empty_like(hh)
     sizes = (h * ew, ew, ew, ew, ew * hid, hid, hid * ew, ew)
@@ -401,7 +447,7 @@ def _bwd_tail_cuda(spec: LayerSpec, e, hh, g_eout, w):
     parts = torch.split(dw, sizes)
     shapes = dict(wr=(h, ew), w1=(ew, hid), w2=(hid, ew))
     return de_mid, dhh, {k: x.view(shapes.get(k, (-1,)))
-                         for k, x in zip(_TAIL_KEYS, parts)}
+                         for k, x in zip(TAIL_KEYS, parts)}
 
 
 @_cuda.dispatch(fused_layer_bwd_tail_plain, _bwd_tail_cuda)
@@ -411,16 +457,21 @@ def fused_layer_bwd_tail(spec: LayerSpec, e, hh, g_eout, w):
 
 
 def fused_layer_bwd_attn_plain(spec: LayerSpec, e, qkv, mask, amask, w, hh,
-                               dhh, de_mid, g_vatt, seed: int = 0):
+                               dhh, de_mid, g_vatt, seed: int = 0, head=None,
+                               s_raw=None):
     """Plain PyTorch version of K5 (`_bwd_attn_kernel`): recompute LN1, the
     gates and E; re-enter the softmax chain at the saved h_hat with the same
     draws; run the softmax / gate / dropout / clip backward and the edge-head
     backward; add de_mid. Returns (de, dq) in the working type, (dk, dv)
     (b, l, dh) f32, and the f32 weight gradients {wg, bg, wb, bb, g1, b1}
-    (without wg, bg when ungated)."""
+    (without wg, bg when ungated). The clip's in-range test is strict, on
+    hh - E. K6 and K7 share it: `hh`, `dhh` and `de_mid` may be f32,
+    `head` is the edge head's `_edge_head` when the caller has it, and K6
+    tests the clip on its raw logit `s_raw`."""
     dt = e.dtype
     b, l = mask.shape
-    x1, rstd1, e_ln, G, P, E = _edge_head(spec, e, w)
+    x1, rstd1, e_ln, G, P, E = head if head is not None else \
+        _edge_head(spec, e, w)
     hhf = hh.float()
     a_sm, sg, kept, a_drop = _softmax_gate(spec, hhf, G, mask, amask, seed)
     q, k, v = _split_qkv(spec, qkv)
@@ -437,7 +488,8 @@ def fused_layer_bwd_attn_plain(spec: LayerSpec, e, qkv, mask, amask, w, hh,
     dH = a_sm * (da_sm - t) + dhh.float()
     ds = dH * spec.scale
     if spec.clip is not None:
-        s_c = hhf - E          # = clip(q.k scale): in range strictly
+        # hh - E = clip(q.k scale): in range strictly
+        s_c = hhf - E if s_raw is None else s_raw
         ds = torch.where((s_c > spec.clip[0]) & (s_c < spec.clip[1]), ds, 0.0)
     ds_dt = ds.to(dt).float()
     dq = torch.einsum("bijh,bjdh->bidh", ds_dt, k.float()).to(dt)
@@ -522,33 +574,165 @@ def fused_layer_bwd_attn(spec: LayerSpec, e, qkv, mask, amask, w, hh, dhh,
     tensors."""
 
 
+def fused_layer_bwd_merged_plain(spec: LayerSpec, e, qkv, mask, amask, w,
+                                 hh, g_eout, g_vatt, seed: int = 0):
+    """Plain PyTorch version of K7 (`_bwd_merged_kernel`): K4's and K5's
+    math from the saved h_hat, with de_mid and dhh passed on in f32.
+    Returns (de, dq, dk, dv, dw) as `fused_layer_bwd_attn_plain`, dw with
+    all 14 weight gradients."""
+    de_mid, dhh, dw = tail_bwd(spec.act, e, hh, g_eout, w)
+    *out, dw_head = fused_layer_bwd_attn_plain(
+        spec, e, qkv, mask, amask, w, hh, dhh, de_mid, g_vatt, seed)
+    return (*out, {**dw, **dw_head})
+
+
+def fused_layer_bwd_mono_plain(spec: LayerSpec, e, qkv, mask, amask, w,
+                               g_eout, g_vatt, seed: int = 0):
+    """Plain PyTorch version of K6 (`_bwd_kernel`, "mono"): no saved h_hat.
+    Recompute the edge head, q.k and h_hat in f32 as the forward does; the
+    tail backward from rnd(h_hat); the attention backward with the softmax
+    chain at the f32 h_hat and the clip's strict test on the raw logit;
+    de_mid and dhh in f32. Returns what `fused_layer_bwd_merged_plain`
+    does."""
+    head = _edge_head(spec, e, w)
+    q, k, _ = _split_qkv(spec, qkv)
+    s = torch.einsum("bidh,bjdh->bijh", q.float(), k.float()) * spec.scale
+    hh = (torch.clamp(s, *spec.clip) if spec.clip is not None else s) + head[5]
+    de_mid, dhh, dw = tail_bwd(spec.act, e, hh, g_eout, w)
+    *out, dw_head = fused_layer_bwd_attn_plain(
+        spec, e, qkv, mask, amask, w, hh, dhh, de_mid, g_vatt, seed,
+        head=head, s_raw=s)
+    return (*out, {**dw, **dw_head})
+
+
+def _bwd_row_cuda(kernel, spec: LayerSpec, e, qkv, mask, amask, w, hh,
+                  g_eout, g_vatt, seed):
+    """Launch K7 (hh given) or K6 (hh None)."""
+    dt = e.dtype
+    if dt not in _cuda.DTYPE_CODES:
+        raise ValueError(f"{kernel.source}: unsupported dtype {dt}")
+    b, l = mask.shape
+    ew, h, dh, hid = spec.ew, spec.h, spec.dh, spec.hidden
+    for name, t, shape in (("e", e, (b, l, l, ew)), ("qkv", qkv, (b, l, 3 * dh)),
+                           ("g_eout", g_eout, (b, l, l, ew)),
+                           ("g_vatt", g_vatt, (b, l, dh))):
+        _cuda.check_cuda(name, t, shape, dt)
+    if hh is not None:
+        _cuda.check_cuda("hh", hh, (b, l, l, h), dt)
+    _cuda.check_cuda("mask", mask, (b, l), torch.float32)
+    if amask is not None:
+        _cuda.check_cuda("amask", amask, (b, l, l), torch.float32)
+    _check_weights(spec, w, dt)
+    smem = kernel.query("fused_layer_bwd_row_smem", "iiiiiii",
+                        _cuda.DTYPE_CODES[dt], l, ew, h, dh, hid,
+                        int(spec.gated))
+    if smem > _SMEM_MAX:
+        raise ValueError(f"{kernel.source}: l={l}, ew={ew}, hidden={hid} "
+                         f"need {smem} bytes of shared memory per block "
+                         "(max 227 KB)")
+    nproj = 2 * h if spec.gated else h
+    de = torch.empty_like(e)
+    dq = torch.empty((b, l, dh), dtype=dt, device=e.device)
+    dk = torch.empty((b, l, dh), dtype=torch.float32, device=e.device)
+    dv = torch.empty_like(dk)
+    tail_sizes = (h * ew, ew, ew, ew, ew * hid, hid, hid * ew, ew)
+    head_sizes = (ew * nproj, nproj, ew, ew)
+    dw = torch.empty(sum(tail_sizes) + sum(head_sizes), dtype=torch.float32,
+                     device=e.device)
+    partials = torch.empty((b, dw.numel()), dtype=torch.float32,
+                           device=e.device)
+    clip = spec.clip if spec.clip is not None else (0.0, 0.0)
+    ea, ea_alpha = _act_code(spec.edge_act)
+    act, act_alpha = _act_code(spec.act)
+    kernel(_cuda.DTYPE_CODES[dt], e.data_ptr(), qkv.data_ptr(),
+           mask.data_ptr(), _cuda.ptr(amask), _cuda.ptr(w["wg"]),
+           _cuda.ptr(w["bg"]), w["wb"].data_ptr(), w["bb"].data_ptr(),
+           w["g1"].data_ptr(), w["b1"].data_ptr(), w["wr"].data_ptr(),
+           w["br"].data_ptr(), w["g2"].data_ptr(), w["b2"].data_ptr(),
+           w["w1"].data_ptr(), w["bb1"].data_ptr(), w["w2"].data_ptr(),
+           w["bb2"].data_ptr(), _cuda.ptr(hh), g_eout.data_ptr(),
+           g_vatt.data_ptr(), de.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+           dv.data_ptr(), dw.data_ptr(), partials.data_ptr(), b, l, ew, h, dh,
+           hid, int(spec.gated), int(spec.clip is not None), float(clip[0]),
+           float(clip[1]), spec.scale, ea, ea_alpha, act, act_alpha,
+           *draw_args(spec, seed))
+    tail, head = torch.split(dw, (sum(tail_sizes), sum(head_sizes)))
+    shapes = dict(wr=(h, ew), w1=(ew, hid), w2=(hid, ew))
+    grads = {k: x.view(shapes.get(k, (-1,)))
+             for k, x in zip(TAIL_KEYS, torch.split(tail, tail_sizes))}
+    dwgb, dbgb, dg1, db1 = torch.split(head, head_sizes)
+    dwgb = dwgb.view(ew, nproj)
+    grads.update(wb=dwgb[:, nproj - h:], bb=dbgb[nproj - h:], g1=dg1, b1=db1)
+    if spec.gated:
+        grads.update(wg=dwgb[:, :h], bg=dbgb[:h])
+    return de, dq, dk, dv, grads
+
+
+def _bwd_merged_cuda(spec: LayerSpec, e, qkv, mask, amask, w, hh, g_eout,
+                     g_vatt, seed: int = 0):
+    return _bwd_row_cuda(BWD_MERGED_KERNEL, spec, e, qkv, mask, amask, w, hh,
+                         g_eout, g_vatt, seed)
+
+
+def _bwd_mono_cuda(spec: LayerSpec, e, qkv, mask, amask, w, g_eout, g_vatt,
+                   seed: int = 0):
+    return _bwd_row_cuda(BWD_MONO_KERNEL, spec, e, qkv, mask, amask, w, None,
+                         g_eout, g_vatt, seed)
+
+
+@_cuda.dispatch(fused_layer_bwd_merged_plain, _bwd_merged_cuda)
+def fused_layer_bwd_merged(spec: LayerSpec, e, qkv, mask, amask, w, hh,
+                           g_eout, g_vatt, seed: int = 0):
+    """(de, dq, dk, dv, dw): K7 on CUDA tensors, its plain version on CPU
+    tensors."""
+
+
+@_cuda.dispatch(fused_layer_bwd_mono_plain, _bwd_mono_cuda)
+def fused_layer_bwd_mono(spec: LayerSpec, e, qkv, mask, amask, w, g_eout,
+                         g_vatt, seed: int = 0):
+    """(de, dq, dk, dv, dw): K6 on CUDA tensors, its plain version on CPU
+    tensors."""
+
+
 class FusedLayerFn(torch.autograd.Function):
-    """The whole-layer core with its split backward (the counterpart of the
-    JAX `_fused_layer` custom VJP with `_BWD_IMPL` "split"). The forward runs
-    K3 with h_hat saved; the backward runs K4, then K5. Gradients come back
-    in their input's dtype: `qkv` and the weight matrices in the working
-    type, the vectors in f32."""
+    """The whole-layer core with its backward (the counterpart of the JAX
+    `_fused_layer` custom VJP), chosen by `BWD_IMPL` when the forward runs:
+    "split" and "merged" run K3 with h_hat saved, then K4 and K5, or K7;
+    "mono" runs K3 without h_hat and saves only the inputs, then K6.
+    Gradients come back in their input's dtype: `qkv` and the weight
+    matrices in the working type, the vectors in f32."""
 
     @staticmethod
     def forward(ctx, spec, seed, e, qkv, mask, amask, *wts):
+        impl = BWD_IMPL
+        if impl not in BWD_IMPLS:
+            raise ValueError(f"EGT_FUSED_BWD must be one of {BWD_IMPLS}, "
+                             f"got {impl!r}")
         w = dict(zip(W_KEYS, wts))
-        e_out, v_att, hh = fused_layer_core(spec, e, qkv, mask, amask, w, seed,
-                                            save_hh=True)
-        ctx.spec, ctx.seed = spec, seed
+        out = fused_layer_core(spec, e, qkv, mask, amask, w, seed,
+                               save_hh=impl != "mono")
+        ctx.spec, ctx.seed, ctx.impl = spec, seed, impl
+        hh = out[2] if impl != "mono" else None
         ctx.save_for_backward(e, qkv, mask, amask, hh, *wts)
-        return e_out, v_att
+        return out[0], out[1]
 
     @staticmethod
     def backward(ctx, g_eout, g_vatt):
         e, qkv, mask, amask, hh, *wts = ctx.saved_tensors
-        spec = ctx.spec
+        spec, seed = ctx.spec, ctx.seed
         w = dict(zip(W_KEYS, wts))
-        de_mid, dhh, dw = fused_layer_bwd_tail(spec, e, hh,
-                                               g_eout.contiguous(), w)
-        de, dq, dk, dv, dw_head = fused_layer_bwd_attn(
-            spec, e, qkv, mask, amask, w, hh, dhh, de_mid,
-            g_vatt.contiguous(), ctx.seed)
-        dw.update(dw_head)
+        g_eout, g_vatt = g_eout.contiguous(), g_vatt.contiguous()
+        if ctx.impl == "split":
+            de_mid, dhh, dw = fused_layer_bwd_tail(spec, e, hh, g_eout, w)
+            de, dq, dk, dv, dw_head = fused_layer_bwd_attn(
+                spec, e, qkv, mask, amask, w, hh, dhh, de_mid, g_vatt, seed)
+            dw.update(dw_head)
+        elif ctx.impl == "merged":
+            de, dq, dk, dv, dw = fused_layer_bwd_merged(
+                spec, e, qkv, mask, amask, w, hh, g_eout, g_vatt, seed)
+        else:
+            de, dq, dk, dv, dw = fused_layer_bwd_mono(
+                spec, e, qkv, mask, amask, w, g_eout, g_vatt, seed)
         dt = qkv.dtype
         dqkv = torch.stack([dq, dk.to(dt), dv.to(dt)], dim=2).reshape(qkv.shape)
         dws = [None if w[k] is None else dw[k].to(w[k].dtype) for k in W_KEYS]
@@ -560,8 +744,8 @@ def fused_layer_apply(p_layer, cfg, e, qkv, node_mask, attn_mask,
     """Run the fused layer core. `e` is (b, l, l, ew); `qkv` is the (b, l,
     3*d*h) projection of the LN'd node stream. Returns (e_out, v_att) with
     v_att (b, l, d*h). The node-stream projections stay outside the kernel.
-    With gradients enabled the call goes through `FusedLayerFn` (K3 saves
-    h_hat for the backward); without, it is the inference forward. `seed`
+    With gradients enabled the call goes through `FusedLayerFn` (its
+    backward chosen by `BWD_IMPL`); without, it is the inference forward. `seed`
     keys the random mask and dropout (training)."""
     b, l, _, _ = e.shape
     spec = make_spec(cfg, l, training)

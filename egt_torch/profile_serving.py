@@ -1,13 +1,14 @@
 """Where a serving request's time goes on the card.
 
-    python -m egt_torch.profile_serving [--path A|B] [--requests N]
+    python -m egt_torch.profile_serving [--path A|B|C] [--requests N]
 
 Serves the flagship ZINC-500k config (seeded weights, synthetic 128-graph
 requests; see `egt_torch.synthetic`) under `torch.profiler` and prints the
 wall time per request, the device-busy time per request and the device's
 idle share, then the operators ranked by device time. Path A is the config as
 shipped (whole-layer kernel); path B sets use_pallas true and
-use_pallas_layer false (attention kernel). Needs a CUDA device.
+use_pallas_layer false (attention kernel); path C also sets use_pallas_edge
+true (attention kernel, then the edge-block kernel). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -24,7 +25,9 @@ from . import schemes, serving, synthetic
 
 CONFIG = Path(__file__).resolve().parents[1] / "configs" / "main" / "zinc" \
     / "500k" / "egt.json"
-PATHS = {"A": {}, "B": {"use_pallas": True, "use_pallas_layer": False}}
+PATHS = {"A": {}, "B": {"use_pallas": True, "use_pallas_layer": False},
+         "C": {"use_pallas": True, "use_pallas_layer": False,
+               "use_pallas_edge": True}}
 
 
 def device_kernels(prof) -> dict[str, tuple[float, int]]:

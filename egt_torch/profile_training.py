@@ -1,6 +1,6 @@
 """Where a training step's time goes on the card.
 
-    python -m egt_torch.profile_training [--path A|B]
+    python -m egt_torch.profile_training [--path A|B|C]
 
 Trains the flagship ZINC-500k config (seeded weights, STEPS synthetic batches
 of GRAPHS graphs, the config's batch size; see `egt_torch.synthetic`) and
@@ -8,9 +8,11 @@ prints the wall time per step
 (without the profiler, which slows the host), the device-busy time per step
 under `torch.profiler` and the device's idle share (1 - busy / wall), then
 the operators ranked by device time. Path A is the config as
-shipped (whole-layer kernels K3 forward, K4 and K5 backward); path B sets
-use_pallas true and use_pallas_layer false (attention kernels K1 forward, K2
-backward). Needs a CUDA device.
+shipped (whole-layer kernel K3 forward; backward K4 and K5, or K7 with
+EGT_FUSED_BWD=merged, or K6 with EGT_FUSED_BWD=mono); path B sets use_pallas
+true and use_pallas_layer false (attention kernels K1 forward, K2 backward);
+path C also sets use_pallas_edge true (K1 then the edge block K8 forward;
+K9 then K2 backward). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 
 from . import schemes, synthetic
+from .ops import fused_layer
 from .profile_serving import CONFIG, PATHS, device_kernels
 from .training.steps import load_trainer
 
@@ -58,7 +61,8 @@ def main(argv=None) -> int:
         wall_prof = run()
     kernels = device_kernels(prof)
     busy = sum(us for us, _ in kernels.values()) / 1e6 / STEPS
-    print(f"path {args.path}: {STEPS} steps x {GRAPHS} graphs, "
+    print(f"path {args.path} (whole-layer backward "
+          f"{fused_layer.BWD_IMPL}): {STEPS} steps x {GRAPHS} graphs, "
           f"wall {wall * 1e3:.3f} ms/step ({wall_prof * 1e3:.3f} under the "
           f"profiler), device busy {busy * 1e3:.3f} ms/step, device idle "
           f"share {max(0.0, 1 - busy / wall):.3f}")

@@ -21,6 +21,7 @@ import torch
 
 from egt_torch import weights
 from egt_torch.models.graph_model import EGTGraphModel, GraphModelConfig
+from egt_torch.ops import edge_block as eb
 from egt_torch.ops import egt_attention as att
 from egt_torch.ops import fused_layer as fl
 
@@ -144,9 +145,14 @@ def test_wrappers_reject_unsupported_dtype(dev):
                                               device=dev), None, m, None, None)
 
 
-def _layer_case(dev, dtype, constrained, gated, training=True):
+# (b, l, ew, h, dh): l 37 spans two key chunks; the ZINC-500k layer shape
+LAYER_SHAPES = {"awkward": (3, 37, 24, 4, 16), "flagship": (4, 40, 64, 8, 64)}
+
+
+def _layer_case(dev, dtype, constrained, gated, training=True,
+                shape="awkward"):
     g_ = _gen(dev)
-    b, l, ew, h, dh = 3, 37, 24, 4, 16      # l spans two key chunks
+    b, l, ew, h, dh = LAYER_SHAPES[shape]
 
     def rnd(*s, scale=1.0):
         return scale * torch.randn(s, generator=g_, device=dev)
@@ -170,7 +176,7 @@ def _layer_case(dev, dtype, constrained, gated, training=True):
     w = fl.layer_weights(p, dtype)
     e, qkv = rnd(b, l, l, ew).to(dtype), rnd(b, l, 3 * dh).to(dtype)
     mask = (torch.arange(l, device=dev)[None] < torch.tensor(
-        [[9], [37], [20]], device=dev)).float()
+        [[9], [l], [20], [31]][:b], device=dev)).float()
     am = (torch.rand((b, l, l), generator=g_, device=dev) < 0.4).float() \
         if constrained else None
     cot = (rnd(b, l, l, ew).to(dtype), rnd(b, l, dh).to(dtype))
@@ -285,6 +291,119 @@ def test_model_training_grads_kernel_path_match_plain_path(dev, knobs):
         loss = (model(batch, training=True, seeds=[3, 4]) - target).abs().mean()
         loss.backward()
         grads.append({k: p.grad for k, p in weights.flat_names(model).items()})
+    for k, r in grads[1].items():
+        if r is None:      # the last layer's unused edge output: zeros or None
+            assert grads[0][k] is None or not grads[0][k].any(), k
+            continue
+        torch.testing.assert_close(grads[0][k], r, atol=1e-4, rtol=1e-4,
+                                   msg=k)
+
+
+@pytest.mark.parametrize("shape", list(LAYER_SHAPES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("constrained,gated", [(False, True), (True, False)])
+def test_merged_and_mono_kernels_match_plain(dev, dtype, constrained, gated,
+                                             shape):
+    """K7 (from an h_hat drawn on its own, as K4 and K5 above) and K6 (which
+    recomputes h_hat; its strict clip test is on the recomputed raw logit)
+    against their plain versions, with the draws live."""
+    spec, e, qkv, mask, am, w, (ge, gv) = _layer_case(
+        dev, dtype, constrained, gated, shape=shape)
+    hh = (3.0 * torch.randn((e.shape[0], spec.l, spec.l, spec.h),
+                            generator=_gen(dev), device=dev)).to(dtype)
+    counts = (fl.BWD_MERGED_KERNEL.launches, fl.BWD_MONO_KERNEL.launches)
+    cases = ((fl.fused_layer_bwd_merged(spec, e, qkv, mask, am, w, hh, ge, gv, 7),
+              fl.fused_layer_bwd_merged_plain(spec, e, qkv, mask, am, w, hh,
+                                              ge, gv, 7)),
+             (fl.fused_layer_bwd_mono(spec, e, qkv, mask, am, w, ge, gv, 7),
+              fl.fused_layer_bwd_mono_plain(spec, e, qkv, mask, am, w, ge, gv,
+                                            7)))
+    for out, ref in cases:
+        for i, (o, r) in enumerate(zip(out[:4], ref[:4])):   # de dq dk dv
+            _close(o, r, dtype, scaled=i >= 2)
+        assert sorted(out[4]) == sorted(ref[4])
+        for k, r in ref[4].items():
+            _close(out[4][k], r, dtype, scaled=True)
+    assert (fl.BWD_MERGED_KERNEL.launches,
+            fl.BWD_MONO_KERNEL.launches) == tuple(c + 1 for c in counts)
+
+
+# (b, l, ew, h): 4 * 7 * 7 pairs is not a multiple of the 32-pair tile
+EDGE_SHAPES = {"awkward": (4, 7, 32, 4), "flagship": (8, 40, 64, 8)}
+
+
+@pytest.mark.parametrize("shape", list(EDGE_SHAPES))
+@pytest.mark.parametrize("head_major", [False, True], ids=["rows", "head_major"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_edge_block_kernels_match_plain(dev, dtype, head_major, shape):
+    """K8 and K9 against their plain versions; h_hat as rows and as a view of
+    a head-major tensor (K9 writes dhh in the same layout)."""
+    g_ = _gen(dev)
+    b, l, ew, h = EDGE_SHAPES[shape]
+    hid = 2 * ew
+
+    def rnd(*s, scale=1.0):
+        return scale * torch.randn(s, generator=g_, device=dev)
+
+    w = dict(wr=rnd(h, ew, scale=0.3).to(dtype), br=rnd(ew, scale=0.1),
+             g2=1 + rnd(ew, scale=0.1), b2=rnd(ew, scale=0.1),
+             w1=rnd(ew, hid, scale=0.2).to(dtype), bb1=rnd(hid, scale=0.1),
+             w2=rnd(hid, ew, scale=0.2).to(dtype), bb2=rnd(ew, scale=0.1))
+    hh = rnd(b, h, l, l, scale=2.0).to(dtype)
+    hh = hh.permute(0, 2, 3, 1) if head_major else \
+        hh.permute(0, 2, 3, 1).contiguous()
+    e, g = rnd(b, l, l, ew).to(dtype), rnd(b, l, l, ew).to(dtype)
+    counts = (eb.KERNEL.launches, eb.BWD_KERNEL.launches)
+    _close(eb.edge_block_fwd(hh, e, w), eb.edge_block_fwd_plain(hh, e, w), dtype)
+    out, ref = eb.edge_block_bwd(hh, e, g, w), eb.edge_block_bwd_plain(hh, e, g, w)
+    assert out[0].stride() == hh.stride()
+    for o, r in zip(out[:2], ref[:2]):                       # dhh, de_res
+        _close(o, r, dtype)
+    for k, r in ref[2].items():
+        _close(out[2][k], r, dtype, scaled=True)
+    assert (eb.KERNEL.launches, eb.BWD_KERNEL.launches) == \
+        tuple(c + 1 for c in counts)
+
+
+@pytest.mark.parametrize("knobs,impl", [
+    (dict(fused_attention=True, fused_edge_block=True), "split"),
+    (dict(fused_layer=True), "merged"),
+    (dict(fused_layer=True), "mono")])
+def test_model_training_grads_third_slice_paths(dev, knobs, impl, monkeypatch):
+    """As above, for path C (the attention kernel, then the edge block) and
+    the whole-layer kernel with the merged and the mono backward."""
+    monkeypatch.setattr(fl, "BWD_IMPL", impl)
+    cfg = GraphModelConfig(model_width=32, edge_width=64, num_heads=4,
+                           model_height=2, upto_hop=3, random_mask_prob=0.1,
+                           attn_dropout=0.1)
+    base = EGTGraphModel(cfg, device=dev)
+    flat = {k: p.detach().cpu().numpy()
+            for k, p in weights.flat_names(base).items()}
+    fast = weights.load_flat_params(
+        EGTGraphModel(dataclasses.replace(cfg, **knobs), device=dev), flat)
+    rng = np.random.default_rng(1)
+    b, l = 4, 20
+    n = rng.integers(5, l + 1, size=b)
+    nf = np.where(np.arange(l)[None] < n[:, None], rng.integers(0, 28, (b, l)),
+                  -1)
+    valid = (nf[:, :, None] >= 0) & (nf[:, None, :] >= 0)
+    adj = ((rng.random((b, l, l)) < 0.2) & valid).astype(np.uint8)
+    fm = np.where(adj > 0, rng.integers(0, 4, (b, l, l)), -1)
+    batch = {"node_features": nf, "feature_matrix": fm, "graph_matrix": adj}
+    target = torch.randn((b, 1), device=dev)
+    kernels = (eb.KERNEL, eb.BWD_KERNEL, fl.BWD_MERGED_KERNEL,
+               fl.BWD_MONO_KERNEL)
+    before = [k.launches for k in kernels]
+    grads = []
+    for model in (fast, base):
+        loss = (model(batch, training=True, seeds=[3, 4]) - target).abs().mean()
+        loss.backward()
+        grads.append({k: p.grad for k, p in weights.flat_names(model).items()})
+    # path C: K8 in both layers, K9 in the first only (the last layer's edge
+    # output feeds no loss); the A paths: one backward kernel a layer
+    want = {"split": (2, 1, 0, 0), "merged": (0, 0, 2, 0),
+            "mono": (0, 0, 0, 2)}[impl]
+    assert tuple(k.launches - c for k, c in zip(kernels, before)) == want
     for k, r in grads[1].items():
         if r is None:      # the last layer's unused edge output: zeros or None
             assert grads[0][k] is None or not grads[0][k].any(), k
