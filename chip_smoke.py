@@ -8,7 +8,9 @@ final result line):
   1. host record: `nvidia-smi` name and power limit, torch and CUDA versions,
      `nvcc --version`;
   2. build the nine CUDA kernels from `egt_torch/csrc` (one nvcc each, in
-     parallel);
+     parallel); the HMMA (tensor-core) instruction count of K3's and K4's
+     libraries per kernel function from `cuobjdump -sass` ("not available"
+     without it): non-zero in the bf16 bodies, zero in the f32 ones;
   3. each kernel against its plain PyTorch version on the card, at the
      ZINC-500k shapes in f32 and bf16 with ragged node masks, plus one
      awkward shape: the forwards K1 and K3 at inference and in training mode
@@ -16,7 +18,11 @@ final result line):
      K7 (merged), K6 (mono) and K2 with the same draws (awkward: l 37, ew 32,
      h 4, hard mask); the edge block's K8 and K9 with h_hat head-major, as
      path C hands it over (awkward: ew 32, hidden 64, h 4, rows, a pair
-     count that is no multiple of the 32-pair tile); errors, kernel / plain
+     count that is no multiple of the 32-pair tile); K3, K4 and K9 (and K5-
+     K7) also at the other shipped edge widths, 8 (hidden 16) and 48
+     (hidden 96), with 8 heads and 6845 pairs (no multiple of the bf16
+     128-pair tile); two launches of K4 and of K9 give bit-identical weight
+     gradients; errors, kernel / plain
      times (CUDA events, median of 30 launches with L2 flushed before each)
      and the reckoned bound;
   4. serving paths: `load_predictor` on configs/main/zinc/500k/egt.json with
@@ -47,6 +53,7 @@ outside a checkout of the repository.
 from __future__ import annotations
 
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -161,6 +168,26 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {src}: {line.strip()}")
+
+    # tensor-core instructions in the SASS of K3's and K4's libraries, per
+    # kernel function: the bf16 bodies run mma.sync (HMMA), the f32 ones
+    # none (exact f32, no TF32)
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for src in ("fused_layer_fwd", "fused_layer_bwd_tail"):
+        if not Path(cuobjdump).exists():
+            print(f"  {src}: HMMA count not available (no cuobjdump)")
+            continue
+        sass = run([cuobjdump, "-sass", str(_cuda.library_path(src))])
+        counts = {}
+        for part in sass.split("Function : ")[1:]:
+            counts[part.split()[0]] = part.count("HMMA")
+        print(f"  {src}: HMMA {sum(counts.values())} in all; " + ", ".join(
+            f"{fn} {n}" for fn, n in counts.items()))
+        mma = [n for fn, n in counts.items() if "mma_kernel" in fn]
+        f32 = [n for fn, n in counts.items() if "kernelIf" in fn]
+        check(bool(mma) and all(mma) and not any(f32),
+              f"{src}: the bf16 body runs HMMA ({mma}), the f32 body "
+              f"none ({f32})")
 
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
 
@@ -349,6 +376,10 @@ def main() -> int:
         errs = [max_err(o, r, dtype) for o, r in zip(out[:2], tref[:2])]
         errs += [max_err(out[2][k], r, dtype, scaled=True)
                  for k, r in tref[2].items()]
+        rerun = fl._bwd_tail_cuda(*targs)
+        check(all(torch.equal(out[2][k], rerun[2][k]) for k in out[2]),
+              f"fused_layer_bwd_tail {shape}: weight gradients bit-identical "
+              "across two launches")
         nw = h * ew + 3 * ew + 2 * ew * hid + hid + ew
         nbytes = (3 * pairs * ew + 2 * pairs * h) * it + \
             (h * ew + 2 * ew * hid) * it + (4 * ew + hid) * 4 + nw * 4
@@ -446,6 +477,10 @@ def main() -> int:
                  for k, r in ref[2].items()]
         check(out[0].stride() == hh.stride(),
               f"edge_block_bwd {shape}: dhh in h_hat's layout")
+        rerun = eb._edge_block_bwd_cuda(hh, e, g, w)
+        check(all(torch.equal(out[2][k], rerun[2][k]) for k in out[2]),
+              f"edge_block_bwd {shape}: weight gradients bit-identical "
+              "across two launches")
         nw = h * ew + 3 * ew + 2 * ew * hid + hid + ew
         res["bwd"] = timed(
             f"edge_block_bwd {shape}", errs,
@@ -466,6 +501,14 @@ def main() -> int:
             results[("edge", dtype)] = edge_case(GRAPHS, PAD, 64, 8, dtype,
                                                  head_major=True)
             edge_case(5, 7, 32, 4, dtype, head_major=False, timing=False)
+            # the other shipped edge widths (ZINC-100k: 48, hidden 96;
+            # PATTERN, CLUSTER, MNIST, CIFAR10, TSP: 8, hidden 16) with 8
+            # heads, over 5 * 37 * 37 = 6845 pairs: no multiple of K4's and
+            # K9's 128-pair tile in bf16, nor of 32 in f32
+            for ew, dh in ((8, 64), (48, 48)):
+                layer_case(5, 37, ew, 8, dh, dtype, training=True,
+                           timing=False)
+                edge_case(5, 37, ew, 8, dtype, head_major=True, timing=False)
             for training in (False, True):
                 attention_case(16, 4, 37, 8, dtype, gated=False, hard=True,
                                training=training, timing=False)

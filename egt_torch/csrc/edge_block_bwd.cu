@@ -17,8 +17,9 @@
 // What bounds it on an H100: at the ZINC-500k shape (204,800 pairs, ew 64,
 // h 8, hidden 128, bf16) it moves ~85 MB (hh, e_res and g in; dhh and
 // de_res out), ~25 us at 3.35 TB/s, and does ~17 GFLOP of products, ~18 us
-// at the bf16 tensor-core peak: bytes bound it. This first kernel runs its
-// products on the f32 CUDA cores, so those FLOPs set its time instead.
+// at the bf16 tensor-core peak: bytes bound it. The bf16 body runs its
+// products on the tensor cores (mma.sync), the f32 body on the CUDA cores;
+// h_hat head-major is read and written two bytes at a time.
 //
 // Design: see tail_bwd.cuh. The TPU kernel sums the weight gradients in
 // VMEM across its in-order grid; here each block of a persistent grid keeps

@@ -17,9 +17,10 @@
 // ew 64, h 8, hidden 128, bf16) it moves ~85 MB (e, hh and g in; de_mid and
 // dhh out), ~25 us at 3.35 TB/s, and does ~17 GFLOP of products (the FFN
 // recompute, its two backward products and the weight gradients), ~18 us
-// at the bf16 tensor-core peak: bytes bound it. This first kernel runs its
-// products on the f32 CUDA cores (67 TFLOP/s), so those FLOPs set its time
-// instead.
+// at the bf16 tensor-core peak: bytes bound it. The bf16 body runs its
+// products on the tensor cores (mma.sync); the f32 body, exact f32, on the
+// CUDA cores (67 TFLOP/s), where those FLOPs set its time. tail_bwd.cuh
+// says what bounds the bf16 body now.
 
 #include "tail_bwd.cuh"
 

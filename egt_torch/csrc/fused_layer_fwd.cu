@@ -27,21 +27,32 @@
 // What bounds it on an H100: at the ZINC-500k serving shape (b 128, l 40,
 // ew 64, h 8, hidden 128, bf16) it must move ~55 MB (e in, e_out out, qkv,
 // v_att), 16 us at 3.35 TB/s, and do ~7.4 GFLOP, 7.5 us at the bf16
-// tensor-core peak: bytes bound it. This first kernel does its products on
-// the f32 CUDA cores (67 TFLOP/s peak), so the FLOPs of the 64 -> 128 -> 64
-// edge FFN (>90% of the work) set its time instead.
+// tensor-core peak: bytes bound it. On the f32 CUDA cores (67 TFLOP/s) the
+// FLOPs of the 64 -> 128 -> 64 edge FFN (>90% of the work) set its time
+// (1.24 ms as first ported), so the bf16 body (fused_layer_fwd_mma_kernel,
+// below) runs the edge-head projection, dense_edge_r and the FFN on the
+// tensor cores, mma.sync m16n8k16 with f32 sums (mma.cuh), in tiles of 16
+// pairs a warp, with the LayerNorms reduced in registers; q.k, the softmax,
+// the gate, the draws and A.V stay on the CUDA cores. What bounds that body
+// now is latency: the FFN chain of each warp, the per-(pair, head) q.k and
+// logits, and the softmax and A.V of each group of query rows between block
+// barriers, at two 5-warp blocks a SM (`python3 -m egt_torch.phase_times`
+// times each phase by ablation).
 //
-// Design: a persistent grid, sized by the occupancy API, walks the b * l
-// query rows; each block loads every weight once into shared memory
-// (~36 KB in bf16 at ew 64) and keeps it for all its rows. Per row, keys are
-// taken in chunks of TJ pairs so shared memory does not grow with l except
-// for the (l, h) logits/gates/h_hat rows the softmax needs. The small
-// products run as register-tiled 4 x 4 shared-memory GEMMs. e is read once
-// per phase (the second read, for the residual, hits L2) and e_out and
-// v_att are written once; no per-pair intermediate goes to device memory.
-// wgmma tiles for the edge FFN and TMA loads of e are the next step.
+// Design of the f32 body (fused_layer_fwd_kernel, exact f32 products): a
+// persistent grid, sized by the occupancy API, walks the b * l query rows;
+// each block loads every weight once into shared memory and keeps it for
+// all its rows. Per row, keys are taken in chunks of TJ pairs so shared
+// memory does not grow with l except for the (l, h) logits/gates/h_hat rows
+// the softmax needs. The small products run as register-tiled 4 x 4
+// shared-memory GEMMs. e is read once per phase (the second read, for the
+// residual, hits L2) and e_out and v_att are written once; no per-pair
+// intermediate goes to device memory.
+
+#include <type_traits>
 
 #include "common.cuh"
+#include "mma.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -325,8 +336,435 @@ __global__ void __launch_bounds__(NT) fused_layer_fwd_kernel(Params p) {
   }
 }
 
+// ---------------------------------------------------------------- bf16
+// The tensor-core body. A block takes a group of R consecutive query rows:
+// its R l pairs, flattened, are cut into tiles of 16 pairs, and warp w
+// takes tiles w, w + nw, ... Per tile the warp runs, in mma fragments
+// (mma.cuh) and its own staged rows: LN(e) -> [Wg | Wb] -> q.k, clip,
+// h_hat (hh out), logits and gates into the group's (R l, h) arrays; then,
+// as e_out depends only on the pre-mask h_hat, the tail at once:
+// rnd(h_hat) . Wr + br + e -> LN -> FFN (hid from the C fragments of the
+// first product straight into the A fragments of the second) + residual ->
+// e_out. Then the block takes the softmax per (row, head) and A.V.
+// e is staged with cp.async one tile ahead (two buffers a warp) and read
+// from device memory once.
+// Shared memory: f32 vectors (the projection biases, g1 b1 br g2 b2 bb2
+// (EK each), bb1 (UK)), q of the group's rows, logits and gates (R l h),
+// each warp's projection outputs (16 x NP); bf16 [Wg | Wb] (EK x NP),
+// Wr (HK x EK), W1 (EK x UK), W2 (UK x EK), and per warp two e buffers, the
+// LN output (LN(e), then LN(e_mid)) and rnd(h_hat), 16 rows each.
+constexpr int FWD_MMA_WARPS = 8;
+
+struct MmaLayout {
+  int EK, UK, HK, NP, se, su, sh, sn, nproj, R, nw;
+  int vec, q, lm, sg, proj, nf;           // float offsets
+  int wgb, wr, w1, w2, e, x, hh;          // bf16 offsets
+  size_t bytes;
+  __host__ __device__ MmaLayout(int l, int ew, int h, int dh, int hid,
+                                int gated, int R_, int nw_) {
+    EK = round16(ew); UK = round16(hid); HK = round16(h);
+    nproj = gated ? 2 * h : h; NP = round16(nproj);
+    se = EK + 8; su = UK + 8; sh = HK + 8; sn = NP + 8;
+    R = R_; nw = nw_;
+    int o = 0;
+    vec = o;  o += NP + 6 * EK + UK;
+    q = o;    o += R * dh;
+    lm = o;   o += R * l * h;
+    sg = o;   o += R * l * h;
+    proj = o; o += nw * 16 * NP;
+    nf = (o + 3) & ~3;
+    int b = 0;
+    wgb = b; b += EK * sn;
+    wr = b;  b += HK * se;
+    w1 = b;  b += EK * su;
+    w2 = b;  b += UK * se;
+    e = b;   b += nw * 2 * 16 * se;
+    x = b;   b += nw * 16 * se;
+    hh = b;  b += nw * 16 * sh;
+    bytes = (size_t)nf * 4 + (size_t)b * 2;
+  }
+};
+
+// rows of a group and warps a block: the R (tiles of 16 pairs <= 8) that
+// wastes the least of its last tile, for l > 128 one row and 8 warps
+__host__ inline void group_shape(int l, int& R, int& nw) {
+  R = 1; nw = FWD_MMA_WARPS;
+  if (l > 16 * FWD_MMA_WARPS) return;
+  double best = -1.0;
+  for (int r = 1; (r * l + 15) / 16 <= FWD_MMA_WARPS; ++r) {
+    const int tiles = (r * l + 15) / 16;
+    const double eff = (double)(r * l) / (16.0 * tiles);
+    if (eff > best + 1e-9) { best = eff; R = r; nw = tiles; }
+  }
+}
+
+template <int NTE>
+__global__ void __launch_bounds__(FWD_MMA_WARPS * 32, 2)
+    fused_layer_fwd_mma_kernel(Params p, int R) {
+  using bf = __nv_bfloat16;
+  constexpr int NKE = NTE / 2;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int l = p.l, E = p.ew, h = p.h, dh = p.dh, U = p.hid;
+  const int nw = blockDim.x >> 5;
+  const MmaLayout L(l, E, h, dh, U, p.gated, R, nw);
+  const int EK = L.EK, UK = L.UK, HK = L.HK, NP = L.NP, nproj = L.nproj;
+  const int se = L.se, su = L.su, sh = L.sh, sn = L.sn;
+  float *vbp = sm + L.vec, *vg1 = vbp + NP, *vb1 = vg1 + EK, *vbr = vb1 + EK;
+  float *vg2 = vbr + EK, *vb2 = vg2 + EK, *vbb2 = vb2 + EK, *vbb1 = vbb2 + EK;
+  float *q_s = sm + L.q, *lm_s = sm + L.lm, *sg_s = sm + L.sg;
+  bf* bs = reinterpret_cast<bf*>(sm + L.nf);
+  bf *Wgb = bs + L.wgb, *Wr = bs + L.wr, *W1 = bs + L.w1, *W2 = bs + L.w2;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  float* projW = sm + L.proj + warp * 16 * NP;
+  bf* eW = bs + L.e + warp * 2 * 16 * se;
+  bf* xW = bs + L.x + warp * 16 * se;
+  bf* hhW = bs + L.hh + warp * 16 * sh;
+  const bf zero = __float2bfloat16_rn(0.f);
+
+  // ---- weights (zero-padded) and vectors, once per block; staging zeroed
+  zero_smem(bs, L.hh + nw * 16 * sh);
+  for (int t = tid; t < NP; t += blockDim.x) {
+    float v = 0.f;
+    if (t < nproj) v = (p.gated && t < h) ? p.bg[t] : p.bb[t - (nproj - h)];
+    vbp[t] = v;
+  }
+  for (int t = tid; t < EK; t += blockDim.x) {
+    const bool ok = t < E;
+    vg1[t] = ok ? p.g1[t] : 0.f; vb1[t] = ok ? p.b1[t] : 0.f;
+    vbr[t] = ok ? p.br[t] : 0.f; vg2[t] = ok ? p.g2[t] : 0.f;
+    vb2[t] = ok ? p.b2[t] : 0.f; vbb2[t] = ok ? p.bb2[t] : 0.f;
+  }
+  for (int t = tid; t < UK; t += blockDim.x) vbb1[t] = t < U ? p.bb1[t] : 0.f;
+  __syncthreads();
+  if (p.gated) stage_matrix(Wgb, sn, (const bf*)p.wg, E, h);
+  stage_matrix(Wgb + nproj - h, sn, (const bf*)p.wb, E, h);
+  stage_matrix(Wr, se, (const bf*)p.wr, h, E);
+  stage_matrix(W1, su, (const bf*)p.w1, E, U);
+  stage_matrix(W2, se, (const bf*)p.w2, U, E);
+  __syncthreads();
+
+  const bf* E_ = (const bf*)p.e;
+  const bf* QKV = (const bf*)p.qkv;
+  bf* EO = (bf*)p.eout;
+  bf* VA = (bf*)p.vatt;
+  bf* HO = (bf*)p.hhout;
+  const int rows = p.B * l;
+  const int ngroups = (rows + R - 1) / R;
+  const bool dropping = p.dr.dropping();
+  // the warp's tiles, in order: (group, tile) with tile = warp, warp + nw..
+  auto tiles_of = [&](int grp) {
+    const int nr = min(R, rows - grp * R);
+    return (nr * l + 15) / 16;
+  };
+  // pair range of a tile: first flattened pair and valid count
+  auto tile_pairs = [&](int grp, int tt, long long& P0) {
+    const long long g0 = (long long)grp * R * l;
+    const long long gend = g0 + (long long)min(R, rows - grp * R) * l;
+    P0 = g0 + 16 * tt;
+    const long long r = gend - P0;
+    return (int)(r > 16 ? 16 : r);
+  };
+  int item = 0;    // tiles this warp has taken: e buffer item & 1
+  if (blockIdx.x < ngroups && warp < tiles_of(blockIdx.x)) {
+    long long P0;
+    const int nv = tile_pairs(blockIdx.x, warp, P0);
+    stage_rows16(eW, se, E_ + P0 * E, nv, E);
+  }
+  cp_async_commit();
+
+  for (int grp = blockIdx.x; grp < ngroups; grp += gridDim.x) {
+    const int row0 = grp * R, nr = min(R, rows - row0), ntl = tiles_of(grp);
+    __syncthreads();      // the previous group's softmax and A.V are done
+    for (int t = tid; t < nr * dh; t += blockDim.x) {
+      const int rg = t / dh, f = t - rg * dh;
+      q_s[t] = __bfloat162float(QKV[(size_t)(row0 + rg) * 3 * dh + f]);
+    }
+    __syncthreads();
+
+    for (int tt = warp; tt < ntl; tt += nw, ++item) {
+      bf* eC = eW + (item & 1) * 16 * se;
+      long long P0;
+      const int nv = tile_pairs(grp, tt, P0);
+      // prefetch the warp's next tile
+      {
+        int ng = grp, nt = tt + nw;
+        if (nt >= ntl) { ng = grp + gridDim.x; nt = warp; }
+        if (ng < ngroups && nt < tiles_of(ng)) {
+          long long Pn;
+          const int nvn = tile_pairs(ng, nt, Pn);
+          stage_rows16(eW + ((item + 1) & 1) * 16 * se, se, E_ + Pn * E, nvn, E);
+        }
+        cp_async_commit();
+      }
+      cp_async_wait<1>();
+      __syncwarp();
+
+      // ---- LN(e) -> xW (rounded)
+      {
+        float ev[NTE][4];
+#pragma unroll
+        for (int j = 0; j < NTE; ++j) {
+          if (j < EK / 8) {
+            const int c = 8 * j + 2 * tq;
+            const float2 e0 = ld_bf2(eC + gq * se + c);
+            const float2 e1 = ld_bf2(eC + (gq + 8) * se + c);
+            ev[j][0] = e0.x; ev[j][1] = e0.y; ev[j][2] = e1.x; ev[j][3] = e1.y;
+          }
+        }
+        float mu[2], rs[2];
+        ln_stats(ev, E, mu, rs);
+        const float mu0 = mu[0], mu1 = mu[1], rs0 = rs[0], rs1 = rs[1];
+#pragma unroll
+        for (int j = 0; j < NTE; ++j) {
+          if (j < EK / 8) {
+            const int c = 8 * j + 2 * tq;
+            st_bf2(xW + gq * se + c, vg1[c] * ((ev[j][0] - mu0) * rs0) + vb1[c],
+                   vg1[c + 1] * ((ev[j][1] - mu0) * rs0) + vb1[c + 1]);
+            st_bf2(xW + (gq + 8) * se + c,
+                   vg1[c] * ((ev[j][2] - mu1) * rs1) + vb1[c],
+                   vg1[c + 1] * ((ev[j][3] - mu1) * rs1) + vb1[c + 1]);
+          }
+        }
+      }
+      __syncwarp();
+
+      // ---- [gates | bias] = LN(e) . [Wg | Wb] + [bg | bb] -> projW (f32)
+      for (int n0 = 0; n0 < NP; n0 += 16) {
+        float c[2][4] = {};
+#pragma unroll
+        for (int ks = 0; ks < NKE; ++ks) {
+          if (ks < EK / 16) {
+            uint32_t a[4], b[4];
+            lda(a, xW, se, 0, 16 * ks);
+            ldb_kn(b, Wgb, sn, 16 * ks, n0);
+            mma16816(c[0], a, b[0], b[1]);
+            mma16816(c[1], a, b[2], b[3]);
+          }
+        }
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+          for (int qq = 0; qq < 4; ++qq) {
+            const int n = n0 + 8 * jj + 2 * tq + (qq & 1);
+            projW[(gq + ((qq >> 1) << 3)) * NP + n] = c[jj][qq] + vbp[n];
+          }
+      }
+      __syncwarp();
+
+      // ---- per (pair, head): q.k, clip, h_hat, logits, gates (unrolled:
+      // the loads of k go out together)
+#pragma unroll 4
+      for (int it = lane; it < 16 * h; it += 32) {
+        const int r = it / h, k = it - r * h;
+        if (r >= nv) { hhW[r * sh + k] = zero; continue; }
+        const long long P = P0 + r;
+        const int loc = (int)(P - (long long)row0 * l);   // pair in the group
+        const int rg = loc / l, j = loc - rg * l, row = row0 + rg;
+        const int b = row / l, i = row - b * l;
+        const bf* kr = QKV + ((size_t)b * l + j) * 3 * dh + dh;
+        const float* qr = q_s + rg * dh;
+        float s = 0.f;
+        for (int dd = k; dd < dh; dd += h) s = fmaf(qr[dd], __bfloat162float(kr[dd]), s);
+        s *= p.scale;
+        if (p.has_clip) s = fminf(fmaxf(s, p.lo), p.hi);
+        const float hv = s + act_fn(p.edge_act, p.edge_alpha,
+                                    projW[r * NP + nproj - h + k]);
+        hhW[r * sh + k] = __float2bfloat16_rn(hv);
+        if (HO) HO[P * h + k] = __float2bfloat16_rn(hv);
+        float madd = (p.mask[(size_t)b * l + j] - 1.f) * 1e9f;
+        if (p.amask) madd += (p.amask[P] - 1.f) * 1e9f;
+        const float rm = p.dr.mask_add(b, i, j, k);
+        const int o = (rg * l + j) * h + k;
+        lm_s[o] = hv + madd + rm;
+        if (p.gated) sg_s[o] = sigmoid(projW[r * NP + k] + madd + rm);
+      }
+      __syncwarp();
+
+      // ---- e_mid = rnd(h_hat) . Wr + br + e
+      float em[NTE][4];
+#pragma unroll
+      for (int j = 0; j < NTE; ++j) {
+        if (j < EK / 8) {
+          const int c = 8 * j + 2 * tq;
+          const float2 e0 = ld_bf2(eC + gq * se + c);
+          const float2 e1 = ld_bf2(eC + (gq + 8) * se + c);
+          em[j][0] = e0.x + vbr[c]; em[j][1] = e0.y + vbr[c + 1];
+          em[j][2] = e1.x + vbr[c]; em[j][3] = e1.y + vbr[c + 1];
+        }
+      }
+      for (int k0 = 0; k0 < HK; k0 += 16) {
+        uint32_t a[4];
+        lda(a, hhW, sh, 0, k0);
+#pragma unroll
+        for (int jb = 0; jb < NKE; ++jb) {
+          if (jb < EK / 16) {
+            uint32_t b[4];
+            ldb_kn(b, Wr, se, k0, 16 * jb);
+            mma16816(em[2 * jb], a, b[0], b[1]);
+            mma16816(em[2 * jb + 1], a, b[2], b[3]);
+          }
+        }
+      }
+
+      // ---- LN(e_mid) -> xW (rounded)
+      {
+        float mu[2], rs[2];
+        ln_stats(em, E, mu, rs);
+        const float mu0 = mu[0], mu1 = mu[1], rs0 = rs[0], rs1 = rs[1];
+        __syncwarp();   // every lane is done with LN(e) in xW
+#pragma unroll
+        for (int j = 0; j < NTE; ++j) {
+          if (j < EK / 8) {
+            const int c = 8 * j + 2 * tq;
+            st_bf2(xW + gq * se + c, vg2[c] * ((em[j][0] - mu0) * rs0) + vb2[c],
+                   vg2[c + 1] * ((em[j][1] - mu0) * rs0) + vb2[c + 1]);
+            st_bf2(xW + (gq + 8) * se + c,
+                   vg2[c] * ((em[j][2] - mu1) * rs1) + vb2[c],
+                   vg2[c + 1] * ((em[j][3] - mu1) * rs1) + vb2[c + 1]);
+          }
+        }
+      }
+      __syncwarp();
+
+      // ---- e_out = rnd(act(xn . W1 + b1)) . W2 + b2 + e_mid, 16 hidden
+      // units at a time, summed onto e_mid + b2 in place
+      uint32_t axn[NKE][4];
+#pragma unroll
+      for (int ks = 0; ks < NKE; ++ks)
+        if (ks < EK / 16) lda(axn[ks], xW, se, 0, 16 * ks);
+#pragma unroll
+      for (int j = 0; j < NTE; ++j)
+        if (j < EK / 8) {
+#pragma unroll
+          for (int qq = 0; qq < 4; ++qq) em[j][qq] += vbb2[8 * j + 2 * tq + (qq & 1)];
+        }
+#pragma unroll 2
+      for (int u0 = 0; u0 < UK; u0 += 16) {
+        float pre[2][4] = {};
+#pragma unroll
+        for (int ks = 0; ks < NKE; ++ks) {
+          if (ks < EK / 16) {
+            uint32_t b[4];
+            ldb_kn(b, W1, su, 16 * ks, u0);
+            mma16816(pre[0], axn[ks], b[0], b[1]);
+            mma16816(pre[1], axn[ks], b[2], b[3]);
+          }
+        }
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+          for (int qq = 0; qq < 4; ++qq) {
+            const int u = u0 + 8 * jj + 2 * tq + (qq & 1);
+            pre[jj][qq] = u < U ? act_fn(p.act, p.act_alpha, pre[jj][qq] + vbb1[u])
+                                : 0.f;
+          }
+        const uint32_t a[4] = {pack_bf16(pre[0][0], pre[0][1]),
+                               pack_bf16(pre[0][2], pre[0][3]),
+                               pack_bf16(pre[1][0], pre[1][1]),
+                               pack_bf16(pre[1][2], pre[1][3])};
+#pragma unroll
+        for (int jb = 0; jb < NKE; ++jb) {
+          if (jb < EK / 16) {
+            uint32_t b[4];
+            ldb_kn(b, W2, se, u0, 16 * jb);
+            mma16816(em[2 * jb], a, b[0], b[1]);
+            mma16816(em[2 * jb + 1], a, b[2], b[3]);
+          }
+        }
+      }
+      // e is read: stage e_out in its buffer, then write the rows
+#pragma unroll
+      for (int j = 0; j < NTE; ++j) {
+        if (j < EK / 8) {
+          const int c = 8 * j + 2 * tq;
+          st_bf2(eC + gq * se + c, em[j][0], em[j][1]);
+          st_bf2(eC + (gq + 8) * se + c, em[j][2], em[j][3]);
+        }
+      }
+      __syncwarp();
+      store_rows16(EO + P0 * E, eC, se, nv, E);
+      __syncwarp();      // eC is free for the prefetch two tiles on
+    }
+    __syncthreads();     // the group's logits and gates are in
+
+    // ---- softmax over keys per (row, head), times the gate: one (row,
+    // head) a group of G lanes, 8 for rows of up to 64 keys (four a warp),
+    // else the whole warp; every lane of a warp runs the same rounds
+    {
+      const int G = l <= 64 ? 8 : 32, per = 32 / G, gl = lane % G;
+      for (int base = warp * per; base < nr * h; base += nw * per) {
+        const int it = base + lane / G;
+        const bool ok = it < nr * h;
+        const int lj = ok ? l : 0;               // keys this lane's group takes
+        const int rg = ok ? it / h : 0, k = ok ? it - rg * h : 0;
+        const int row = row0 + rg, b = row / l, i = row - b * l;
+        float* lmr = lm_s + rg * l * h + k;
+        const float* sgr = sg_s + rg * l * h + k;
+        float mx = -INFINITY;
+        for (int j = gl; j < lj; j += G) mx = fmaxf(mx, lmr[j * h]);
+        for (int o = G / 2; o > 0; o >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        float s = 0.f;
+        for (int j = gl; j < lj; j += G) {
+          const float ex = expf(lmr[j * h] - mx);
+          lmr[j * h] = ex;
+          s += ex;
+        }
+        for (int o = G / 2; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+        const float den = fmaxf(s, 1e-30f);
+        for (int j = gl; j < lj; j += G) {
+          float a = lmr[j * h] / den;
+          if (p.gated) a *= sgr[j * h];
+          if (dropping) a = p.dr.kept(b, i, j, k) ? a / p.dr.keep : 0.f;
+          lmr[j * h] = rnd<bf>(a);
+        }
+      }
+    }
+    __syncthreads();
+
+    // ---- v_att_i = sum_j A_ij v_j
+    for (int t = tid; t < nr * dh; t += blockDim.x) {
+      const int rg = t / dh, f = t - rg * dh;
+      const int row = row0 + rg, b = row / l;
+      const bf* vb = QKV + (size_t)b * l * 3 * dh + 2 * dh + f;
+      const float* ar = lm_s + rg * l * h + f % h;
+      float acc = 0.f;
+#pragma unroll 8
+      for (int j = 0; j < l; ++j)       // unrolled: the loads go out together
+        acc = fmaf(ar[j * h], __bfloat162float(vb[(size_t)j * 3 * dh]), acc);
+      VA[(size_t)row * dh + f] = __float2bfloat16_rn(acc);
+    }
+  }
+  cp_async_wait<0>();
+}
+
+template <int NTE>
+int launch_mma(const Params& p, cudaStream_t stream) {
+  int R, nw;
+  group_shape(p.l, R, nw);
+  const MmaLayout L(p.l, p.ew, p.h, p.dh, p.hid, p.gated, R, nw);
+  auto kern = fused_layer_fwd_mma_kernel<NTE>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.bytes);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, nw * 32,
+                                                      L.bytes);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long groups = ((long long)p.B * p.l + R - 1) / R;
+  const long long cap = (long long)sms * per_sm;
+  kern<<<(unsigned)(groups < cap ? groups : cap), nw * 32, L.bytes, stream>>>(p, R);
+  return (int)cudaGetLastError();
+}
+
+// f32: the CUDA-core body (exact f32 products)
 template <typename T>
-int launch(const Params& p, cudaStream_t stream) {
+int launch_simt(const Params& p, cudaStream_t stream) {
   const Layout L(p.l, p.ew, p.h, p.dh, p.hid);
   const size_t smem = (size_t)L.nf * sizeof(float) + (size_t)L.nw * sizeof(T);
   auto kern = fused_layer_fwd_kernel<T>;
@@ -343,6 +781,16 @@ int launch(const Params& p, cudaStream_t stream) {
   const long long grid = rows < (long long)sms * per_sm ? rows : (long long)sms * per_sm;
   kern<<<(unsigned)grid, NT, smem, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch(const Params& p, cudaStream_t stream) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (p.ew > 128) return (int)cudaErrorInvalidValue;
+    return p.ew <= 64 ? launch_mma<8>(p, stream) : launch_mma<16>(p, stream);
+  } else {
+    return launch_simt<T>(p, stream);
+  }
 }
 
 }  // namespace

@@ -19,22 +19,44 @@
 // (pairs, h) or, for the edge block on path C, the attention kernel's
 // head-major (b, h, l, l) layout, read and written in place.
 //
-// Design: the TPU kernels sum their weight gradients in VMEM scratch across
-// a grid that runs in order; on the card blocks run in no order. So a
-// persistent grid walks tiles of TP consecutive pairs; each block keeps the
-// ~17k f32 weight-gradient sums of its tiles in shared memory (each element
-// owned by one thread, no atomics) and writes one partial row at the end;
-// a second small kernel sums the partial rows in a fixed order, so a rerun
-// is bit-identical. The weights and their transposes sit in shared memory
-// for the whole block (row-major reads in every product). Per tile, the
-// pair rows go through the chain in shared memory; only de_mid and dhh go
-// back to device memory. (edge_tail.cuh has the same chain as functions on
-// a tile, for the kernels that run it one query row at a time. Over
-// flattened pairs this inline body, with transposed weight copies, took
-// ~30% less time on an H100 than those functions, so K4 and K9 keep it.)
+// Design, both bodies: the TPU kernels sum their weight gradients in VMEM
+// scratch across a grid that runs in order; on the card blocks run in no
+// order. So a persistent grid walks tiles of consecutive pairs; each block
+// keeps the ~17k f32 weight-gradient sums of its tiles in shared memory
+// (each element owned by one thread, no atomics) and writes one partial row
+// at the end; a second small kernel sums the partial rows in a fixed order,
+// so a rerun is bit-identical. Only de_mid and dhh go back to device memory.
+//
+// What bounds it on an H100 (ZINC-500k training shape: 204,800 pairs, ew
+// 64, h 8, hidden 128, bf16): ~85 MB to move (25 us at 3.35 TB/s) and
+// ~17 GFLOP of products (18 us at the bf16 tensor-core peak). The products
+// on the f32 CUDA cores (67 TFLOP/s; 2.74 ms as first ported) set the time,
+// so the bf16 body (tail_bwd_mma_kernel) runs all eight on the tensor cores,
+// mma.sync m16n8k16 with f32 sums (mma.cuh): every operand already sits at
+// a bf16 rounding point, so only the order of summation changes. A warp
+// owns 16 pairs and keeps their chain in registers, in mma fragments: the
+// LayerNorms reduce a row within a quad of lanes, the FFN runs 16 hidden
+// units at a time, and rnd(dpre) goes from the C fragments of g . W2^T
+// straight into the A fragments of dxn = rnd(dpre) . W1^T. The transposed
+// products read the weights as stored (ldmatrix without .trans), so no
+// transposed copy is kept. Block barriers remain only around the weight-
+// gradient products, whose depth is the tile's 128 pairs. e and g of the
+// next tile are staged with cp.async by each warp as soon as its own rows
+// are read, hh one tile ahead in a second buffer. What bounds the body now
+// is latency, not bytes or peak FLOPs: one 8-warp block a SM (~225 KB of
+// shared memory, most of it the f32 sums and the weights), the FFN chain of
+// each warp and the barriers around the weight-gradient products
+// (`python3 -m egt_torch.phase_times` times each phase by ablation). The
+// f32 body (tail_bwd_kernel) is the first port's, on the CUDA cores, exact
+// in f32: register-tiled shared-memory products with transposed weight
+// copies. (edge_tail.cuh has the f32-core chain as functions on a tile, for
+// the kernels that run it one query row at a time.)
 #pragma once
 
+#include <type_traits>
+
 #include "edge_tail.cuh"
+#include "mma.cuh"
 
 namespace egt {
 
@@ -285,13 +307,462 @@ __global__ void __launch_bounds__(TAIL_NT) tail_bwd_kernel(TailParams p) {
   for (int t = tid; t < L.nw; t += NT) part[t] = acc[t];
 }
 
+// ---------------------------------------------------------------- bf16
+// The tensor-core body. A block of nw warps takes tiles of 16 nw pairs;
+// warp w owns pairs 16 w .. 16 w + 15 of a tile and runs their chain in
+// registers, in mma fragments (see mma.cuh). Shared memory:
+//   f32:  the weight-gradient sums (TailAcc order), one row of bias-sum
+//         partials per warp, and br g2 b2 bb2 (EK each) bb1 (UK), zero-padded;
+//   bf16: Wr (HK x EK), W1 (EK x UK), W2 (UK x EK) as given (the
+//         transposed products read them with ldmatrix without .trans), and
+//         the tile's staged rows: e, g, hh (two buffers), rnd(xn), a
+//         buffer that holds rnd(hid) of a chunk of UC hidden units and
+//         then rnd(de_mid), and rnd(dpre) of the chunk.
+// Widths are padded with zeros to multiples of 16; rows past the last
+// pair are zero-filled, which makes every padded pair's g, dpre, de_mid and
+// hh exactly 0, so the weight-gradient products over the tile's pairs add
+// nothing for them.
+constexpr int TAIL_MMA_WARPS = 8;
+
+struct TailMmaLayout {
+  int EK, UK, HK, UC, se, su, sh, sb, sd, wr_len;
+  int wrow, vec, nf;                      // float offsets; nf floats in all
+  int wr, w1, w2, e, g, hh, xn, hd, dp;   // bf16 offsets
+  size_t bytes;
+  __host__ __device__ TailMmaLayout(int ew, int h, int hid, int nw) {
+    EK = round16(ew); UK = round16(hid); HK = round16(h);
+    UC = UK < 64 ? UK : 64;
+    se = EK + 8; su = UK + 8; sh = HK + 8;
+    sb = (UC > EK ? UC : EK) + 8; sd = UC + 8;
+    const int tp = 16 * nw;
+    wr_len = 4 * EK + UK;                 // br g2 b2 bb2 (EK) bb1 (UK)
+    int o = TailAcc(ew, h, hid).n;
+    wrow = o; o += nw * wr_len;
+    vec = o;  o += wr_len;
+    nf = (o + 3) & ~3;
+    int b = 0;
+    wr = b; b += HK * se;
+    w1 = b; b += EK * su;
+    w2 = b; b += UK * se;
+    e = b;  b += tp * se;
+    g = b;  b += tp * se;
+    hh = b; b += 2 * tp * sh;
+    xn = b; b += tp * se;
+    hd = b; b += tp * sb;
+    dp = b; b += tp * sd;
+    bytes = (size_t)nf * 4 + (size_t)b * 2;
+  }
+};
+
+// Stage one warp's 16 rows of h_hat, rows layout or head-major (b, h, l, l)
+template <bool HM>
+__device__ __forceinline__ void stage_hh16(__nv_bfloat16* S, int ld,
+                                           const __nv_bfloat16* HH,
+                                           long long p0, int nv, int h, int l) {
+  if (!HM) {
+    stage_rows16(S, ld, HH + p0 * h, nv, h);
+  } else {
+    for (int t = threadIdx.x & 31; t < 16 * h; t += 32) {
+      const int k = t >> 4, r = t & 15;   // consecutive lanes, consecutive pairs
+      S[r * ld + k] = r < nv ? HH[hh_index(p0 + r, k, h, l)]
+                             : __float2bfloat16_rn(0.f);
+    }
+  }
+}
+
+// acc[base + m * ldo + n] += the 16 x 16 block of C fragments c, for
+// m < M, n < N; (m0, n0) is the block's corner
+__device__ __forceinline__ void add_block(float* acc, int ldo, int M, int N,
+                                          int m0, int n0,
+                                          const float (&c)[2][4]) {
+  const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int m = m0 + gq + ((q >> 1) << 3);
+      const int n = n0 + 8 * jj + 2 * tq + (q & 1);
+      if (m < M && n < N) acc[m * ldo + n] += c[jj][q];
+    }
+}
+
+// C (16 x 16 at (m0, n0)) = sum over k < K of A^T B, with A stored K x M
+// (row stride la) and B stored K x N (row stride lb): a weight gradient
+// over the tile's pairs
+__device__ __forceinline__ void wgrad_block(float (&c)[2][4],
+                                            const __nv_bfloat16* A, int la,
+                                            const __nv_bfloat16* B, int lb,
+                                            int K, int m0, int n0) {
+#pragma unroll
+  for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) c[jj][q] = 0.f;
+  for (int k0 = 0; k0 < K; k0 += 16) {
+    uint32_t a[4], b[4];
+    lda_t(a, A, la, k0, m0);
+    ldb_kn(b, B, lb, k0, n0);
+    mma16816(c[0], a, b[0], b[1]);
+    mma16816(c[1], a, b[2], b[3]);
+  }
+}
+
+// NTE: the most n8 tiles of the edge width a lane holds (ew <= 8 NTE)
+template <bool HM, int NTE>
+__global__ void __launch_bounds__(TAIL_MMA_WARPS * 32, 1)
+    tail_bwd_mma_kernel(TailParams p) {
+  using bf = __nv_bfloat16;
+  constexpr int NKE = NTE / 2;            // k16 steps over the edge width
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int E = p.ew, H = p.h, U = p.hid;
+  const int nw = blockDim.x >> 5, TP = 16 * nw;
+  const TailMmaLayout L(E, H, U, nw);
+  const int EK = L.EK, UK = L.UK, HK = L.HK, UC = L.UC;
+  const int se = L.se, su = L.su, sh = L.sh, sb = L.sb, sd = L.sd;
+  const TailAcc A(E, H, U);
+  float* acc = sm;
+  float *vbr = sm + L.vec, *vg2 = vbr + EK, *vb2 = vg2 + EK;
+  float *vbb2 = vb2 + EK, *vbb1 = vbb2 + EK;
+  bf* bs = reinterpret_cast<bf*>(sm + L.nf);
+  bf *Wr = bs + L.wr, *W1 = bs + L.w1, *W2 = bs + L.w2;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  float* wrow = sm + L.wrow + warp * L.wr_len;   // this warp's bias partials
+  // this warp's 16 staged rows
+  bf *eW = bs + L.e + warp * 16 * se, *gW = bs + L.g + warp * 16 * se;
+  bf *xnW = bs + L.xn + warp * 16 * se, *hdW = bs + L.hd + warp * 16 * sb;
+  bf* dpW = bs + L.dp + warp * 16 * sd;
+
+  // ---- weights (zero-padded), vectors, sums; staging zeroed (its padding
+  // columns are never written again)
+  zero_smem(bs, L.dp + TP * sd);
+  for (int t = tid; t < L.vec; t += blockDim.x) sm[t] = 0.f;  // sums, partials
+  for (int t = tid; t < EK; t += blockDim.x) {
+    const bool ok = t < E;
+    vbr[t] = ok ? p.br[t] : 0.f; vg2[t] = ok ? p.g2[t] : 0.f;
+    vb2[t] = ok ? p.b2[t] : 0.f; vbb2[t] = ok ? p.bb2[t] : 0.f;
+  }
+  for (int t = tid; t < UK; t += blockDim.x) vbb1[t] = t < U ? p.bb1[t] : 0.f;
+  __syncthreads();
+  stage_matrix(Wr, se, (const bf*)p.wr, H, E);
+  stage_matrix(W1, su, (const bf*)p.w1, E, U);
+  stage_matrix(W2, se, (const bf*)p.w2, U, E);
+  __syncthreads();
+
+  const bf* E_ = (const bf*)p.e;
+  const bf* HH = (const bf*)p.hh;
+  const bf* G = (const bf*)p.g;
+  bf* DM = (bf*)p.demid;
+  bf* DH = (bf*)p.dhh;
+  const long long ntiles = (p.pairs + TP - 1) / TP;
+  auto rows_of = [&](long long tile, long long& p0) {
+    p0 = tile * TP + warp * 16;
+    const long long r = p.pairs - p0;
+    return (int)(r < 0 ? 0 : (r > 16 ? 16 : r));
+  };
+
+  // prologue: the first tile's e, g and hh
+  if (blockIdx.x < ntiles) {
+    long long p0;
+    const int nv = rows_of(blockIdx.x, p0);
+    stage_rows16(eW, se, E_ + p0 * E, nv, E);
+    stage_rows16(gW, se, G + p0 * E, nv, E);
+    stage_hh16<HM>(bs + L.hh + warp * 16 * sh, sh, HH, p0, nv, H, p.hh_l);
+  }
+  cp_async_commit();
+
+  for (long long tile = blockIdx.x, it = 0; tile < ntiles;
+       tile += gridDim.x, ++it) {
+    const int cur = (int)(it & 1);
+    bf* hhT = bs + L.hh + cur * TP * sh;        // the tile's hh, all warps
+    bf* hhW = hhT + warp * 16 * sh;
+    long long p0, pn;
+    const int nv = rows_of(tile, p0);
+    const long long next = tile + gridDim.x;
+    const int nvn = next < ntiles ? rows_of(next, pn) : 0;
+    if (next < ntiles)
+      stage_hh16<HM>(bs + L.hh + (cur ^ 1) * TP * sh + warp * 16 * sh, sh, HH,
+                     pn, nvn, H, p.hh_l);
+    cp_async_commit();
+    cp_async_wait<1>();                         // this tile's e, g, hh
+    __syncwarp();
+
+    // ---- e_mid = rnd(hh) . Wr + br + e, in C fragments (rows gq, gq + 8)
+    float x2[NTE][4];
+#pragma unroll
+    for (int j = 0; j < NTE; ++j) {
+      if (j < EK / 8) {
+        const int c = 8 * j + 2 * tq;
+        const float2 e0 = ld_bf2(eW + gq * se + c);
+        const float2 e1 = ld_bf2(eW + (gq + 8) * se + c);
+        x2[j][0] = e0.x + vbr[c]; x2[j][1] = e0.y + vbr[c + 1];
+        x2[j][2] = e1.x + vbr[c]; x2[j][3] = e1.y + vbr[c + 1];
+      }
+    }
+    for (int k0 = 0; k0 < HK; k0 += 16) {
+      uint32_t a[4];
+      lda(a, hhW, sh, 0, k0);
+#pragma unroll
+      for (int jb = 0; jb < NKE; ++jb) {
+        if (jb < EK / 16) {
+          uint32_t b[4];
+          ldb_kn(b, Wr, se, k0, 16 * jb);
+          mma16816(x2[2 * jb], a, b[0], b[1]);
+          mma16816(x2[2 * jb + 1], a, b[2], b[3]);
+        }
+      }
+    }
+    __syncwarp();
+    // e is read: prefetch the next tile's
+    if (next < ntiles) stage_rows16(eW, se, E_ + pn * E, nvn, E);
+    cp_async_commit();
+
+    // ---- LayerNorm of e_mid over the E real columns; x2 in place
+    float mu[2], rs[2];
+    ln_stats(x2, E, mu, rs);
+    const float mu0 = mu[0], mu1 = mu[1], rs0 = rs[0], rs1 = rs[1];
+#pragma unroll
+    for (int j = 0; j < NTE; ++j) {
+      if (j < EK / 8) {
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const bool ok = 8 * j + 2 * tq + q < E;
+          x2[j][q] = ok ? (x2[j][q] - mu0) * rs0 : 0.f;
+          x2[j][2 + q] = ok ? (x2[j][2 + q] - mu1) * rs1 : 0.f;
+        }
+        const int c = 8 * j + 2 * tq;
+        st_bf2(xnW + gq * se + c, vg2[c] * x2[j][0] + vb2[c],
+               vg2[c + 1] * x2[j][1] + vb2[c + 1]);
+        st_bf2(xnW + (gq + 8) * se + c, vg2[c] * x2[j][2] + vb2[c],
+               vg2[c + 1] * x2[j][3] + vb2[c + 1]);
+      }
+    }
+    __syncwarp();
+    uint32_t axn[NKE][4], ag[NKE][4];     // A fragments of rnd(xn) and g
+#pragma unroll
+    for (int ks = 0; ks < NKE; ++ks)
+      if (ks < EK / 16) {
+        lda(axn[ks], xnW, se, 0, 16 * ks);
+        lda(ag[ks], gW, se, 0, 16 * ks);
+      }
+
+    // ---- the FFN in chunks of UC hidden units: hid, dpre (staged for the
+    // weight gradients), db1, and dxn += rnd(dpre) . W1^T from registers
+    float dx[NTE][4];
+#pragma unroll
+    for (int j = 0; j < NTE; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) dx[j][q] = 0.f;
+    for (int uc = 0; uc < UK; uc += UC) {
+      const int ucw = min(UC, UK - uc);
+      for (int ub = 0; ub < ucw; ub += 16) {
+        const int u0 = uc + ub;
+        float pre[2][4] = {}, dp[2][4] = {};
+#pragma unroll
+        for (int ks = 0; ks < NKE; ++ks) {
+          if (ks < EK / 16) {
+            uint32_t b[4];
+            ldb_kn(b, W1, su, 16 * ks, u0);
+            mma16816(pre[0], axn[ks], b[0], b[1]);
+            mma16816(pre[1], axn[ks], b[2], b[3]);
+            ldb_nk(b, W2, se, 16 * ks, u0);
+            mma16816(dp[0], ag[ks], b[0], b[1]);
+            mma16816(dp[1], ag[ks], b[2], b[3]);
+          }
+        }
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int u = u0 + 8 * jj + 2 * tq + (q & 1);
+            const float hv = act_fn(p.act, p.act_alpha, pre[jj][q] + vbb1[u]);
+            // act(pre) > 0 iff pre > 0 for elu, relu and leaky relu
+            const float dv = dp[jj][q] *
+                act_grad(p.act, p.act_alpha, hv > 0.f ? 1.f : -1.f, hv);
+            pre[jj][q] = u < U ? hv : 0.f;
+            dp[jj][q] = u < U ? dv : 0.f;
+          }
+          const int c = ub + 8 * jj + 2 * tq;
+          st_bf2(hdW + gq * sb + c, pre[jj][0], pre[jj][1]);
+          st_bf2(hdW + (gq + 8) * sb + c, pre[jj][2], pre[jj][3]);
+          st_bf2(dpW + gq * sd + c, dp[jj][0], dp[jj][1]);
+          st_bf2(dpW + (gq + 8) * sd + c, dp[jj][2], dp[jj][3]);
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const float s = rows16_sum(dp[jj][q] + dp[jj][2 + q]);
+            if (gq == 0) wrow[4 * EK + u0 + 8 * jj + 2 * tq + q] += s;
+          }
+        }
+        const uint32_t a[4] = {pack_bf16(dp[0][0], dp[0][1]),
+                               pack_bf16(dp[0][2], dp[0][3]),
+                               pack_bf16(dp[1][0], dp[1][1]),
+                               pack_bf16(dp[1][2], dp[1][3])};
+#pragma unroll
+        for (int jb = 0; jb < NKE; ++jb) {
+          if (jb < EK / 16) {
+            uint32_t b[4];
+            ldb_nk(b, W1, su, u0, 16 * jb);
+            mma16816(dx[2 * jb], a, b[0], b[1]);
+            mma16816(dx[2 * jb + 1], a, b[2], b[3]);
+          }
+        }
+      }
+      __syncthreads();   // every warp's chunk of hid and dpre is staged
+      // dW2[uc + m, c] += sum_p rnd(hid)[p, m] g[p, c];
+      // dW1[c, uc + n] += sum_p rnd(xn)[p, c] rnd(dpre)[p, n]
+      const int mb2 = ucw / 16, nb2 = EK / 16, n2 = mb2 * nb2;
+      for (int bi = warp; bi < 2 * n2; bi += nw) {
+        float c[2][4];
+        if (bi < n2) {
+          const int m0 = 16 * (bi / nb2), n0 = 16 * (bi % nb2);
+          wgrad_block(c, bs + L.hd, sb, bs + L.g, se, TP, m0, n0);
+          add_block(acc + A.dw2 + uc * E, E, U - uc, E, m0, n0, c);
+        } else {
+          const int b2 = bi - n2, m0 = 16 * (b2 / mb2), n0 = 16 * (b2 % mb2);
+          wgrad_block(c, bs + L.xn, se, bs + L.dp, sd, TP, m0, n0);
+          add_block(acc + A.dw1 + uc, U, E, U - uc, m0, n0, c);
+        }
+      }
+      __syncthreads();   // the chunk's staging may be overwritten
+    }
+
+    // ---- LayerNorm backward: de_mid = (dx - m1 - x2 m2) rstd + g, with
+    // dx = dxn g2; the bias sums dbr, dg2, db2, dbb2
+    float a0 = 0.f, b0 = 0.f, a1 = 0.f, b1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < NTE; ++j)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int c = 8 * j + 2 * tq + q;
+        if (c < E) {
+          const float d0 = dx[j][q] * vg2[c], d1 = dx[j][2 + q] * vg2[c];
+          a0 += d0; b0 += d0 * x2[j][q];
+          a1 += d1; b1 += d1 * x2[j][2 + q];
+        }
+      }
+    const float m10 = quad_sum(a0) / E, m20 = quad_sum(b0) / E;
+    const float m11 = quad_sum(a1) / E, m21 = quad_sum(b1) / E;
+#pragma unroll
+    for (int j = 0; j < NTE; ++j) {
+      if (j < EK / 8) {
+        const int c0 = 8 * j + 2 * tq;
+        const float2 gv0 = ld_bf2(gW + gq * se + c0);
+        const float2 gv1 = ld_bf2(gW + (gq + 8) * se + c0);
+        const float g0[2] = {gv0.x, gv0.y}, g1[2] = {gv1.x, gv1.y};
+        float de0[2], de1[2];
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int c = c0 + q;
+          const bool ok = c < E;
+          const float d0 = dx[j][q], d1 = dx[j][2 + q];
+          de0[q] = ok ? (d0 * vg2[c] - m10 - x2[j][q] * m20) * rs0 + g0[q] : 0.f;
+          de1[q] = ok ? (d1 * vg2[c] - m11 - x2[j][2 + q] * m21) * rs1 + g1[q]
+                      : 0.f;
+          const float sbr = rows16_sum(de0[q] + de1[q]);
+          const float sg2 = rows16_sum(d0 * x2[j][q] + d1 * x2[j][2 + q]);
+          const float sb2 = rows16_sum(d0 + d1);
+          const float sbb2 = rows16_sum(g0[q] + g1[q]);
+          if (gq == 0) {
+            wrow[c] += sbr; wrow[EK + c] += sg2;
+            wrow[2 * EK + c] += sb2; wrow[3 * EK + c] += sbb2;
+          }
+        }
+        st_bf2(hdW + gq * sb + c0, de0[0], de0[1]);
+        st_bf2(hdW + (gq + 8) * sb + c0, de1[0], de1[1]);
+      }
+    }
+    __syncwarp();
+    store_rows16(DM + p0 * E, hdW, sb, nv, E);
+    // g is read: prefetch the next tile's
+    if (next < ntiles) stage_rows16(gW, se, G + pn * E, nvn, E);
+    cp_async_commit();
+
+    // ---- dhh = rnd(de_mid) . Wr^T
+    for (int n0 = 0; n0 < HK; n0 += 16) {
+      float c[2][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < NKE; ++ks) {
+        if (ks < EK / 16) {
+          uint32_t a[4], b[4];
+          lda(a, hdW, sb, 0, 16 * ks);
+          ldb_nk(b, Wr, se, 16 * ks, n0);
+          mma16816(c[0], a, b[0], b[1]);
+          mma16816(c[1], a, b[2], b[3]);
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int k = n0 + 8 * jj + 2 * tq + (q & 1);
+          const int r = gq + ((q >> 1) << 3);
+          if (k < H && r < nv)
+            DH[HM ? hh_index(p0 + r, k, H, p.hh_l) : (p0 + r) * H + k] =
+                __float2bfloat16_rn(c[jj][q]);
+        }
+    }
+    __syncthreads();     // every warp's de_mid is staged
+    // dWr[k, c] += sum_p rnd(hh)[p, k] rnd(de_mid)[p, c]
+    const int nbr = EK / 16;
+    for (int bi = warp; bi < (HK / 16) * nbr; bi += nw) {
+      float c[2][4];
+      const int m0 = 16 * (bi / nbr), n0 = 16 * (bi % nbr);
+      wgrad_block(c, hhT, sh, bs + L.hd, sb, TP, m0, n0);
+      add_block(acc + A.dwr, E, H, E, m0, n0, c);
+    }
+    __syncthreads();     // hh and de_mid staging may be overwritten
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  // the warps' bias partials, in warp order
+  for (int t = tid; t < L.wr_len; t += blockDim.x) {
+    float s = 0.f;
+    for (int w = 0; w < nw; ++w) s += sm[L.wrow + w * L.wr_len + t];
+    if (t < 4 * EK) {
+      const int v = t / EK, c = t - v * EK;
+      if (c < E) acc[(v == 0 ? A.dbr : v == 1 ? A.dg2 : v == 2 ? A.db2 : A.dbb2) + c] += s;
+    } else if (t - 4 * EK < U) {
+      acc[A.dbb1 + t - 4 * EK] += s;
+    }
+  }
+  __syncthreads();
+  float* part = p.partials + (size_t)blockIdx.x * A.n;
+  for (int t = tid; t < A.n; t += blockDim.x) part[t] = acc[t];
+}
+
+// The bf16 launch: the most warps a block (up to 8) whose shared memory fits
+template <bool HM, int NTE>
+int tail_bwd_mma_launch(TailParams p, float* dw, int max_grid, int sms,
+                        int optin, cudaStream_t stream) {
+  int nw = TAIL_MMA_WARPS;
+  while (nw > 0 && TailMmaLayout(p.ew, p.h, p.hid, nw).bytes > (size_t)optin)
+    --nw;
+  if (nw == 0) return (int)cudaErrorInvalidConfiguration;
+  const TailMmaLayout L(p.ew, p.h, p.hid, nw);
+  auto kern = tail_bwd_mma_kernel<HM, NTE>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.bytes);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, nw * 32,
+                                                      L.bytes);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long ntiles = (p.pairs + 16 * nw - 1) / (16 * nw);
+  long long grid = (long long)sms * per_sm;
+  if (grid > max_grid) grid = max_grid;
+  if (grid > ntiles) grid = ntiles;
+  kern<<<(unsigned)grid, nw * 32, L.bytes, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return launch_sum_partials(p.partials, (int)grid, TailAcc(p.ew, p.h, p.hid).n,
+                             dw, stream);
+}
+
+// f32: the CUDA-core body (exact f32 products)
 template <typename T>
-int tail_bwd_launch(TailParams p, float* dw, int max_grid,
-                    cudaStream_t stream) {
-  int dev = 0, sms = 0, optin = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+int tail_bwd_simt_launch(TailParams p, float* dw, int max_grid, int sms,
+                         int optin, cudaStream_t stream) {
   // 32 pairs a tile, 16 where that does not fit (f32 at wide edges)
   p.tp = 32;
   if (TailLayout(p.ew, p.h, p.hid, p.tp).bytes<T>() > (size_t)optin) p.tp = 16;
@@ -315,6 +786,25 @@ int tail_bwd_launch(TailParams p, float* dw, int max_grid,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return launch_sum_partials(p.partials, (int)grid, L.nw, dw, stream);
+}
+
+template <typename T>
+int tail_bwd_launch(TailParams p, float* dw, int max_grid,
+                    cudaStream_t stream) {
+  int dev = 0, sms = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (p.ew > 128) return (int)cudaErrorInvalidValue;
+    if (p.ew <= 64)
+      return p.hh_l ? tail_bwd_mma_launch<true, 8>(p, dw, max_grid, sms, optin, stream)
+                    : tail_bwd_mma_launch<false, 8>(p, dw, max_grid, sms, optin, stream);
+    return p.hh_l ? tail_bwd_mma_launch<true, 16>(p, dw, max_grid, sms, optin, stream)
+                  : tail_bwd_mma_launch<false, 16>(p, dw, max_grid, sms, optin, stream);
+  } else {
+    return tail_bwd_simt_launch<T>(p, dw, max_grid, sms, optin, stream);
+  }
 }
 
 }  // namespace egt

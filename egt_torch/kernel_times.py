@@ -1,0 +1,146 @@
+"""Times of the whole-layer kernels and of the paths that run them, for
+comparing two checkouts of the port on one card.
+
+    python3 egt_torch/kernel_times.py [--root DIR]
+
+Imports `egt_torch` from DIR (default: the checkout that holds this file),
+so the same script times an older checkout unpacked elsewhere; run it once
+per checkout, in turns, in one session on the card. At the flagship
+ZINC-500k shapes (b 128, l 40, ew 64, h 8, dh 64, hidden 128), in bf16 and
+f32: K3 (`fused_layer_fwd`, training mode with the draws and h_hat out,
+and inference), K4 (`fused_layer_bwd_tail`) and K9 (`edge_block_bwd`,
+h_hat head-major as path C hands it over); CUDA events, median of 30
+launches with L2 flushed before each. Then, in bf16 as shipped, the
+median wall time of 8 training steps on path A (K3; K4, K5) and on path C
+(K1, K8; K9, K2) and of 8 serving requests on path A, 128 graphs each,
+after a warm-up. Prints the card's name and power limit, then one JSON
+line. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+B, L, EW, H, DH, HID = 128, 40, 64, 8, 64, 128
+STEPS = 8
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", type=Path,
+                    default=Path(__file__).resolve().parents[1])
+    args = ap.parse_args(argv)
+    root = args.root.resolve()
+    sys.path.insert(0, str(root))
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_times needs a CUDA device")
+    from egt_torch import schemes, serving, synthetic
+    from egt_torch.ops import _cuda
+    from egt_torch.ops import edge_block as eb
+    from egt_torch.ops import fused_layer as fl
+    from egt_torch.training.steps import load_trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(smi, flush=True)
+    _cuda.build(("fused_layer_fwd", "fused_layer_bwd_tail", "edge_block_bwd",
+                 "fused_layer_bwd_attn", "egt_attention_fwd",
+                 "egt_attention_bwd", "edge_block_fwd"))
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+
+    def time_ms(fn, iters=30, warmup=3):
+        for _ in range(warmup):
+            fn()
+        marks = []
+        for _ in range(iters):
+            torch.cuda._sleep(2_000_000)      # the card waits, not the host
+            flush.zero_()
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            marks.append((s, e))
+        torch.cuda.synchronize()
+        return statistics.median(s.elapsed_time(e) for s, e in marks)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device=dev)
+
+    res = {"root": str(root), "device": smi}
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).split(".")[-1]
+        w = dict(wg=randn(EW, H, scale=0.2), bg=randn(H, scale=0.1),
+                 wb=randn(EW, H, scale=0.2), bb=randn(H, scale=0.1),
+                 g1=1 + randn(EW, scale=0.1), b1=randn(EW, scale=0.1),
+                 wr=randn(H, EW, scale=0.3), br=randn(EW, scale=0.1),
+                 g2=1 + randn(EW, scale=0.1), b2=randn(EW, scale=0.1),
+                 w1=randn(EW, HID, scale=0.2), bb1=randn(HID, scale=0.1),
+                 w2=randn(HID, EW, scale=0.2), bb2=randn(EW, scale=0.1))
+        w = {k: (v.to(dt) if k.startswith("w") else v) for k, v in w.items()}
+        e = randn(B, L, L, EW).to(dt)
+        qkv = randn(B, L, 3 * DH).to(dt)
+        n = torch.randint(9, 39, (B,), generator=gen, device=dev)
+        mask = (torch.arange(L, device=dev)[None] < n[:, None]).float()
+        hh = randn(B, L, L, H, scale=3.0).to(dt)
+        g = randn(B, L, L, EW).to(dt)
+        for training in (True, False):
+            spec = fl.LayerSpec(l=L, ew=EW, h=H, dh=DH, hidden=HID, gated=True,
+                                constrained=False, clip=(-5.0, 5.0),
+                                edge_act=None, act="elu", scale=0.125 ** 0.5,
+                                random_mask_prob=0.1, attn_dropout=0.1,
+                                training=training)
+            args_ = (spec, e, qkv, mask, None, w, 77, training)
+            res[f"K3 {'train' if training else 'infer'} {name}"] = time_ms(
+                lambda: fl._fused_layer_cuda(*args_))
+        res[f"K4 {name}"] = time_ms(lambda: fl._bwd_tail_cuda(spec, e, hh, g, w))
+        hm = randn(B, H, L, L, scale=2.0).to(dt).permute(0, 2, 3, 1)
+        tw = {k: w[k] for k in fl.TAIL_KEYS}
+        res[f"K9 {name}"] = time_ms(lambda: eb._edge_block_bwd_cuda(hm, e, g, tw))
+        print(f"  {name}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in res.items()
+                                        if k.endswith(name)), flush=True)
+
+    config = root / "configs" / "main" / "zinc" / "500k" / "egt.json"
+    raw = json.loads(config.read_text())
+    flat = synthetic.random_flat_params(schemes.model_config_from_config(raw))
+    rng = np.random.default_rng(1)
+    batches = [synthetic.zinc_batch(rng, B, L) for _ in range(STEPS + 2)]
+    path_c = {"use_pallas": True, "use_pallas_layer": False,
+              "use_pallas_edge": True}
+    for tag, over in (("train A", {}), ("train C", path_c)):
+        tr = load_trainer({**raw, **over}, flat)
+        for bt in batches[:2]:
+            tr.train_step(bt)                           # warm-up
+        times = []
+        for bt in batches[2:]:
+            t = time.perf_counter()
+            tr.train_step(bt)                           # ends in .item()
+            times.append(time.perf_counter() - t)
+        res[f"{tag} step ms"] = 1e3 * statistics.median(times)
+    predict = serving.load_predictor(raw, flat)
+    predict(batches[0])
+    times = []
+    for bt in batches[2:]:
+        t = time.perf_counter()
+        predict(bt)                                     # returns host numpy
+        times.append(time.perf_counter() - t)
+    res["serve A request ms"] = 1e3 * statistics.median(times)
+    print(json.dumps(res), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,163 @@
+"""Which phase of the bf16 K3 and K4 bodies takes their time, by ablation.
+
+    python3 -m egt_torch.phase_times
+
+Copies `egt_torch/csrc` into `build/egt_torch/phases/`, and builds one
+library per variant in which one phase's loop runs no iteration (the `all`
+variant skips every phase listed), then times each variant's kernel at the
+flagship ZINC-500k shapes (b 128, l 40, ew 64, h 8, dh 64, hidden 128,
+bf16; K3 in training mode with the draws live) as `chip_smoke.py` does
+(CUDA events, median of 30 launches, L2 flushed before each). A skipped
+phase's outputs are wrong, so the variants are timed, never checked; the
+time a variant saves is what that phase costs beside the others (phases
+overlap, so the savings need not add up). K9 runs K4's body. Prints the
+card's name and power limit, one line per variant, then one JSON line.
+Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import shutil
+import statistics
+import subprocess
+
+import torch
+
+from .ops import _cuda
+from .ops import fused_layer as fl
+
+B, L, EW, H, DH, HID = 128, 40, 64, 8, 64, 128
+
+# kernel: (source, file patched, {phase: (loop header, loop header with the
+# bound replaced by SKIP_<PHASE> ? 0 : bound)})
+PHASES = {
+    "K3": ("fused_layer_fwd", "fused_layer_fwd.cu", {
+        "projection": "for (int n0 = 0; n0 < NP; n0 += 16) {",
+        "pair": "for (int it = lane; it < 16 * h; it += 32) {",
+        "ffn": "for (int u0 = 0; u0 < UK; u0 += 16) {",
+        "softmax": "for (int base = warp * per; base < nr * h; "
+                   "base += nw * per) {",
+        "av": "for (int t = tid; t < nr * dh; t += blockDim.x) {\n"
+              "      const int rg = t / dh, f = t - rg * dh;\n"
+              "      const int row = row0 + rg, b = row / l;",
+    }),
+    "K4": ("fused_layer_bwd_tail", "tail_bwd.cuh", {
+        "e_mid": "for (int k0 = 0; k0 < HK; k0 += 16) {",
+        "ffn": "for (int ub = 0; ub < ucw; ub += 16) {",
+        "wgrad_ffn": "for (int bi = warp; bi < 2 * n2; bi += nw) {",
+        "dhh": "for (int n0 = 0; n0 < HK; n0 += 16) {",
+        "wgrad_r": "for (int bi = warp; bi < (HK / 16) * nbr; bi += nw) {",
+    }),
+}
+
+
+def _patch(text: str, phases: dict) -> str:
+    for name, header in phases.items():
+        assert text.count(header) == 1, header
+        first = header.split("\n")[0]
+        init, rest = first.split("; ", 1)
+        cond, step = rest.split("; ", 1)
+        var, bound = cond.split(" < ", 1)
+        new = f"{init}; {var} < (SKIP_{name.upper()} ? 0 : {bound}); {step}"
+        text = text.replace(header, header.replace(first, new, 1))
+    return text
+
+
+def _build(out_dir, kernel):
+    source, patched, phases = PHASES[kernel]
+    variants = {"base": set(), **{p: {p} for p in phases}, "all": set(phases)}
+    jobs = {}
+    for v, skip in variants.items():
+        defs = [f"-DSKIP_{p.upper()}={int(p in skip)}" for p in phases]
+        so = out_dir / f"{kernel}_{v}.so"
+        cmd = [_cuda._nvcc(), *_cuda.NVCC_FLAGS, *defs, "-o", str(so),
+               str(out_dir / "csrc" / f"{source}.cu")]
+        jobs[v] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True), so)
+    for v, (proc, _) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {kernel} {v}:\n{log}")
+    return {v: so for v, (_, so) in jobs.items()}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("phase_times needs a CUDA device")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(smi, flush=True)
+    out_dir = _cuda.BUILD_DIR / "phases"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    shutil.copytree(_cuda._CSRC, out_dir / "csrc")
+    for _, patched, phases in PHASES.values():
+        f = out_dir / "csrc" / patched
+        f.write_text(_patch(f.read_text(), phases))
+    libs = {k: _build(out_dir, k) for k in PHASES}
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+
+    def time_ms(fn, iters=30, warmup=3):
+        for _ in range(warmup):
+            fn()
+        marks = []
+        for _ in range(iters):
+            torch.cuda._sleep(2_000_000)
+            flush.zero_()
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            marks.append((s, e))
+        torch.cuda.synchronize()
+        return statistics.median(s.elapsed_time(e) for s, e in marks)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device=dev)
+
+    dt = torch.bfloat16
+    w = dict(wg=randn(EW, H, scale=0.2), bg=randn(H, scale=0.1),
+             wb=randn(EW, H, scale=0.2), bb=randn(H, scale=0.1),
+             g1=1 + randn(EW, scale=0.1), b1=randn(EW, scale=0.1),
+             wr=randn(H, EW, scale=0.3), br=randn(EW, scale=0.1),
+             g2=1 + randn(EW, scale=0.1), b2=randn(EW, scale=0.1),
+             w1=randn(EW, HID, scale=0.2), bb1=randn(HID, scale=0.1),
+             w2=randn(HID, EW, scale=0.2), bb2=randn(EW, scale=0.1))
+    w = {k: (v.to(dt) if k.startswith("w") else v) for k, v in w.items()}
+    spec = fl.LayerSpec(l=L, ew=EW, h=H, dh=DH, hidden=HID, gated=True,
+                        constrained=False, clip=(-5.0, 5.0), edge_act=None,
+                        act="elu", scale=float(DH // H) ** -0.5,
+                        random_mask_prob=0.1, attn_dropout=0.1, training=True)
+    e = randn(B, L, L, EW).to(dt)
+    qkv = randn(B, L, 3 * DH).to(dt)
+    n = torch.randint(9, 39, (B,), generator=gen, device=dev)
+    mask = (torch.arange(L, device=dev)[None] < n[:, None]).float()
+    hh = randn(B, L, L, H, scale=3.0).to(dt)
+    g = randn(B, L, L, EW).to(dt)
+    runs = {"K3": (fl.KERNEL, lambda: fl._fused_layer_cuda(
+                spec, e, qkv, mask, None, w, 77, True)),
+            "K4": (fl.BWD_TAIL_KERNEL, lambda: fl._bwd_tail_cuda(
+                spec, e, hh, g, w))}
+    res = {"device": smi}
+    for kernel, (kern, fn) in runs.items():
+        times = {}
+        for v, so in libs[kernel].items():
+            kern._lib, kern._fn = ctypes.CDLL(str(so)), None
+            times[v] = time_ms(fn)
+        kern._lib, kern._fn = None, None
+        for v, t in times.items():
+            print(f"  {kernel} {v}: {t:.4f} ms (saves "
+                  f"{times['base'] - t:.4f})", flush=True)
+        res[kernel] = times
+    print(json.dumps(res))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

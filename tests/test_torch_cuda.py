@@ -410,3 +410,91 @@ def test_model_training_grads_third_slice_paths(dev, knobs, impl, monkeypatch):
             continue
         torch.testing.assert_close(grads[0][k], r, atol=1e-4, rtol=1e-4,
                                    msg=k)
+
+
+# the other shipped edge widths, with 8 heads, and 80, about the widest the
+# first (f32-core) K4 took in bf16, which the bf16 bodies run with 16 n8
+# tiles a lane: (ew, dh, b, l); b 5, l 37 gives 6845 pairs, no multiple of
+# K4's and K9's 128-pair tile in bf16 (nor of 32 in f32). l 150 (TSP-like
+# rows) is longer than the bf16 K3's 8 warps of 16 keys: one query row a
+# group, each warp taking several tiles.
+WIDTHS = {"ew8_hidden16": (8, 64, 5, 37), "ew48_hidden96": (48, 48, 5, 37),
+          "ew80_hidden160": (80, 64, 5, 37), "ew8_l150": (8, 64, 2, 150)}
+
+
+def _width_case(dev, dtype, ew, dh, b=5, l=37, h=8):
+    g_ = _gen(dev)
+
+    def rnd(*s, scale=1.0):
+        return scale * torch.randn(s, generator=g_, device=dev)
+
+    def dense(i, o):
+        return {"kernel": rnd(i, o, scale=0.3), "bias": rnd(o, scale=0.1)}
+
+    def ln(n):
+        return {"gamma": 1 + rnd(n, scale=0.1), "beta": rnd(n, scale=0.1)}
+
+    p = {"attention_gates": dense(ew, h), "dense_edge_b": dense(ew, h),
+         "norm_edge": ln(ew), "dense_edge_r": dense(h, ew),
+         "edge_ffn": {"norm": ln(ew), "lr1": dense(ew, 2 * ew),
+                      "lr2": dense(2 * ew, ew)}}
+    spec = fl.LayerSpec(l=l, ew=ew, h=h, dh=dh, hidden=2 * ew, gated=True,
+                        constrained=False, clip=(-2.0, 2.0), edge_act=None,
+                        act="elu", scale=float(dh // h) ** -0.5,
+                        random_mask_prob=0.1, attn_dropout=0.1, training=True)
+    e, qkv = rnd(b, l, l, ew).to(dtype), rnd(b, l, 3 * dh).to(dtype)
+    n = torch.tensor([[9], [l], [20], [31], [2]][:b], device=dev)
+    mask = (torch.arange(l, device=dev)[None] < n).float()
+    hh = (3.0 * rnd(b, l, l, h)).to(dtype)
+    ge = rnd(b, l, l, ew).to(dtype)
+    return spec, fl.layer_weights(p, dtype), e, qkv, mask, hh, ge
+
+
+# f32 at ew 80: the f32-core K4 and K9 need more than 227 KB of shared
+# memory there, as before
+@pytest.mark.parametrize("dtype,width", [
+    pytest.param(dt, w, id=f"{str(dt)[6:]}-{w}") for w in WIDTHS
+    for dt in (torch.float32, torch.bfloat16)
+    if not (dt == torch.float32 and w.startswith("ew80"))])
+def test_layer_and_edge_kernels_at_other_widths(dev, dtype, width):
+    """K3 (draws live, h_hat out), K4, and K9 with h_hat head-major, each
+    against its plain version at edge widths 8, 48 and 80."""
+    ew, dh, b, l = WIDTHS[width]
+    spec, w, e, qkv, mask, hh, ge = _width_case(dev, dtype, ew, dh, b, l)
+    counts = (fl.KERNEL.launches, fl.BWD_TAIL_KERNEL.launches,
+              eb.BWD_KERNEL.launches)
+    out = fl.fused_layer_core(spec, e, qkv, mask, None, w, 7, save_hh=True)
+    ref = fl.fused_layer_plain(spec, e, qkv, mask, None, w, 7, save_hh=True)
+    for o, r in zip(out, ref):
+        _close(o, r, dtype)
+    tail = fl.fused_layer_bwd_tail(spec, e, hh, ge, w)
+    tail_ref = fl.fused_layer_bwd_tail_plain(spec, e, hh, ge, w)
+    for o, r in zip(tail[:2], tail_ref[:2]):
+        _close(o, r, dtype)
+    for k, r in tail_ref[2].items():
+        _close(tail[2][k], r, dtype, scaled=True)
+    tw = {k: w[k] for k in fl.TAIL_KEYS}
+    hm = hh.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    out = eb.edge_block_bwd(hm, e, ge, tw)
+    ref = eb.edge_block_bwd_plain(hm, e, ge, tw)
+    assert out[0].stride() == hm.stride()
+    for o, r in zip(out[:2], ref[:2]):
+        _close(o, r, dtype)
+    for k, r in ref[2].items():
+        _close(out[2][k], r, dtype, scaled=True)
+    assert (fl.KERNEL.launches, fl.BWD_TAIL_KERNEL.launches,
+            eb.BWD_KERNEL.launches) == tuple(c + 1 for c in counts)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tail_weight_gradients_bit_identical_across_launches(dev, dtype):
+    """K4 and K9 sum their weight gradients in a fixed order (per-block
+    partial rows, then a second pass): two launches agree to the bit."""
+    spec, w, e, _, _, hh, ge = _width_case(dev, dtype, 64, 64, b=4, l=40)
+    runs = [fl.fused_layer_bwd_tail(spec, e, hh, ge, w)[2] for _ in range(2)]
+    hm = hh.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    tw = {k: w[k] for k in fl.TAIL_KEYS}
+    runs += [eb.edge_block_bwd(hm, e, ge, tw)[2] for _ in range(2)]
+    for a, b in (runs[:2], runs[2:]):
+        for k in a:
+            assert torch.equal(a[k], b[k]), k

@@ -49,7 +49,7 @@ def tree(p, fn):
 
 def make_case(seed, kw, b=3, l=12):
     rng = np.random.default_rng(seed)
-    jcfg, tcfg = JCfg(**BASE, **kw), TCfg(**BASE, **kw)
+    jcfg, tcfg = JCfg(**{**BASE, **kw}), TCfg(**{**BASE, **kw})
     ew, w, h = jcfg.edge_width, jcfg.model_width, jcfg.num_heads
     p = make_params(rng, ew, h, round(ew * jcfg.ffn_multiplier),
                     jcfg.gate_attention)
@@ -67,6 +67,11 @@ VARIANTS = {
     "constrained_gated": dict(edge_channel_type="constrained"),
     "constrained_ungated": dict(edge_channel_type="constrained",
                                 gate_attention=False),
+    # ZINC-100k's widths: edge width 48 (hidden 96), 8 heads; no logit at
+    # the clip, where the strict in-range test of the backward follows the
+    # last bit of E, which the two packages sum in another order
+    "residual_gated_ew48_h8": dict(model_width=48, edge_width=48,
+                                   num_heads=8, clip_logits_value=(-50.0, 50.0)),
 }
 
 

@@ -41,11 +41,16 @@ def _counted(monkeypatch, module, name, counts, key):
     monkeypatch.setattr(module, name, wrapper)
 
 
+# bf16 at the ZINC-100k widths is left to the card's checks, as in
+# test_torch_fused_layer_bwd.py: weight gradients reach ~100 there
+CASES = [pytest.param(n, dt, tol, id=f"{n}-{tag}") for n in VARIANTS
+         for dt, tol, tag in ((torch.float32, 2e-4, "f32"),
+                              (torch.bfloat16, 0.1, "bf16"))
+         if not (tag == "bf16" and "ew48" in n)]
+
+
 @pytest.mark.parametrize("impl", list(CALLS))
-@pytest.mark.parametrize("dt,tol", [(torch.float32, 2e-4),
-                                    (torch.bfloat16, 0.1)],
-                         ids=["f32", "bf16"])
-@pytest.mark.parametrize("name", list(VARIANTS))
+@pytest.mark.parametrize("name,dt,tol", CASES)
 def test_alt_backward_matches_jax(name, dt, tol, impl, monkeypatch):
     jcfg, tcfg, p, e, qkv, mask, am, ge, gv = _case(name)
     monkeypatch.setattr(jfl, "_BWD_IMPL", impl)
