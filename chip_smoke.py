@@ -8,9 +8,10 @@ final result line):
   1. host record: `nvidia-smi` name and power limit, torch and CUDA versions,
      `nvcc --version`;
   2. build the nine CUDA kernels from `egt_torch/csrc` (one nvcc each, in
-     parallel); the HMMA (tensor-core) instruction count of K3's and K4's
-     libraries per kernel function from `cuobjdump -sass` ("not available"
-     without it): non-zero in the bf16 bodies, zero in the f32 ones;
+     parallel); the HMMA (tensor-core) instruction count of K3's, K4's and
+     K5's libraries per kernel function from `cuobjdump -sass` ("not
+     available" without it): non-zero in the bf16 bodies, zero in the f32
+     ones;
   3. each kernel against its plain PyTorch version on the card, at the
      ZINC-500k shapes in f32 and bf16 with ragged node masks, plus one
      awkward shape: the forwards K1 and K3 at inference and in training mode
@@ -21,8 +22,11 @@ final result line):
      count that is no multiple of the 32-pair tile); K3, K4 and K9 (and K5-
      K7) also at the other shipped edge widths, 8 (hidden 16) and 48
      (hidden 96), with 8 heads and 6845 pairs (no multiple of the bf16
-     128-pair tile); two launches of K4 and of K9 give bit-identical weight
-     gradients; errors, kernel / plain
+     128-pair tile); K5 alone at the flagship batch with ragged l (9, 41:
+     a cluster's last block with fewer rows, keys padded to 16) at ew 8,
+     48 and 80, gated and ungated, constrained, and at l 150 (several rows
+     a warp); two launches of K4, K5 and K9 give bit-identical weight
+     gradients (and K5's dk, dv); errors, kernel / plain
      times (CUDA events, median of 30 launches with L2 flushed before each)
      and the reckoned bound;
   4. serving paths: `load_predictor` on configs/main/zinc/500k/egt.json with
@@ -169,11 +173,12 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {src}: {line.strip()}")
 
-    # tensor-core instructions in the SASS of K3's and K4's libraries, per
-    # kernel function: the bf16 bodies run mma.sync (HMMA), the f32 ones
-    # none (exact f32, no TF32)
+    # tensor-core instructions in the SASS of K3's, K4's and K5's
+    # libraries, per kernel function: the bf16 bodies run mma.sync (HMMA),
+    # the f32 ones none (exact f32, no TF32)
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    for src in ("fused_layer_fwd", "fused_layer_bwd_tail"):
+    for src in ("fused_layer_fwd", "fused_layer_bwd_tail",
+                "fused_layer_bwd_attn"):
         if not Path(cuobjdump).exists():
             print(f"  {src}: HMMA count not available (no cuobjdump)")
             continue
@@ -400,6 +405,7 @@ def main() -> int:
                 for i, (o, r) in enumerate(zip(out[:4], aref[:4]))]
         errs += [max_err(out[4][k], r, dtype, scaled=True)
                  for k, r in aref[4].items()]
+        check_attn_rerun(f"fused_layer_bwd_attn {shape}", out, aargs)
         nproj = 2 * h
         nbytes = (3 * pairs * ew + 2 * pairs * h + b * l * 3 * dh
                   + 2 * b * l * dh + 2 * ew * h) * it + \
@@ -439,6 +445,49 @@ def main() -> int:
                              nbytes, mm, pairs * (50 * ew + 5 * hid + 40 * h),
                              dtype, timing)
         return res
+
+    def check_attn_rerun(tag, out, aargs):
+        rerun = fl._bwd_attn_cuda(*aargs)
+        check(torch.equal(out[2], rerun[2]) and torch.equal(out[3], rerun[3])
+              and all(torch.equal(out[4][k], rerun[4][k]) for k in out[4]),
+              f"{tag}: dk, dv and the weight gradients bit-identical across "
+              "two launches")
+
+    def attn_bwd_case(b, l, ew, h, dh, dtype, gated, constrained):
+        """K5 alone against its plain version (draws live, edge
+        activation elu), and its sums across two launches."""
+        spec = fl.LayerSpec(l=l, ew=ew, h=h, dh=dh, hidden=2 * ew,
+                            gated=gated, constrained=constrained,
+                            clip=(-5.0, 5.0), edge_act="elu", act="elu",
+                            scale=float(dh // h) ** -0.5,
+                            random_mask_prob=0.1, attn_dropout=0.1,
+                            training=True)
+        lim = (6.0 / (ew + h)) ** 0.5
+        w = dict(wb=(randn(ew, h) * lim).to(dtype), bb=randn(h, scale=0.1),
+                 g1=1 + randn(ew, scale=0.1), b1=randn(ew, scale=0.1),
+                 wg=(randn(ew, h) * lim).to(dtype) if gated else None,
+                 bg=randn(h, scale=0.1) if gated else None)
+        mask = ragged_mask(b, l, lo=1, hi=l)
+        am = ((torch.rand((b, l, l), generator=gen, device=dev) < 0.3)
+              .float() if constrained else None)
+        aargs = (spec, randn(b, l, l, ew).to(dtype),
+                 randn(b, l, 3 * dh).to(dtype), mask, am, w,
+                 randn(b, l, l, h, scale=3.0).to(dtype),
+                 randn(b, l, l, h).to(dtype), randn(b, l, l, ew).to(dtype),
+                 randn(b, l, dh).to(dtype), 77)
+        out = fl._bwd_attn_cuda(*aargs)
+        ref = fl.fused_layer_bwd_attn_plain(*aargs)
+        torch.cuda.synchronize()
+        errs = [max_err(o, r, dtype, scaled=i >= 2)
+                for i, (o, r) in enumerate(zip(out[:4], ref[:4]))]
+        errs += [max_err(out[4][k], r, dtype, scaled=True)
+                 for k, r in ref[4].items()]
+        tag = (f"fused_layer_bwd_attn b{b} l{l} ew{ew} h{h} dh{dh} "
+               f"{str(dtype)[6:]}{'' if gated else ' ungated'}"
+               f"{' constrained' if constrained else ''}")
+        check(all(x[1] for x in errs),
+              f"{tag}: max |kernel - plain| {max(x[0] for x in errs):.3g}")
+        check_attn_rerun(tag, out, aargs)
 
     # ---- 3c. edge block (K8 forward, K9 backward)
     def edge_case(b, l, ew, h, dtype, head_major, timing=True):
@@ -509,6 +558,15 @@ def main() -> int:
                 layer_case(5, 37, ew, 8, dh, dtype, training=True,
                            timing=False)
                 edge_case(5, 37, ew, 8, dtype, head_major=True, timing=False)
+            # K5 alone: ragged l at the flagship batch, ew 8 / 48 / 80,
+            # gated and ungated, constrained; l 150 loops rows in a warp
+            for b, l, ew, dh, gated, constrained in (
+                    (GRAPHS, 41, 8, 64, True, False),
+                    (GRAPHS, 41, 48, 48, False, True),
+                    (GRAPHS, 9, 48, 48, True, True),
+                    (GRAPHS, 41, 80, 64, True, True),
+                    (16, 150, 8, 64, False, False)):
+                attn_bwd_case(b, l, ew, 8, dh, dtype, gated, constrained)
             for training in (False, True):
                 attention_case(16, 4, 37, 8, dtype, gated=False, hard=True,
                                training=training, timing=False)

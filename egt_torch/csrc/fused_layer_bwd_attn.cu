@@ -27,21 +27,68 @@
 // gradients are f32.
 //
 // What bounds it on an H100: at the ZINC-500k training shape (b 128, l 40,
-// ew 64, h 8, dh 64, bf16) it moves ~60 MB (e, de_mid and de; hh and dhh),
-// ~18 us at 3.35 TB/s, against ~1 GFLOP of products: bytes bound it.
+// ew 64, h 8, dh 64, bf16) it moves ~91 MB (e, de_mid and de; hh and dhh;
+// q, k, v, gv, dq, dk, dv), ~27 us at 3.35 TB/s, against ~1.4 GFLOP of
+// products: bytes bound it.
 //
-// Design: dk and dv are sums over the query rows of a graph, and the weight
-// gradients sums over every pair; the TPU kernel carried both across its
-// in-order grid in VMEM. Here one block takes one whole graph and loops over
-// its query rows: dk and dv sit in shared memory (l x dh f32 each) and are
+// Design of the bf16 body (bwd_attn_mma_kernel). dk and dv are sums over a
+// graph's query rows and the weight gradients sums over every pair; the TPU
+// kernel carried both across its in-order grid of row blocks. Here a
+// graph's rows are spread over a thread-block cluster of up to 8 blocks,
+// and a warp owns one query row at a time (5 blocks of 8 rows at l 40):
+//   - the row's keys are padded to a multiple of 16 with zero rows, so the
+//     three edge-head products run on the tensor cores in whole m16 tiles,
+//     mma.sync m16n8k16 with f32 sums (mma.cuh): [G | P] = rnd(e_ln) .
+//     [Wg | Wb] with e_ln going from the C-fragment layout of the LayerNorm
+//     straight into A fragments; de_ln = rnd([dgate | dP]) . [Wg | Wb]^T
+//     and dW += rnd(e_ln)^T rnd([dgate | dP]) from ldmatrix reads of the
+//     weights as stored (no transposed copy) and of the warp's staging.
+//     Every operand already sits at a bf16 rounding point, so only the
+//     order of summation changes;
+//   - the softmax over a head's keys reduces inside the warp (lane (kg, hd)
+//     takes keys kg, kg + 32 / h, ... of head hd), so no block barrier sits
+//     in the softmax chain; da = gv . v, dq and the per-head dot products
+//     stay on the CUDA cores;
+//   - the row's e, hh and dhh are staged with 16-byte cp.async, de_mid one
+//     16-key tile ahead, and de goes out 16 bytes a lane;
+//   - dk and dv: each block keeps f32 partials for its rows (one thread an
+//     element, rows added in row order); after cluster.sync() rank r adds
+//     its 1/C share of [dk | dv | weight-gradient sums] over the ranks'
+//     shared memory (DSMEM) in rank order and writes it once. The weight
+//     gradients are kept per warp (dW in mma fragments, each element one
+//     owning lane), added to the block's sums in warp order, reduced across
+//     the cluster with dk and dv into one partial row per graph, and the
+//     rows summed in a fixed order by launch_sum_partials. No float
+//     atomics: a rerun is bit-identical.
+// Blocks take the most warps (up to 8) whose shared memory fits 227 KB;
+// longer graphs loop rows within a warp (several passes of W rows a block),
+// so the cluster stays at 8 blocks. Shapes it does not take (h > 32,
+// ew > 128, nproj > 32, or ew > 64 with nproj > 16; odd dh) are refused.
+//
+// Measured (NVIDIA H100 80GB HBM3, 700.00 W; egt_torch/kernel_times.py, L2
+// flushed, draws live): 0.336-0.340 ms at the training shape above, against
+// 1.520 ms for the first port's one-block-a-graph body on the CUDA cores.
+// What bounds it now is latency, not bytes or FLOPs: ~217 KB of shared
+// memory a block (most of it the row's staged e and the per-(key, head)
+// values), so one 8-warp block a SM. By ablation (`python3 -m
+// egt_torch.phase_times K5`) the softmax chain with its Philox draws takes
+// ~0.09 ms, the per-head products ~0.06 ms and the tensor-core products
+// ~0.02 ms; with all three skipped ~0.20 ms remain: the loads, LN1 and its
+// backward over the key tiles, the stores and the cluster's sum.
+//
+// The f32 body (bwd_attn_kernel, exact f32 products on the CUDA cores) is
+// the first port's: one block takes one whole graph and loops over its
+// query rows; dk and dv sit in shared memory (l x dh f32 each) and are
 // written once; the weight-gradient sums are kept per block and written as
-// one partial row, which a second small kernel sums in a fixed order. No
-// float atomics, so a rerun is bit-identical. A query row's whole key row
-// (l edge rows, l x h logits and gates) lives in shared memory between the
-// softmax's forward and backward passes; the graph's k and v are cached in
-// shared memory in f32.
+// one partial row, summed by the same fixed-order pass. A query row's whole
+// key row (l edge rows, l x h logits and gates) lives in shared memory
+// between the softmax's forward and backward passes; the graph's k and v
+// are cached in shared memory in f32.
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -352,12 +399,706 @@ __global__ void __launch_bounds__(NT) bwd_attn_kernel(Params p) {
   for (int t = tid; t < L.nw; t += NT) part[t] = acc[t];
 }
 
-template <typename T>
-int launch(const Params& p, float* dw, cudaStream_t stream) {
+// ---------------------------------------------------------------- bf16
+// The tensor-core body. A graph's query rows are spread over a cluster of
+// C blocks (cluster rank r takes rows r RB .. r RB + RB - 1); a block of W
+// warps takes W rows at a time, one a warp. Shared memory:
+//   block f32:  the reduced values [dk (l, dh) | dv (l, dh) | the weight-
+//               gradient sums in output order], the biases [bg | bb] (NPK),
+//               g1, b1 (EK each, zero-padded) and the key mask's additive
+//               term (LK);
+//   warp f32:   per (key, head) of the warp's row: s0 (logit, exp, a_sm),
+//               s1 (gate pre-activation, sigmoid, da_sm), P (pre-activation
+//               of the edge bias); per key: mean and rstd of LN1; the warp's
+//               dg1 / db1 column sums (EK each);
+//   block bf16: [Wg | Wb] as stored (EK x NPK, zero-padded), k and v of the
+//               graph (l x (dh + 8));
+//   warp bf16:  the row's e (LK x EK; a tile's rows take rnd(e_ln) for the
+//               dW product once LN1 has read them, then de on its way out);
+//               two 16-key tiles of de_mid (tile t + 1 in flight while tile
+//               t is worked); rnd([dgate | dP]) of the row (LK x NPK); the
+//               row's hh and dhh; rnd(ds), rnd(a_drop) per (key, head); q_i
+//               and gv_i.
+// LK = l rounded up to 16 (keys past l are zero rows), EK = ew and NPK =
+// nproj rounded up to 16 (zero columns). Staged rows are padded by 8
+// columns so the eight rows one ldmatrix reads fall in distinct banks.
+constexpr int ATT_MMA_WARPS = 8;
+constexpr int ATT_MAX_CLUSTER = 8;    // the portable cluster size
+
+__host__ __device__ inline int r4(int n) { return (n + 3) & ~3; }
+__host__ __device__ inline int r8(int n) { return (n + 7) & ~7; }
+
+struct AttnMmaLayout {
+  int W, C, RB, P;                 // warps a block, blocks a graph (the
+                                   // cluster), rows a block, rows a warp
+  int LK, EK, NPK, nproj, se, sd, skv, nwg;
+  int red, vec, madd, nfb;                         // block f32 offsets
+  int s0, s1, pp, mu, rs, wrow, nfw;               // warp f32 offsets
+  int w, k, v, nbb;                                // block bf16 offsets
+  int erow, tb, dcol, hh, dhh, ds, ad, qb, gb, nbw;  // warp bf16 offsets
+  size_t bytes;
+  __host__ __device__ AttnMmaLayout(int l, int ew, int h, int dh, int gated,
+                                    int W_) {
+    W = W_;
+    C = (l + W - 1) / W;
+    if (C > ATT_MAX_CLUSTER) C = ATT_MAX_CLUSTER;
+    RB = (l + C - 1) / C;
+    C = (l + RB - 1) / RB;         // no block without a row
+    P = (RB + W - 1) / W;
+    nproj = gated ? 2 * h : h;
+    LK = round16(l); EK = round16(ew); NPK = round16(nproj);
+    se = EK + 8; sd = NPK + 8; skv = dh + 8;
+    nwg = ew * nproj + nproj + 2 * ew;
+    int o = 0;
+    red = o;  o += r4(2 * l * dh + nwg);
+    vec = o;  o += r4(NPK + 2 * EK);
+    madd = o; o += r4(LK);
+    nfb = o;
+    o = 0;
+    s0 = o;   o += r4(LK * h);
+    s1 = o;   o += r4(LK * h);
+    pp = o;   o += r4(LK * h);
+    mu = o;   o += r4(LK);
+    rs = o;   o += r4(LK);
+    wrow = o; o += r4(2 * EK);
+    nfw = o;
+    o = 0;
+    w = o;    o += r8(EK * sd);
+    k = o;    o += r8(l * skv);
+    v = o;    o += r8(l * skv);
+    nbb = o;
+    o = 0;
+    erow = o; o += LK * se;
+    tb = o;   o += 32 * se;         // two 16-key tiles of de_mid
+    dcol = o; o += LK * sd;
+    hh = o;   o += r8(LK * h);
+    dhh = o;  o += r8(LK * h);
+    ds = o;   o += r8(LK * h);
+    ad = o;   o += r8(LK * h);
+    qb = o;   o += r8(dh);
+    gb = o;   o += r8(dh);
+    nbw = o;
+    bytes = (size_t)(nfb + W * nfw) * 4 + (size_t)(nbb + W * nbw) * 2;
+  }
+};
+
+// Shapes the tensor-core body takes (a head's keys reduce inside a warp,
+// the register tiles cover ew <= 128 and nproj <= 32)
+__host__ __device__ inline bool attn_mma_supported(int ew, int h, int dh,
+                                                   int gated) {
+  const int nproj = gated ? 2 * h : h;
+  return h >= 1 && h <= 32 && (32 % h) == 0 && dh % h == 0 && dh % 2 == 0 &&
+         ew >= 1 && ew <= 128 && nproj <= 32 && !(ew > 64 && nproj > 16);
+}
+
+// The most warps a block (up to 8) whose shared memory fits in `limit`
+// bytes; 0 if not even one does
+inline int attn_mma_warps(int l, int ew, int h, int dh, int gated,
+                          size_t limit) {
+  for (int W = ATT_MMA_WARPS; W > 0; --W)
+    if (AttnMmaLayout(l, ew, h, dh, gated, W).bytes <= limit) return W;
+  return 0;
+}
+
+// One warp stages rows r < nrows of a (rows, w) bf16 matrix at src into S
+// (row stride ld): rows r >= nvalid are zeros. 16-byte cp.async copies when
+// w is a multiple of 8, else plain loads. The caller commits and waits.
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* S, int ld,
+                                           const __nv_bfloat16* src,
+                                           int nrows, int nvalid, int w) {
+  const int lane = threadIdx.x & 31;
+  if ((w & 7) == 0) {
+    const int cpr = w >> 3;
+    for (int t = lane; t < nrows * cpr; t += 32) {
+      const int r = t / cpr, c = (t - r * cpr) << 3;
+      const bool ok = r < nvalid;
+      cp_async16(S + r * ld + c, ok ? src + (size_t)r * w + c : src, ok);
+    }
+  } else {
+    for (int t = lane; t < nrows * w; t += 32) {
+      const int r = t / w, c = t - r * w;
+      S[r * ld + c] = r < nvalid ? src[(size_t)r * w + c]
+                                 : __float2bfloat16_rn(0.f);
+    }
+  }
+}
+
+// One warp stages n contiguous bf16 values (cp.async when n is a multiple
+// of 8, which keeps src 16-byte aligned at every row of its tensor)
+__device__ __forceinline__ void stage_vec(__nv_bfloat16* S,
+                                          const __nv_bfloat16* src, int n) {
+  const int lane = threadIdx.x & 31;
+  if ((n & 7) == 0) {
+    for (int t = lane; t < (n >> 3); t += 32)
+      cp_async16(S + 8 * t, src + 8 * t, true);
+  } else {
+    for (int t = lane; t < n; t += 32) S[t] = src[t];
+  }
+}
+
+// Sum (max) over the lanes of one head: lanes hd, hd + h, hd + 2h, ...
+__device__ __forceinline__ float head_sum(float v, int h) {
+  for (int o = h; o < 32; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+__device__ __forceinline__ float head_max(float v, int h) {
+  for (int o = h; o < 32; o <<= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// The column sums of one n8 tile of two C-fragment matrices X and Y over
+// their 16 rows: x0, x1 (y0, y1) are the lane's columns 2 tq and 2 tq + 1,
+// rows gq and gq + 8 already added. Two exchange steps and one sum over the
+// eight row groups (lane bits 4, 3, 2; 4 shuffles against 12 for four full
+// sums) leave, in the lanes with bit 2 clear, the total of one column: of Y
+// where bit 4 is set, else of X, and column 2 tq + 1 where bit 3 is set.
+__device__ __forceinline__ float tile_colsum(float x0, float x1, float y0,
+                                             float y1) {
+  const int lane = threadIdx.x & 31;
+  const bool u4 = lane & 16, u3 = lane & 8;
+  float k0 = u4 ? y0 : x0, k1 = u4 ? y1 : x1;
+  k0 += __shfl_xor_sync(0xffffffffu, u4 ? x0 : y0, 16);
+  k1 += __shfl_xor_sync(0xffffffffu, u4 ? x1 : y1, 16);
+  float k = u3 ? k1 : k0;
+  k += __shfl_xor_sync(0xffffffffu, u3 ? k0 : k1, 8);
+  return k + __shfl_xor_sync(0xffffffffu, k, 4);
+}
+
+// NTE: n8 tiles of the edge width a lane holds (ew <= 8 NTE); NPT: n8 tiles
+// of the [gates | bias] projections (nproj <= 8 NPT)
+template <int NTE, int NPT>
+__global__ void __launch_bounds__(ATT_MMA_WARPS * 32, 1)
+    bwd_attn_mma_kernel(Params p) {
+  using bf = __nv_bfloat16;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int l = p.l, ew = p.ew, h = p.h, dh = p.dh;
+  const int nw = blockDim.x >> 5;
+  const AttnMmaLayout L(l, ew, h, dh, p.gated, nw);
+  const int nproj = L.nproj, LK = L.LK, EK = L.EK, NPK = L.NPK;
+  const int se = L.se, sd = L.sd, skv = L.skv;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int C = L.C, rank = (int)cluster.block_rank();
+  const int b = blockIdx.x / C;
+  const bool dropping = p.dr.dropping();
+
+  float* red = sm + L.red;                 // [dk | dv | weight-gradient sums]
+  float *dk_s = red, *dv_s = red + l * dh, *acc = red + 2 * l * dh;
+  float *bgb = sm + L.vec, *g1 = bgb + NPK, *b1 = g1 + EK;
+  float* madd = sm + L.madd;
+  float* wf = sm + L.nfb + warp * L.nfw;
+  float *s0 = wf + L.s0, *s1 = wf + L.s1, *pp = wf + L.pp;
+  float *mu_s = wf + L.mu, *rs_s = wf + L.rs, *wrow = wf + L.wrow;
+  bf* bs = reinterpret_cast<bf*>(sm + L.nfb + nw * L.nfw);
+  bf *Ws = bs + L.w, *ks = bs + L.k, *vs = bs + L.v;
+  bf* wb = bs + L.nbb + warp * L.nbw;
+  bf *erow = wb + L.erow, *tb = wb + L.tb, *dcol = wb + L.dcol;
+  bf *hh_s = wb + L.hh, *dhh_s = wb + L.dhh, *ds_s = wb + L.ds;
+  bf *ad_s = wb + L.ad, *qb = wb + L.qb, *gb = wb + L.gb;
+
+  const bf* E = (const bf*)p.e;
+  const bf* QKV = (const bf*)p.qkv;
+  const bf* HH = (const bf*)p.hh;
+  const bf* DHH = (const bf*)p.dhh;
+  const bf* DM = (const bf*)p.demid;
+  const bf* GV = (const bf*)p.gv;
+  bf* DE = (bf*)p.de;
+  bf* DQ = (bf*)p.dq;
+
+  // ---- zero the sums and the staging (padding rows and columns are never
+  // written again); then weights, biases, the key mask and the graph's k
+  // and v, with the first row of every warp in flight beside them
+  zero_smem(bs, L.nbb + nw * L.nbw);
+  for (int t = tid; t < L.nfb + nw * L.nfw; t += blockDim.x) sm[t] = 0.f;
+  __syncthreads();
+  const bf* Wg = (const bf*)p.wg;
+  const bf* Wb = (const bf*)p.wb;
+  const int nvec = nproj + 2 * ew + l;
+  for (int t = tid; t < nvec; t += blockDim.x) {
+    if (t < nproj) {
+      bgb[t] = (p.gated && t < h) ? p.bg[t] : p.bb[t - (nproj - h)];
+    } else if (t < nproj + ew) {
+      g1[t - nproj] = p.g1[t - nproj];
+    } else if (t < nproj + 2 * ew) {
+      b1[t - nproj - ew] = p.b1[t - nproj - ew];
+    } else {
+      const int j = t - nproj - 2 * ew;
+      madd[j] = (p.mask[(size_t)b * l + j] - 1.f) * 1e9f;
+    }
+  }
+  if ((h & 7) == 0) {                       // 16-byte rows of Wg and Wb
+    const int cpr = nproj >> 3;
+    for (int t = tid; t < ew * cpr; t += blockDim.x) {
+      const int c = t / cpr, n = (t - c * cpr) << 3;
+      cp_async16(Ws + c * sd + n,
+                 (p.gated && n < h) ? Wg + c * h + n
+                                    : Wb + c * h + (n - (nproj - h)), true);
+    }
+  } else {
+    for (int t = tid; t < ew * nproj; t += blockDim.x) {
+      const int c = t / nproj, n = t - c * nproj;
+      Ws[c * sd + n] = (p.gated && n < h) ? Wg[c * h + n]
+                                          : Wb[c * h + (n - (nproj - h))];
+    }
+  }
+  if ((dh & 7) == 0) {
+    const int cpr = dh >> 3;
+    for (int t = tid; t < l * cpr; t += blockDim.x) {
+      const int j = t / cpr, f = (t - j * cpr) << 3;
+      const bf* r = QKV + ((size_t)b * l + j) * 3 * dh;
+      cp_async16(ks + j * skv + f, r + dh + f, true);
+      cp_async16(vs + j * skv + f, r + 2 * dh + f, true);
+    }
+  } else {
+    const int hdh = dh >> 1;
+    for (int t = tid; t < l * hdh; t += blockDim.x) {
+      const int j = t / hdh, f = 2 * (t - j * hdh);
+      const bf* r = QKV + ((size_t)b * l + j) * 3 * dh;
+      *reinterpret_cast<uint32_t*>(ks + j * skv + f) =
+          *reinterpret_cast<const uint32_t*>(r + dh + f);
+      *reinterpret_cast<uint32_t*>(vs + j * skv + f) =
+          *reinterpret_cast<const uint32_t*>(r + 2 * dh + f);
+    }
+  }
+  cp_async_commit();
+
+  // a warp's row i: e, hh, dhh, q_i and gv_i (one group), then de_mid's
+  // first tile into tile buffer 0 (a second group)
+  auto issue_row = [&](int i) {
+    const size_t row = (size_t)b * l + i;
+    stage_rows(erow, se, E + row * l * ew, LK, l, ew);
+    stage_vec(hh_s, HH + row * l * h, l * h);
+    stage_vec(dhh_s, DHH + row * l * h, l * h);
+    stage_vec(qb, QKV + row * 3 * dh, dh);
+    stage_vec(gb, GV + row * dh, dh);
+    cp_async_commit();
+    stage_rows(tb, se, DM + row * l * ew, 16, min(16, l), ew);
+    cp_async_commit();
+  };
+
+  const int rbeg = rank * L.RB, rend = min(l, rbeg + L.RB);
+  const int KG = 32 / h, hd = lane & (h - 1), kg = lane / h;
+  const int ndd = dh / h, ntile = LK / 16;
+  float dwacc[NTE / 2][NPT][4];              // this warp's dW, over its rows
+#pragma unroll
+  for (int a = 0; a < NTE / 2; ++a)
+#pragma unroll
+    for (int n = 0; n < NPT; ++n)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) dwacc[a][n][q] = 0.f;
+  float sdg = 0.f, sdp = 0.f;                // this lane's dbg, dbb parts
+  if (rbeg + warp < rend) {
+    issue_row(rbeg + warp);
+  } else {                                   // the same count of groups
+    cp_async_commit();
+    cp_async_commit();
+  }
+  cp_async_wait<1>();                        // the setup and the first row
+  __syncthreads();
+
+  for (int pass = 0; pass < L.P; ++pass) {
+    const int i = rbeg + pass * nw + warp;
+    if (i < rend) {
+      const size_t row = (size_t)b * l + i;
+      cp_async_wait<1>();                    // e, hh, dhh, q_i, gv_i
+      __syncwarp();
+
+      // ---- LN1 and [G | P] = rnd(e_ln) . [Wg | Wb] + [bg | bb], 16 keys a
+      // tile; e_ln goes from the C-fragment layout of e straight into the
+      // A fragments
+      for (int t = 0; t < ntile; ++t) {
+        float x[NTE][4];
+#pragma unroll
+        for (int j = 0; j < NTE; ++j) {
+          if (j < EK / 8) {
+            const int c = 8 * j + 2 * tq;
+            const float2 e0 = ld_bf2(erow + (16 * t + gq) * se + c);
+            const float2 e1 = ld_bf2(erow + (16 * t + gq + 8) * se + c);
+            x[j][0] = e0.x; x[j][1] = e0.y; x[j][2] = e1.x; x[j][3] = e1.y;
+          } else {
+            x[j][0] = x[j][1] = x[j][2] = x[j][3] = 0.f;
+          }
+        }
+        float mu[2], rs[2];
+        ln_stats(x, ew, mu, rs);
+        if (tq == 0) {
+          mu_s[16 * t + gq] = mu[0]; rs_s[16 * t + gq] = rs[0];
+          mu_s[16 * t + gq + 8] = mu[1]; rs_s[16 * t + gq + 8] = rs[1];
+        }
+        float gp[NPT][4];
+#pragma unroll
+        for (int n = 0; n < NPT; ++n)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) gp[n][q] = 0.f;
+#pragma unroll
+        for (int ke = 0; ke < NTE / 2; ++ke) {
+          if (ke < EK / 16) {
+            float v[2][4];
+#pragma unroll
+            for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+              for (int q = 0; q < 4; ++q) {
+                const int c = 16 * ke + 8 * jj + 2 * tq + (q & 1);
+                v[jj][q] = c < ew ? g1[c] * ((x[2 * ke + jj][q] - mu[q >> 1]) *
+                                             rs[q >> 1]) + b1[c]
+                                  : 0.f;
+              }
+            const uint32_t a[4] = {pack_bf16(v[0][0], v[0][1]),
+                                   pack_bf16(v[0][2], v[0][3]),
+                                   pack_bf16(v[1][0], v[1][1]),
+                                   pack_bf16(v[1][2], v[1][3])};
+#pragma unroll
+            for (int nb = 0; nb < NPT / 2; ++nb) {
+              uint32_t bb[4];
+              ldb_kn(bb, Ws, sd, 16 * ke, 16 * nb);
+              mma16816(gp[2 * nb], a, bb[0], bb[1]);
+              mma16816(gp[2 * nb + 1], a, bb[2], bb[3]);
+            }
+          }
+        }
+#pragma unroll
+        for (int jn = 0; jn < NPT; ++jn)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int n = 8 * jn + 2 * tq + (q & 1);
+            const int j = 16 * t + gq + ((q >> 1) << 3);
+            if (j < l && n < nproj) {
+              const float z = gp[jn][q] + bgb[n];
+              if (p.gated && n < h) s1[j * h + n] = z;
+              else pp[j * h + n - (nproj - h)] = z;
+            }
+          }
+      }
+      __syncwarp();
+
+      // ---- the softmax chain re-entered at the saved h_hat: lane (kg, hd)
+      // takes keys kg, kg + KG, ... of head hd, so a head's sums over its
+      // keys stay inside the warp
+      const float* arow = p.amask ? p.amask + row * l : nullptr;
+      float mx = -INFINITY;
+#pragma unroll 4
+      for (int j = kg; j < l; j += KG) {
+        const int t = j * h + hd;
+        float add = madd[j];
+        if (arow) add += (arow[j] - 1.f) * 1e9f;
+        const float rm = p.dr.mask_add(b, i, j, hd);
+        const float lg = to_f(hh_s[t]) + add + rm;
+        s0[t] = lg;
+        if (p.gated) s1[t] = sigmoid(s1[t] + add + rm);
+        mx = fmaxf(mx, lg);
+      }
+      mx = head_max(mx, h);
+      float sum = 0.f;
+#pragma unroll 4
+      for (int j = kg; j < l; j += KG) {
+        const int t = j * h + hd;
+        const float ex = expf(s0[t] - mx);
+        s0[t] = ex;
+        sum += ex;
+      }
+      const float den = fmaxf(head_sum(sum, h), 1e-30f);
+      // dropout and gate backward; a_sm and da_sm replace exp and sg
+      float ts = 0.f;
+#pragma unroll 2
+      for (int j = kg; j < l; j += KG) {
+        const int t = j * h + hd;
+        float da = 0.f;
+#pragma unroll 8
+        for (int dd = 0; dd < ndd; ++dd) {
+          const int f = dd * h + hd;
+          da = fmaf(to_f(gb[f]), to_f(vs[j * skv + f]), da);
+        }
+        const float a_sm = s0[t] / den, s = s1[t];
+        float a = p.gated ? a_sm * s : a_sm;
+        if (dropping) {
+          const bool kp = p.dr.kept(b, i, j, hd);
+          da = kp ? da / p.dr.keep : 0.f;
+          a = kp ? a / p.dr.keep : 0.f;
+        }
+        ad_s[t] = __float2bfloat16_rn(a);
+        float dasm = da;
+        if (p.gated) {
+          dasm = da * s;
+          const float dgt = da * a_sm * s * (1.f - s);
+          dcol[j * sd + hd] = __float2bfloat16_rn(dgt);
+          sdg += dgt;
+        }
+        s0[t] = a_sm;
+        s1[t] = dasm;
+        ts += dasm * a_sm;
+      }
+      ts = head_sum(ts, h);
+      // softmax and clip backward; edge-bias activation backward
+#pragma unroll 4
+      for (int j = kg; j < l; j += KG) {
+        const int t = j * h + hd;
+        const float dH = s0[t] * (s1[t] - ts) + to_f(dhh_s[t]);
+        float d = dH * p.scale;
+        const float P = pp[t];
+        const float Ev = act_fn(p.edge_act, p.edge_alpha, P);
+        if (p.has_clip) {
+          const float sc = to_f(hh_s[t]) - Ev;
+          if (!(sc > p.lo && sc < p.hi)) d = 0.f;
+        }
+        ds_s[t] = __float2bfloat16_rn(d);
+        const float dp = dH * act_grad(p.edge_act, p.edge_alpha, P, Ev);
+        dcol[j * sd + (nproj - h) + hd] = __float2bfloat16_rn(dp);
+        sdp += dp;
+      }
+      __syncwarp();
+
+      // ---- dq_i = sum_j rnd(ds) k_j, two features a lane
+      for (int f0 = 2 * lane; f0 < dh; f0 += 64) {
+        const int h0 = f0 & (h - 1), h1 = (f0 + 1) & (h - 1);
+        float a0 = 0.f, a1 = 0.f;
+#pragma unroll 4
+        for (int j = 0; j < l; ++j) {
+          const float2 kv = ld_bf2(ks + j * skv + f0);
+          a0 = fmaf(to_f(ds_s[j * h + h0]), kv.x, a0);
+          a1 = fmaf(to_f(ds_s[j * h + h1]), kv.y, a1);
+        }
+        st_bf2(DQ + row * dh + f0, a0, a1);
+      }
+
+      // ---- per 16-key tile: de_ln = rnd([dgate | dP]) . [Wg | Wb]^T,
+      // dW += rnd(e_ln)^T rnd([dgate | dP]), LN1 backward plus de_mid
+      for (int t = 0; t < ntile; ++t) {
+        const int j0 = 16 * t;
+        bf* dmb = tb + (t & 1) * 16 * se;        // de_mid's tile t (in flight)
+        bf* eln = erow + j0 * se;                // rnd(e_ln) over e's tile
+        // de_mid's next tile into the other buffer (its tile t - 1 is read)
+        if (t + 1 < ntile)
+          stage_rows(tb + ((t + 1) & 1) * 16 * se, se,
+                     DM + (row * l + j0 + 16) * ew, 16, min(16, l - j0 - 16),
+                     ew);
+        cp_async_commit();
+        const float mu0 = mu_s[j0 + gq], rs0 = rs_s[j0 + gq];
+        const float mu1 = mu_s[j0 + gq + 8], rs1 = rs_s[j0 + gq + 8];
+        float x1[NTE][4];
+#pragma unroll
+        for (int j = 0; j < NTE; ++j) {
+          if (j < EK / 8) {
+            const int c = 8 * j + 2 * tq;
+            const float2 e0 = ld_bf2(erow + (j0 + gq) * se + c);
+            const float2 e1 = ld_bf2(erow + (j0 + gq + 8) * se + c);
+            const float ev[4] = {e0.x, e0.y, e1.x, e1.y};
+            float y[4];
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const bool ok = c + (q & 1) < ew;
+              x1[j][q] = ok ? (ev[q] - (q < 2 ? mu0 : mu1)) * (q < 2 ? rs0 : rs1)
+                            : 0.f;
+              y[q] = ok ? g1[c + (q & 1)] * x1[j][q] + b1[c + (q & 1)] : 0.f;
+            }
+            st_bf2(eln + gq * se + c, y[0], y[1]);
+            st_bf2(eln + (gq + 8) * se + c, y[2], y[3]);
+          } else {
+            x1[j][0] = x1[j][1] = x1[j][2] = x1[j][3] = 0.f;
+          }
+        }
+        __syncwarp();
+        float dl[NTE][4];
+#pragma unroll
+        for (int j = 0; j < NTE; ++j)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) dl[j][q] = 0.f;
+#pragma unroll
+        for (int kp = 0; kp < NPT / 2; ++kp) {
+          uint32_t a[4];
+          lda(a, dcol, sd, j0, 16 * kp);
+#pragma unroll
+          for (int jb = 0; jb < NTE / 2; ++jb) {
+            if (jb < EK / 16) {
+              uint32_t bb[4];
+              ldb_nk(bb, Ws, sd, 16 * kp, 16 * jb);
+              mma16816(dl[2 * jb], a, bb[0], bb[1]);
+              mma16816(dl[2 * jb + 1], a, bb[2], bb[3]);
+            }
+          }
+        }
+#pragma unroll
+        for (int mb = 0; mb < NTE / 2; ++mb) {
+          if (mb < EK / 16) {
+            uint32_t a[4];
+            lda_t(a, eln, se, 0, 16 * mb);
+#pragma unroll
+            for (int nb = 0; nb < NPT / 2; ++nb) {
+              uint32_t bb[4];
+              ldb_kn(bb, dcol, sd, j0, 16 * nb);
+              mma16816(dwacc[mb][2 * nb], a, bb[0], bb[1]);
+              mma16816(dwacc[mb][2 * nb + 1], a, bb[2], bb[3]);
+            }
+          }
+        }
+        cp_async_wait<1>();                      // de_mid's tile t
+        __syncwarp();
+        // LN1 backward: de = (dx - m1 - x1 m2) rstd + de_mid, dx = de_ln g1;
+        // dg1 += sum de_ln x1, db1 += sum de_ln (keys past l add 0)
+        float a0 = 0.f, c0 = 0.f, a1 = 0.f, c1 = 0.f;
+#pragma unroll
+        for (int j = 0; j < NTE; ++j)
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int c = 8 * j + 2 * tq + q;
+            if (c < ew) {
+              const float d0 = dl[j][q] * g1[c], d1 = dl[j][2 + q] * g1[c];
+              a0 += d0; c0 += d0 * x1[j][q];
+              a1 += d1; c1 += d1 * x1[j][2 + q];
+            }
+          }
+        const float m10 = quad_sum(a0) / ew, m20 = quad_sum(c0) / ew;
+        const float m11 = quad_sum(a1) / ew, m21 = quad_sum(c1) / ew;
+#pragma unroll
+        for (int j = 0; j < NTE; ++j) {
+          if (j < EK / 8) {
+            const int cb = 8 * j + 2 * tq;
+            const float2 dm0 = ld_bf2(dmb + gq * se + cb);
+            const float2 dm1 = ld_bf2(dmb + (gq + 8) * se + cb);
+            const float dmv[4] = {dm0.x, dm0.y, dm1.x, dm1.y};
+            float de[4], sg1[2], sb1[2];
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+              const int c = cb + q;
+              const bool ok = c < ew;
+              const float d0 = dl[j][q], d1 = dl[j][2 + q];
+              de[q] = ok ? (d0 * g1[c] - m10 - x1[j][q] * m20) * rs0 + dmv[q]
+                         : 0.f;
+              de[2 + q] = ok ? (d1 * g1[c] - m11 - x1[j][2 + q] * m21) * rs1 +
+                                   dmv[2 + q]
+                             : 0.f;
+              sg1[q] = d0 * x1[j][q] + d1 * x1[j][2 + q];
+              sb1[q] = d0 + d1;
+            }
+            st_bf2(erow + (j0 + gq) * se + cb, de[0], de[1]);
+            st_bf2(erow + (j0 + gq + 8) * se + cb, de[2], de[3]);
+            // the tile's dg1 (X), db1 (Y) column sums; one owning lane each
+            const float cs = tile_colsum(sg1[0], sg1[1], sb1[0], sb1[1]);
+            if (!(lane & 4))
+              wrow[(lane & 16 ? EK : 0) + cb + (lane & 8 ? 1 : 0)] += cs;
+          }
+        }
+        __syncwarp();
+        store_rows16(DE + (row * l + j0) * ew, erow + j0 * se, se,
+                     min(16, l - j0), ew);
+      }
+    }
+
+    // ---- dk_j += rnd(ds)_ij q_i, dv_j += rnd(a_drop)_ij gv_i over the
+    // block's rows of this pass, in row order; one thread an element
+    __syncthreads();
+    const int nrows = min(nw, rend - (rbeg + pass * nw));
+    for (int t = tid; t < l * dh; t += blockDim.x) {
+      const int j = t / dh, f = t - j * dh, hf = f & (h - 1);
+      float dk = dk_s[t], dv = dv_s[t];
+#pragma unroll 4
+      for (int w = 0; w < nrows; ++w) {
+        const bf* wbw = bs + L.nbb + w * L.nbw;
+        dk = fmaf(to_f(wbw[L.ds + j * h + hf]), to_f(wbw[L.qb + f]), dk);
+        dv = fmaf(to_f(wbw[L.ad + j * h + hf]), to_f(wbw[L.gb + f]), dv);
+      }
+      dk_s[t] = dk;
+      dv_s[t] = dv;
+    }
+    __syncthreads();
+    // the warp's next row (q_i and gv_i are read now)
+    if (pass + 1 < L.P && i + nw < rend) issue_row(i + nw);
+  }
+  cp_async_wait<0>();
+
+  // ---- the warps' weight-gradient parts into the block's sums, in warp
+  // order (each element has one owning lane)
+  sdg = head_sum(sdg, h);
+  sdp = head_sum(sdp, h);
+  for (int w = 0; w < nw; ++w) {
+    if (warp == w) {
+#pragma unroll
+      for (int mo = 0; mo < NTE / 2; ++mo)
+#pragma unroll
+        for (int jn = 0; jn < NPT; ++jn)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int m = 16 * mo + gq + ((q >> 1) << 3);
+            const int n = 8 * jn + 2 * tq + (q & 1);
+            if (m < ew && n < nproj) acc[m * nproj + n] += dwacc[mo][jn][q];
+          }
+      if (kg == 0) {
+        if (p.gated) acc[ew * nproj + hd] += sdg;
+        acc[ew * nproj + (nproj - h) + hd] += sdp;
+      }
+      for (int c = lane; c < ew; c += 32) {
+        acc[ew * nproj + nproj + c] += wrow[c];
+        acc[ew * nproj + nproj + ew + c] += wrow[EK + c];
+      }
+    }
+    __syncthreads();
+  }
+
+  // ---- the cluster's sum: rank r adds its share of [dk | dv | sums] over
+  // the ranks' shared memory in rank order and writes it once
+  cluster.sync();
+  const int nred = 2 * l * dh + L.nwg;
+  const int chunk = (nred + C - 1) / C;
+  const int e0 = rank * chunk, e1 = min(nred, e0 + chunk);
+  const float* rp[ATT_MAX_CLUSTER];
+#pragma unroll
+  for (int q = 0; q < ATT_MAX_CLUSTER; ++q)
+    rp[q] = cluster.map_shared_rank(red, q < C ? q : 0);
+  for (int e = e0 + tid; e < e1; e += blockDim.x) {
+    float v[ATT_MAX_CLUSTER];
+#pragma unroll
+    for (int q = 0; q < ATT_MAX_CLUSTER; ++q) v[q] = q < C ? rp[q][e] : 0.f;
+    float s = 0.f;
+#pragma unroll
+    for (int q = 0; q < ATT_MAX_CLUSTER; ++q)
+      if (q < C) s += v[q];
+    if (e < l * dh) p.dk[(size_t)b * l * dh + e] = s;
+    else if (e < 2 * l * dh) p.dv[(size_t)b * l * dh + e - l * dh] = s;
+    else p.partials[(size_t)b * L.nwg + e - 2 * l * dh] = s;
+  }
+  cluster.sync();      // no block leaves while another reads its memory
+}
+
+template <int NTE, int NPT>
+int launch_mma(const Params& p, float* dw, cudaStream_t stream) {
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  const int W = attn_mma_warps(p.l, p.ew, p.h, p.dh, p.gated, (size_t)optin);
+  if (W == 0) return (int)cudaErrorInvalidConfiguration;
+  const AttnMmaLayout L(p.l, p.ew, p.h, p.dh, p.gated, W);
+  auto kern = bwd_attn_mma_kernel<NTE, NPT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.bytes);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(p.B * L.C));
+  cfg.blockDim = dim3((unsigned)(32 * W));
+  cfg.dynamicSmemBytes = L.bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)L.C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kern, p);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return launch_sum_partials(p.partials, p.B, L.nwg, dw, stream);
+}
+
+// f32: the CUDA-core body (exact f32 products), one block a graph
+int launch_simt(const Params& p, float* dw, cudaStream_t stream) {
   const int nproj = p.gated ? 2 * p.h : p.h;
   const Layout L(p.l, p.ew, p.h, p.dh, nproj);
-  const size_t smem = L.bytes<T>();
-  auto kern = bwd_attn_kernel<T>;
+  const size_t smem = L.bytes<float>();
+  auto kern = bwd_attn_kernel<float>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -367,15 +1108,26 @@ int launch(const Params& p, float* dw, cudaStream_t stream) {
   return launch_sum_partials(p.partials, p.B, L.nw, dw, stream);
 }
 
+int launch_bf16(const Params& p, float* dw, cudaStream_t stream) {
+  if (!attn_mma_supported(p.ew, p.h, p.dh, p.gated))
+    return (int)cudaErrorInvalidValue;
+  const int nproj = p.gated ? 2 * p.h : p.h;
+  if (nproj > 16) return launch_mma<8, 4>(p, dw, stream);
+  return p.ew <= 64 ? launch_mma<8, 2>(p, dw, stream)
+                    : launch_mma<16, 2>(p, dw, stream);
+}
+
 }  // namespace
 
-// Shared memory the kernel needs, in bytes (the wrapper checks it against
-// the 227 KB a block may use).
+// Shared memory the kernel needs, in bytes: f32 the one-block-a-graph
+// body's; bf16 the tensor-core body's at the most warps a block that fit in
+// 227 KB (at one warp, above 227 KB, when none does). The wrapper checks it.
 extern "C" long long fused_layer_bwd_attn_smem(int dtype, int l, int ew, int h,
                                                int dh, int gated) {
-  const Layout L(l, ew, h, dh, gated ? 2 * h : h);
-  return dtype == 0 ? (long long)L.bytes<float>()
-                    : (long long)L.bytes<__nv_bfloat16>();
+  if (dtype == 0) return (long long)Layout(l, ew, h, dh, gated ? 2 * h : h)
+                             .bytes<float>();
+  const int W = attn_mma_warps(l, ew, h, dh, gated, 227 * 1024);
+  return (long long)AttnMmaLayout(l, ew, h, dh, gated, W ? W : 1).bytes;
 }
 
 // dtype: 0 = float32, 1 = bfloat16. e, de_mid, de (B, l, l, ew), hh, dhh
@@ -385,8 +1137,8 @@ extern "C" long long fused_layer_bwd_attn_smem(int dtype, int l, int ew, int h,
 // (ungated) wg / bg may be null. dw receives [dwgb (ew, nproj) | dbgb
 // (nproj) | dg1 | db1], nproj = 2h gated ([gates | bias] columns) else h;
 // `partials` is f32 scratch of B rows of that length. Launches the kernel
-// (one block per graph) and the partial-sum pass; returns
-// cudaGetLastError().
+// (f32: one block a graph; bf16: a cluster of blocks a graph) and the
+// partial-sum pass; returns cudaGetLastError().
 extern "C" int fused_layer_bwd_attn(
     int dtype, const void* e, const void* qkv, const float* mask,
     const float* amask, const void* wg, const float* bg, const void* wb,
@@ -401,7 +1153,7 @@ extern "C" int fused_layer_bwd_attn(
            hi, scale, edge_act, edge_alpha,
            Draws{seed_lo, seed_hi, mask_p, drop_p, keep}};
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return launch<float>(p, dw, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(p, dw, s);
+  if (dtype == 0) return launch_simt(p, dw, s);
+  if (dtype == 1) return launch_bf16(p, dw, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -8,8 +8,9 @@ so the same script times an older checkout unpacked elsewhere; run it once
 per checkout, in turns, in one session on the card. At the flagship
 ZINC-500k shapes (b 128, l 40, ew 64, h 8, dh 64, hidden 128), in bf16 and
 f32: K3 (`fused_layer_fwd`, training mode with the draws and h_hat out,
-and inference), K4 (`fused_layer_bwd_tail`) and K9 (`edge_block_bwd`,
-h_hat head-major as path C hands it over); CUDA events, median of 30
+and inference), K4 (`fused_layer_bwd_tail`), K5 (`fused_layer_bwd_attn`,
+the draws live) and K9 (`edge_block_bwd`, h_hat head-major as path C
+hands it over); CUDA events, median of 30
 launches with L2 flushed before each. Then, in bf16 as shipped, the
 median wall time of 8 training steps on path A (K3; K4, K5) and on path C
 (K1, K8; K9, K2) and of 8 serving requests on path A, 128 graphs each,
@@ -107,6 +108,11 @@ def main(argv=None) -> int:
             res[f"K3 {'train' if training else 'infer'} {name}"] = time_ms(
                 lambda: fl._fused_layer_cuda(*args_))
         res[f"K4 {name}"] = time_ms(lambda: fl._bwd_tail_cuda(spec, e, hh, g, w))
+        tspec = spec._replace(training=True)
+        dhh, dm = randn(B, L, L, H).to(dt), randn(B, L, L, EW).to(dt)
+        gv = randn(B, L, DH).to(dt)
+        res[f"K5 {name}"] = time_ms(lambda: fl._bwd_attn_cuda(
+            tspec, e, qkv, mask, None, w, hh, dhh, dm, gv, 77))
         hm = randn(B, H, L, L, scale=2.0).to(dt).permute(0, 2, 3, 1)
         tw = {k: w[k] for k in fl.TAIL_KEYS}
         res[f"K9 {name}"] = time_ms(lambda: eb._edge_block_bwd_cuda(hm, e, g, tw))

@@ -1,18 +1,23 @@
-"""Which phase of the bf16 K3 and K4 bodies takes their time, by ablation.
+"""Which phase of the bf16 K3, K4 and K5 bodies takes their time, by
+ablation.
 
-    python3 -m egt_torch.phase_times
+    python3 -m egt_torch.phase_times [K3 K4 K5]
 
 Copies `egt_torch/csrc` into `build/egt_torch/phases/`, and builds one
-library per variant in which one phase's loop runs no iteration (the `all`
+library per variant in which one phase's loops run no iteration (the `all`
 variant skips every phase listed), then times each variant's kernel at the
 flagship ZINC-500k shapes (b 128, l 40, ew 64, h 8, dh 64, hidden 128,
-bf16; K3 in training mode with the draws live) as `chip_smoke.py` does
-(CUDA events, median of 30 launches, L2 flushed before each). A skipped
-phase's outputs are wrong, so the variants are timed, never checked; the
-time a variant saves is what that phase costs beside the others (phases
-overlap, so the savings need not add up). K9 runs K4's body. Prints the
-card's name and power limit, one line per variant, then one JSON line.
-Needs a CUDA device.
+bf16; K3 and K5 in training mode with the draws live) as `chip_smoke.py`
+does (CUDA events, median of 30 launches, L2 flushed before each). A
+skipped phase's outputs are wrong, so the variants are timed, never
+checked; the time a variant saves is what that phase costs beside the
+others (phases overlap, so the savings need not add up). K9 runs K4's body.
+K5's phases: `head_mma` the three edge-head products, `chain` the softmax /
+gate / dropout / clip chain (its da dot product included), `per_head` the
+per-head products (da = gv . v, dq, dk and dv); with all three skipped, the
+loads, LayerNorm and its backward, the stores and the cluster's sum remain.
+Times the kernels named (all three by default). Prints the card's name and
+power limit, one line per variant, then one JSON line. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import json
 import shutil
 import statistics
 import subprocess
+import sys
 
 import torch
 
@@ -30,8 +36,8 @@ from .ops import fused_layer as fl
 
 B, L, EW, H, DH, HID = 128, 40, 64, 8, 64, 128
 
-# kernel: (source, file patched, {phase: (loop header, loop header with the
-# bound replaced by SKIP_<PHASE> ? 0 : bound)})
+# kernel: (source, file patched, {phase: loop header, or a tuple of them});
+# each header's bound becomes SKIP_<PHASE> ? 0 : bound wherever it occurs
 PHASES = {
     "K3": ("fused_layer_fwd", "fused_layer_fwd.cu", {
         "projection": "for (int n0 = 0; n0 < NP; n0 += 16) {",
@@ -50,18 +56,29 @@ PHASES = {
         "dhh": "for (int n0 = 0; n0 < HK; n0 += 16) {",
         "wgrad_r": "for (int bi = warp; bi < (HK / 16) * nbr; bi += nw) {",
     }),
+    "K5": ("fused_layer_bwd_attn", "fused_layer_bwd_attn.cu", {
+        "head_mma": ("for (int ke = 0; ke < NTE / 2; ++ke) {",
+                     "for (int kp = 0; kp < NPT / 2; ++kp) {",
+                     "for (int mb = 0; mb < NTE / 2; ++mb) {"),
+        "chain": "for (int j = kg; j < l; j += KG) {",
+        "per_head": ("for (int dd = 0; dd < ndd; ++dd) {",
+                     "for (int f0 = 2 * lane; f0 < dh; f0 += 64) {",
+                     "for (int w = 0; w < nrows; ++w) {"),
+    }),
 }
 
 
 def _patch(text: str, phases: dict) -> str:
-    for name, header in phases.items():
-        assert text.count(header) == 1, header
-        first = header.split("\n")[0]
-        init, rest = first.split("; ", 1)
-        cond, step = rest.split("; ", 1)
-        var, bound = cond.split(" < ", 1)
-        new = f"{init}; {var} < (SKIP_{name.upper()} ? 0 : {bound}); {step}"
-        text = text.replace(header, header.replace(first, new, 1))
+    for name, headers in phases.items():
+        for header in (headers,) if isinstance(headers, str) else headers:
+            assert header in text, header
+            first = header.split("\n")[0]
+            init, rest = first.split("; ", 1)
+            cond, step = rest.split("; ", 1)
+            var, bound = cond.split(" < ", 1)
+            new = (f"{init}; {var} < (SKIP_{name.upper()} ? 0 : {bound}); "
+                   f"{step}")
+            text = text.replace(header, header.replace(first, new, 1))
     return text
 
 
@@ -83,7 +100,12 @@ def _build(out_dir, kernel):
     return {v: so for v, (_, so) in jobs.items()}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    kernels = list(sys.argv[1:] if argv is None else argv) or list(PHASES)
+    unknown = set(kernels) - set(PHASES)
+    if unknown:
+        raise SystemExit(f"phase_times: unknown kernels {sorted(unknown)}; "
+                         f"choose from {list(PHASES)}")
     if not torch.cuda.is_available():
         raise SystemExit("phase_times needs a CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -93,10 +115,11 @@ def main() -> int:
     out_dir = _cuda.BUILD_DIR / "phases"
     shutil.rmtree(out_dir, ignore_errors=True)
     shutil.copytree(_cuda._CSRC, out_dir / "csrc")
-    for _, patched, phases in PHASES.values():
+    for k in kernels:
+        _, patched, phases = PHASES[k]
         f = out_dir / "csrc" / patched
         f.write_text(_patch(f.read_text(), phases))
-    libs = {k: _build(out_dir, k) for k in PHASES}
+    libs = {k: _build(out_dir, k) for k in kernels}
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -140,12 +163,16 @@ def main() -> int:
     mask = (torch.arange(L, device=dev)[None] < n[:, None]).float()
     hh = randn(B, L, L, H, scale=3.0).to(dt)
     g = randn(B, L, L, EW).to(dt)
+    dhh, gv = randn(B, L, L, H).to(dt), randn(B, L, DH).to(dt)
     runs = {"K3": (fl.KERNEL, lambda: fl._fused_layer_cuda(
                 spec, e, qkv, mask, None, w, 77, True)),
             "K4": (fl.BWD_TAIL_KERNEL, lambda: fl._bwd_tail_cuda(
-                spec, e, hh, g, w))}
+                spec, e, hh, g, w)),
+            "K5": (fl.BWD_ATTN_KERNEL, lambda: fl._bwd_attn_cuda(
+                spec, e, qkv, mask, None, w, hh, dhh, g, gv, 77))}
     res = {"device": smi}
-    for kernel, (kern, fn) in runs.items():
+    for kernel in kernels:
+        kern, fn = runs[kernel]
         times = {}
         for v, so in libs[kernel].items():
             kern._lib, kern._fn = ctypes.CDLL(str(so)), None

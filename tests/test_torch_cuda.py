@@ -498,3 +498,95 @@ def test_tail_weight_gradients_bit_identical_across_launches(dev, dtype):
     for a, b in (runs[:2], runs[2:]):
         for k in a:
             assert torch.equal(a[k], b[k]), k
+
+
+# K5 alone, (b, l, ew, h, dh): the bf16 body spreads a graph's query rows
+# over a cluster of blocks, one row a warp, keys padded to 16; l 9 and 41 are
+# no multiple of 8 or 16 (a last block with fewer rows, padded keys), ew 48
+# and 80 the other widths of its register tiles, l 150 several rows a warp
+BWD_ATTN_SHAPES = {"flagship": (4, 40, 64, 8, 64), "ew8_l9": (3, 9, 8, 8, 64),
+                   "ew48_l41": (3, 41, 48, 8, 48), "ew80_l41": (2, 41, 80, 8, 64),
+                   "ew8_l150": (2, 150, 8, 8, 64), "h4_l37": (3, 37, 32, 4, 32)}
+
+
+def _bwd_attn_case(dev, dtype, shape, gated, constrained):
+    g_ = _gen(dev)
+    b, l, ew, h, dh = BWD_ATTN_SHAPES[shape]
+
+    def rnd(*s, scale=1.0):
+        return scale * torch.randn(s, generator=g_, device=dev)
+
+    def dense(i, o):
+        return {"kernel": rnd(i, o, scale=0.3), "bias": rnd(o, scale=0.1)}
+
+    p = {"dense_edge_b": dense(ew, h), "dense_edge_r": dense(h, ew),
+         "norm_edge": {"gamma": 1 + rnd(ew, scale=0.1), "beta": rnd(ew, scale=0.1)},
+         "edge_ffn": {"norm": {"gamma": 1 + rnd(ew, scale=0.1),
+                               "beta": rnd(ew, scale=0.1)},
+                      "lr1": dense(ew, 2 * ew), "lr2": dense(2 * ew, ew)}}
+    if gated:
+        p["attention_gates"] = dense(ew, h)
+    spec = fl.LayerSpec(l=l, ew=ew, h=h, dh=dh, hidden=2 * ew, gated=gated,
+                        constrained=constrained, clip=(-2.0, 2.0),
+                        edge_act="elu", act="elu", scale=float(dh // h) ** -0.5,
+                        random_mask_prob=0.1, attn_dropout=0.1, training=True)
+    n = torch.tensor([[l], [max(1, l // 2)], [min(3, l)], [l - 1]][:b],
+                     device=dev)
+    mask = (torch.arange(l, device=dev)[None] < n).float()
+    am = (torch.rand((b, l, l), generator=g_, device=dev) < 0.4).float() \
+        if constrained else None
+    # h_hat drawn on its own (3 sigma): pairs beyond the clip, none at its edge
+    args = (spec, rnd(b, l, l, ew).to(dtype), rnd(b, l, 3 * dh).to(dtype), mask,
+            am, fl.layer_weights(p, dtype), rnd(b, l, l, h, scale=3.0).to(dtype),
+            rnd(b, l, l, h).to(dtype), rnd(b, l, l, ew).to(dtype),
+            rnd(b, l, dh).to(dtype), 7)
+    return args
+
+
+@pytest.mark.parametrize("shape", list(BWD_ATTN_SHAPES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("constrained,gated", [(False, True), (True, False),
+                                               (True, True)])
+def test_bwd_attn_kernel_matches_plain(dev, dtype, constrained, gated, shape):
+    """K5 (bf16: the tensor-core cluster body; f32: one block a graph)
+    against its plain version, the draws live, edge activation elu."""
+    args = _bwd_attn_case(dev, dtype, shape, gated, constrained)
+    before = fl.BWD_ATTN_KERNEL.launches
+    out = fl.fused_layer_bwd_attn(*args)
+    assert fl.BWD_ATTN_KERNEL.launches == before + 1
+    ref = fl.fused_layer_bwd_attn_plain(*args)
+    for i, (o, r) in enumerate(zip(out[:4], ref[:4])):      # de dq dk dv
+        _close(o, r, dtype, scaled=i >= 2)
+    assert sorted(out[4]) == sorted(ref[4])
+    for k, r in ref[4].items():
+        _close(out[4][k], r, dtype, scaled=True)
+
+
+@pytest.mark.parametrize("shape", ["flagship", "ew8_l150"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_attn_sums_bit_identical_across_launches(dev, dtype, shape):
+    """dk, dv and the six weight gradients: fixed-order sums (the cluster's
+    ranks in order in bf16, per-graph partial rows), no float atomics."""
+    args = _bwd_attn_case(dev, dtype, shape, True, True)
+    runs = [fl.fused_layer_bwd_attn(*args) for _ in range(2)]
+    assert torch.equal(runs[0][2], runs[1][2])
+    assert torch.equal(runs[0][3], runs[1][3])
+    for k in runs[0][4]:
+        assert torch.equal(runs[0][4][k], runs[1][4][k]), k
+
+
+def test_bwd_attn_geometry_matches_kernel_layout(dev):
+    """`fused_layer.bwd_attn_geometry` mirrors the kernel's layout: the same
+    shared memory as the kernel reports, or a ValueError where the kernel
+    reports more than a block may use."""
+    for l in (1, 9, 16, 40, 41, 64, 65, 118, 150):
+        for ew in (8, 48, 64, 80, 128):
+            for gated in (True, False):
+                spec = fl.LayerSpec(l=l, ew=ew, h=8, dh=64, hidden=2 * ew,
+                                    gated=gated, constrained=False, clip=None,
+                                    edge_act=None, act="elu", scale=0.35)
+                smem = fl.bwd_attn_smem(spec, torch.bfloat16)
+                try:
+                    assert fl.bwd_attn_geometry(spec)["smem"] == smem, (l, ew)
+                except ValueError:
+                    assert smem > 227 * 1024, (l, ew)
