@@ -25,7 +25,9 @@ final result line):
      128-pair tile); K5 alone at the flagship batch with ragged l (9, 41:
      a cluster's last block with fewer rows, keys padded to 16) at ew 8,
      48 and 80, gated and ungated, constrained, and at l 150 (several rows
-     a warp); two launches of K4, K5 and K9 give bit-identical weight
+     a warp), and through its general body at h 32 gated (the PCQM4Mv2
+     large config's heads), h 64, h 6, ew 136, odd dh and one warp a
+     block; two launches of K4, K5 and K9 give bit-identical weight
      gradients (and K5's dk, dv); errors, kernel / plain
      times (CUDA events, median of 30 launches with L2 flushed before each)
      and the reckoned bound;
@@ -235,6 +237,17 @@ def main() -> int:
             bool(torch.isfinite(out).all())
         return float(err.max()), ok
 
+    def off_clip(spec, e, w, hh):
+        """hh with every pair at least 0.05 from the clip's edges in
+        hh - E (moved by 0.25 where it is not): at an edge, K5's strict
+        in-range test follows E's last bits, and E moves by ~1e-3 where the
+        kernel and its plain version, which take LN1's sums in another
+        order, round one element of e_ln to neighbouring bf16 values."""
+        lo, hi = spec.clip
+        d = hh.float() - fl._edge_head(spec, e, w)[5]
+        near = ((d - lo).abs() < 0.05) | ((d - hi).abs() < 0.05)
+        return torch.where(near, hh.float() + 0.25, hh.float()).to(hh.dtype)
+
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def randn(*shape, scale=1.0):
@@ -372,7 +385,7 @@ def main() -> int:
         # every clipped pair at hh - E = lo or hi up to an ulp, where the
         # strict in-range test of K5 follows the last bit of E, which the
         # kernel and its plain version sum in another order.)
-        hh = randn(b, l, l, h, scale=3.0).to(dtype)
+        hh = off_clip(spec, e, w, randn(b, l, l, h, scale=3.0).to(dtype))
         ge, gv = randn(b, l, l, ew).to(dtype), randn(b, l, dh).to(dtype)
         targs = (spec, e, hh, ge, w)
         out = fl._bwd_tail_cuda(*targs)
@@ -470,9 +483,9 @@ def main() -> int:
         mask = ragged_mask(b, l, lo=1, hi=l)
         am = ((torch.rand((b, l, l), generator=gen, device=dev) < 0.3)
               .float() if constrained else None)
-        aargs = (spec, randn(b, l, l, ew).to(dtype),
-                 randn(b, l, 3 * dh).to(dtype), mask, am, w,
-                 randn(b, l, l, h, scale=3.0).to(dtype),
+        e = randn(b, l, l, ew).to(dtype)
+        aargs = (spec, e, randn(b, l, 3 * dh).to(dtype), mask, am, w,
+                 off_clip(spec, e, w, randn(b, l, l, h, scale=3.0).to(dtype)),
                  randn(b, l, l, h).to(dtype), randn(b, l, l, ew).to(dtype),
                  randn(b, l, dh).to(dtype), 77)
         out = fl._bwd_attn_cuda(*aargs)
@@ -485,6 +498,10 @@ def main() -> int:
         tag = (f"fused_layer_bwd_attn b{b} l{l} ew{ew} h{h} dh{dh} "
                f"{str(dtype)[6:]}{'' if gated else ' ungated'}"
                f"{' constrained' if constrained else ''}")
+        if dtype == torch.bfloat16:
+            g = fl.bwd_attn_geometry(spec)
+            tag += (f" ({'general' if g['general'] else 'register'} body, "
+                    f"{g['warps']} warps x {g['cluster']} blocks)")
         check(all(x[1] for x in errs),
               f"{tag}: max |kernel - plain| {max(x[0] for x in errs):.3g}")
         check_attn_rerun(tag, out, aargs)
@@ -559,14 +576,23 @@ def main() -> int:
                            timing=False)
                 edge_case(5, 37, ew, 8, dtype, head_major=True, timing=False)
             # K5 alone: ragged l at the flagship batch, ew 8 / 48 / 80,
-            # gated and ungated, constrained; l 150 loops rows in a warp
-            for b, l, ew, dh, gated, constrained in (
-                    (GRAPHS, 41, 8, 64, True, False),
-                    (GRAPHS, 41, 48, 48, False, True),
-                    (GRAPHS, 9, 48, 48, True, True),
-                    (GRAPHS, 41, 80, 64, True, True),
-                    (16, 150, 8, 64, False, False)):
-                attn_bwd_case(b, l, ew, 8, dh, dtype, gated, constrained)
+            # gated and ungated, constrained; l 150 loops rows in a warp;
+            # then shapes of its general body (2h past 16, h 64 two heads a
+            # lane, h 6 no divisor of 32, ew 136 three edge chunks, odd dh,
+            # one warp a block at h 64, ew 96, l 4)
+            for b, l, ew, h, dh, gated, constrained in (
+                    (GRAPHS, 41, 8, 8, 64, True, False),
+                    (GRAPHS, 41, 48, 8, 48, False, True),
+                    (GRAPHS, 9, 48, 8, 48, True, True),
+                    (GRAPHS, 41, 80, 8, 64, True, True),
+                    (16, 150, 8, 8, 64, False, False),
+                    (16, 20, 64, 32, 64, True, False),
+                    (16, 12, 16, 64, 64, False, True),
+                    (16, 13, 24, 6, 18, True, True),
+                    (16, 23, 136, 8, 64, True, False),
+                    (16, 11, 10, 1, 7, False, False),
+                    (16, 4, 96, 64, 64, True, True)):
+                attn_bwd_case(b, l, ew, h, dh, dtype, gated, constrained)
             for training in (False, True):
                 attention_case(16, 4, 37, 8, dtype, gated=False, hard=True,
                                training=training, timing=False)

@@ -39,42 +39,55 @@
 //   - the row's keys are padded to a multiple of 16 with zero rows, so the
 //     three edge-head products run on the tensor cores in whole m16 tiles,
 //     mma.sync m16n8k16 with f32 sums (mma.cuh): [G | P] = rnd(e_ln) .
-//     [Wg | Wb] with e_ln going from the C-fragment layout of the LayerNorm
-//     straight into A fragments; de_ln = rnd([dgate | dP]) . [Wg | Wb]^T
-//     and dW += rnd(e_ln)^T rnd([dgate | dP]) from ldmatrix reads of the
-//     weights as stored (no transposed copy) and of the warp's staging.
-//     Every operand already sits at a bf16 rounding point, so only the
-//     order of summation changes;
-//   - the softmax over a head's keys reduces inside the warp (lane (kg, hd)
-//     takes keys kg, kg + 32 / h, ... of head hd), so no block barrier sits
-//     in the softmax chain; da = gv . v, dq and the per-head dot products
-//     stay on the CUDA cores;
-//   - the row's e, hh and dhh are staged with 16-byte cp.async, de_mid one
-//     16-key tile ahead, and de goes out 16 bytes a lane;
+//     [Wg | Wb], de_ln = rnd([dgate | dP]) . [Wg | Wb]^T and dW +=
+//     rnd(e_ln)^T rnd([dgate | dP]), from ldmatrix reads of the weights as
+//     stored (no transposed copy) and of the warp's staging. Every operand
+//     already sits at a bf16 rounding point, so only the order of summation
+//     changes;
+//   - the softmax over a head's keys reduces inside the warp: when h divides
+//     32, lane (kg, hd) takes keys kg, kg + 32 / h, ... of head hd and the
+//     head's sums are shuffles; otherwise a lane takes every key of heads
+//     lane, lane + 32, ... So no block barrier sits in the softmax chain;
+//     da = gv . v, dq and the per-head dot products stay on the CUDA cores;
+//   - the row's e, hh and dhh are staged with 16-byte cp.async, de_mid a
+//     16-key tile at a time, and de goes out 16 bytes a lane;
 //   - dk and dv: each block keeps f32 partials for its rows (one thread an
 //     element, rows added in row order); after cluster.sync() rank r adds
 //     its 1/C share of [dk | dv | weight-gradient sums] over the ranks'
 //     shared memory (DSMEM) in rank order and writes it once. The weight
-//     gradients are kept per warp (dW in mma fragments, each element one
-//     owning lane), added to the block's sums in warp order, reduced across
-//     the cluster with dk and dv into one partial row per graph, and the
-//     rows summed in a fixed order by launch_sum_partials. No float
-//     atomics: a rerun is bit-identical.
-// Blocks take the most warps (up to 8) whose shared memory fits 227 KB;
-// longer graphs loop rows within a warp (several passes of W rows a block),
-// so the cluster stays at 8 blocks. Shapes it does not take (h > 32,
-// ew > 128, nproj > 32, or ew > 64 with nproj > 16; odd dh) are refused.
+//     gradients are kept per warp (each element one owning lane), added to
+//     the block's sums in warp order, reduced across the cluster with dk
+//     and dv into one partial row per graph, and the rows summed in a fixed
+//     order by launch_sum_partials. No float atomics: a rerun is
+//     bit-identical.
+// Two instantiations. The register body (ew <= 64, nproj <= 16 and h
+// dividing 32: every shipped config) keeps a key tile's whole edge row and
+// the warp's dW in mma fragments; e_ln goes from the C-fragment layout of
+// LN1 straight into A fragments and is then written over e's own rows, so
+// de_mid can run a whole tile ahead in a second buffer. The general body
+// takes every other shape: it writes rnd(e_ln) into a tile buffer of its
+// own, runs the products in chunks of 64 edge columns and 32 projection
+// columns (LN1's backward takes two passes over the chunks, the second
+// recomputing de_ln), and keeps dW and [dbg | dbb] in per-warp f32 shared
+// memory (in the block's sums when a block has one warp), de_mid one tile
+// buffer. Blocks take the most warps (up to 8) whose shared memory fits
+// 227 KB; longer graphs loop rows within a warp (several passes of W rows a
+// block), so the cluster stays at 8 blocks. At one warp a block the layout
+// needs no more shared memory than the first port's one-block-a-graph body
+// did, so every shape that body took still runs; a shape that needs more
+// than 227 KB at one warp is refused.
 //
 // Measured (NVIDIA H100 80GB HBM3, 700.00 W; egt_torch/kernel_times.py, L2
-// flushed, draws live): 0.336-0.340 ms at the training shape above, against
-// 1.520 ms for the first port's one-block-a-graph body on the CUDA cores.
-// What bounds it now is latency, not bytes or FLOPs: ~217 KB of shared
-// memory a block (most of it the row's staged e and the per-(key, head)
-// values), so one 8-warp block a SM. By ablation (`python3 -m
-// egt_torch.phase_times K5`) the softmax chain with its Philox draws takes
-// ~0.09 ms, the per-head products ~0.06 ms and the tensor-core products
-// ~0.02 ms; with all three skipped ~0.20 ms remain: the loads, LN1 and its
-// backward over the key tiles, the stores and the cluster's sum.
+// flushed, draws live): 0.342-0.344 ms at the training shape above (the
+// register body), against 1.519-1.529 ms for the first port's
+// one-block-a-graph body on the CUDA cores, timed in turns with it. What
+// bounds it now is latency, not bytes or FLOPs: ~217 KB of shared memory a
+// block (most of it the row's staged e and the per-(key, head) values), so
+// one 8-warp block a SM. By ablation (`python3 -m egt_torch.phase_times
+// K5`) the softmax chain with its Philox draws takes ~0.09 ms, the
+// per-head products ~0.06 ms and the tensor-core products ~0.015 ms; with
+// all three skipped ~0.20 ms remain: the loads, LN1 and its backward over
+// the key tiles, the stores and the cluster's sum.
 //
 // The f32 body (bwd_attn_kernel, exact f32 products on the CUDA cores) is
 // the first port's: one block takes one whole graph and loops over its
@@ -83,7 +96,7 @@
 // one partial row, summed by the same fixed-order pass. A query row's whole
 // key row (l edge rows, l x h logits and gates) lives in shared memory
 // between the softmax's forward and backward passes; the graph's k and v
-// are cached in shared memory in f32.
+// are cached in shared memory.
 
 #include <cooperative_groups.h>
 
@@ -96,6 +109,7 @@ namespace {
 using namespace egt;
 
 constexpr int NT = 256;
+constexpr int SMEM_MAX = 227 * 1024;   // shared memory a block may use
 
 struct Params {
   const void* e; const void* qkv; const float* mask; const float* amask;
@@ -109,11 +123,27 @@ struct Params {
   Draws dr;
 };
 
+// Lets kernel K take `bytes` of dynamic shared memory on the current
+// device; the attribute is set again only for a larger size
+template <void (*K)(Params)>
+cudaError_t allow_smem(size_t bytes) {
+  static size_t allowed[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && allowed[dev] >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(K, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err == cudaSuccess && dev < 64) allowed[dev] = bytes;
+  return err;
+}
+
+// ---------------------------------------------------------------- f32
 struct Layout {
   int dwgb, dbgb, dg1, db1, nw;                 // weight-gradient sums
-  int vec, k, v, dk, dv, q, gv, x1, eln, rstd;  // float offsets
-  int gpre, ppre, ev, hv, lm, sg, dasm, dgt, ds, dp, ad, madd, tsum, nf;
-  int wgb, wgbT, nt;                            // T offsets
+  int vec, k, v, dk, dv, q, gv, x1, eln, rstd;
+  int gpre, ppre, ev, hv, lm, sg, dasm, dgt, ds, dp, ad, madd, tsum;
+  int wgb, wgbT, n;                             // weights, the total
   __host__ __device__ Layout(int l, int ew, int h, int dh, int nproj) {
     int o = 0;
     dwgb = o; o += ew * nproj;    // [gates | bias] columns
@@ -129,7 +159,7 @@ struct Layout {
     q = o;    o += dh;
     gv = o;   o += dh;
     x1 = o;   o += l * ew;
-    eln = o;  o += l * ew;          // e_ln (rounded), later de_ln
+    eln = o;  o += l * ew;          // e_ln, later de_ln
     rstd = o; o += l;
     gpre = o; o += l * h;
     ppre = o; o += l * h;
@@ -144,25 +174,21 @@ struct Layout {
     ad = o;   o += l * h;
     madd = o; o += l;
     tsum = o; o += h;
-    nf = (o + 3) & ~3;
-    int w = 0;
-    wgb = w;  w += ew * nproj;
-    wgbT = w; w += nproj * ew;
-    nt = w;
+    wgb = o;  o += ew * nproj;
+    wgbT = o; o += nproj * ew;
+    n = o;
   }
-  template <typename T> __host__ __device__ size_t bytes() const {
-    return (size_t)nf * sizeof(float) + (size_t)nt * sizeof(T);
+  __host__ __device__ size_t bytes() const {
+    return (size_t)n * sizeof(float);
   }
 };
 
-template <typename T>
 __global__ void __launch_bounds__(NT) bwd_attn_kernel(Params p) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const int l = p.l, ew = p.ew, h = p.h, dh = p.dh;
   const int nproj = p.gated ? 2 * h : h;
   const Layout L(l, ew, h, dh, nproj);
-  T* ws = reinterpret_cast<T*>(sm + L.nf);
   float *acc = sm, *dwgb = sm + L.dwgb, *dbgb = sm + L.dbgb;
   float *dg1 = sm + L.dg1, *db1 = sm + L.db1;
   float *bgb = sm + L.vec, *g1 = bgb + nproj, *b1 = g1 + ew;
@@ -172,43 +198,42 @@ __global__ void __launch_bounds__(NT) bwd_attn_kernel(Params p) {
   float *ev = sm + L.ev, *hv = sm + L.hv, *lm = sm + L.lm, *sg = sm + L.sg;
   float *dasm = sm + L.dasm, *dgt = sm + L.dgt, *ds = sm + L.ds;
   float *dp = sm + L.dp, *ad = sm + L.ad, *madd = sm + L.madd;
-  float *tsum = sm + L.tsum;
-  T *wgb = ws + L.wgb, *wgbT = ws + L.wgbT;
+  float *tsum = sm + L.tsum, *wgb = sm + L.wgb, *wgbT = sm + L.wgbT;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int b = blockIdx.x;
   const bool dropping = p.dr.dropping();
 
   // ---- weights, the graph's k / v and its key mask; zero the sums
-  const T* Wg = (const T*)p.wg;
-  const T* Wb = (const T*)p.wb;
+  const float* Wg = (const float*)p.wg;
+  const float* Wb = (const float*)p.wb;
   for (int t = tid; t < ew * nproj; t += NT) {
     const int c = t / nproj, n = t % nproj;
-    const T w = (p.gated && n < h) ? Wg[c * h + n] : Wb[c * h + (n - (nproj - h))];
+    const float w = (p.gated && n < h) ? Wg[c * h + n] : Wb[c * h + (n - (nproj - h))];
     wgb[t] = w;
     wgbT[n * ew + c] = w;
   }
   for (int t = tid; t < nproj; t += NT)
     bgb[t] = (p.gated && t < h) ? p.bg[t] : p.bb[t - (nproj - h)];
   for (int t = tid; t < ew; t += NT) { g1[t] = p.g1[t]; b1[t] = p.b1[t]; }
-  const T* QKV = (const T*)p.qkv;
+  const float* QKV = (const float*)p.qkv;
   for (int t = tid; t < l * dh; t += NT) {
     const int j = t / dh, f = t % dh;
-    const T* r = QKV + ((size_t)b * l + j) * 3 * dh;
-    k_s[t] = to_f(r[dh + f]);
-    v_s[t] = to_f(r[2 * dh + f]);
+    const float* r = QKV + ((size_t)b * l + j) * 3 * dh;
+    k_s[t] = r[dh + f];
+    v_s[t] = r[2 * dh + f];
     dk_s[t] = 0.f;
     dv_s[t] = 0.f;
   }
   for (int t = tid; t < l; t += NT) madd[t] = (p.mask[(size_t)b * l + t] - 1.f) * 1e9f;
   for (int t = tid; t < L.nw; t += NT) acc[t] = 0.f;
 
-  const T* E = (const T*)p.e;
-  const T* HH = (const T*)p.hh;
-  const T* DHH = (const T*)p.dhh;
-  const T* DM = (const T*)p.demid;
-  const T* GV = (const T*)p.gv;
-  T* DE = (T*)p.de;
-  T* DQ = (T*)p.dq;
+  const float* E = (const float*)p.e;
+  const float* HH = (const float*)p.hh;
+  const float* DHH = (const float*)p.dhh;
+  const float* DM = (const float*)p.demid;
+  const float* GV = (const float*)p.gv;
+  float* DE = (float*)p.de;
+  float* DQ = (float*)p.dq;
 
   for (int i = 0; i < l; ++i) {
     const size_t row = (size_t)b * l + i;
@@ -217,13 +242,13 @@ __global__ void __launch_bounds__(NT) bwd_attn_kernel(Params p) {
     const float* arow = p.amask ? p.amask + row * l : nullptr;
     __syncthreads();  // setup done; the previous row is done
     for (int t = tid; t < dh; t += NT) {
-      q_s[t] = to_f(QKV[row * 3 * dh + t]);
-      gv_s[t] = to_f(GV[row * dh + t]);
+      q_s[t] = QKV[row * 3 * dh + t];
+      gv_s[t] = GV[row * dh + t];
     }
-    for (int t = tid; t < l * ew; t += NT) x1[t] = to_f(E[ebase + t]);
+    for (int t = tid; t < l * ew; t += NT) x1[t] = E[ebase + t];
     __syncthreads();
 
-    // ---- edge pre-LN, one warp per key: x1 normalised, e_ln rounded
+    // ---- edge pre-LN, one warp per key: x1 normalised, e_ln
     for (int j = warp; j < l; j += NT / 32) {
       float* x = x1 + j * ew;
       float s = 0.f;
@@ -238,7 +263,7 @@ __global__ void __launch_bounds__(NT) bwd_attn_kernel(Params p) {
       for (int c = lane; c < ew; c += 32) {
         const float xv = (x[c] - mu) * rs;
         x[c] = xv;
-        eln[j * ew + c] = rnd<T>(g1[c] * xv + b1[c]);
+        eln[j * ew + c] = g1[c] * xv + b1[c];
       }
       if (lane == 0) rstd[j] = rs;
     }
@@ -247,7 +272,7 @@ __global__ void __launch_bounds__(NT) bwd_attn_kernel(Params p) {
     // ---- gates and edge-bias pre-activations
     tile_gemm<NT>(l, nproj, ew,
         [&](int m, int k) { return eln[m * ew + k]; },
-        [&](int k, int n) { return to_f(wgb[k * nproj + n]); },
+        [&](int k, int n) { return wgb[k * nproj + n]; },
         [&](int m, int n, float y) {
           const float z = y + bgb[n];
           if (p.gated && n < h) gpre[m * h + n] = z;
@@ -258,7 +283,7 @@ __global__ void __launch_bounds__(NT) bwd_attn_kernel(Params p) {
     // ---- re-enter the softmax chain at the saved h_hat
     for (int t = tid; t < l * h; t += NT) {
       const int j = t / h, hd = t % h;
-      const float hval = to_f(HH[hbase + t]);
+      const float hval = HH[hbase + t];
       const float Ev = act_fn(p.edge_act, p.edge_alpha, ppre[t]);
       ev[t] = Ev;
       hv[t] = hval;
@@ -296,7 +321,7 @@ __global__ void __launch_bounds__(NT) bwd_attn_kernel(Params p) {
         da = kp ? da / p.dr.keep : 0.f;
         a = kp ? a / p.dr.keep : 0.f;
       }
-      ad[t] = rnd<T>(a);
+      ad[t] = a;
       if (p.gated) {
         dasm[t] = da * s;
         dgt[t] = da * a_sm * s * (1.f - s);
@@ -317,13 +342,13 @@ __global__ void __launch_bounds__(NT) bwd_attn_kernel(Params p) {
     // ---- softmax and clip backward; edge-bias activation backward
     for (int t = tid; t < l * h; t += NT) {
       const int hd = t % h;
-      const float dH = lm[t] * (dasm[t] - tsum[hd]) + to_f(DHH[hbase + t]);
+      const float dH = lm[t] * (dasm[t] - tsum[hd]) + DHH[hbase + t];
       float d = dH * p.scale;
       if (p.has_clip) {
         const float sc = hv[t] - ev[t];
         if (!(sc > p.lo && sc < p.hi)) d = 0.f;
       }
-      ds[t] = rnd<T>(d);
+      ds[t] = d;
       dp[t] = dH * act_grad(p.edge_act, p.edge_alpha, ppre[t], ev[t]);
     }
     __syncthreads();
@@ -333,7 +358,7 @@ __global__ void __launch_bounds__(NT) bwd_attn_kernel(Params p) {
       const int hd = f % h;
       float s = 0.f;
       for (int j = 0; j < l; ++j) s = fmaf(ds[j * h + hd], k_s[j * dh + f], s);
-      DQ[row * dh + f] = from_f<T>(s);
+      DQ[row * dh + f] = s;
     }
     for (int t = tid; t < l * dh; t += NT) {
       const int j = t / dh, f = t % dh, hd = f % h;
@@ -341,13 +366,13 @@ __global__ void __launch_bounds__(NT) bwd_attn_kernel(Params p) {
       dv_s[t] = fmaf(ad[j * h + hd], gv_s[f], dv_s[t]);
     }
 
-    // ---- head weight gradients: dW[gb] += e_ln^T rnd([dgate | dP]), db[gb]
+    // ---- head weight gradients: dW[gb] += e_ln^T [dgate | dP], db[gb]
     auto dcol = [&](int j, int n) {
       return (p.gated && n < h) ? dgt[j * h + n] : dp[j * h + (n - (nproj - h))];
     };
     tile_gemm<NT>(ew, nproj, l,
         [&](int m, int k) { return eln[k * ew + m]; },
-        [&](int k, int n) { return rnd<T>(dcol(k, n)); },
+        [&](int k, int n) { return dcol(k, n); },
         [&](int m, int n, float y) { dwgb[m * nproj + n] += y; });
     for (int n = tid; n < nproj; n += NT) {
       float s = 0.f;
@@ -356,10 +381,10 @@ __global__ void __launch_bounds__(NT) bwd_attn_kernel(Params p) {
     }
     __syncthreads();  // e_ln is read above; de_ln replaces it below
 
-    // ---- de_ln = rnd([dgate | dP]) . [Wg | Wb]^T
+    // ---- de_ln = [dgate | dP] . [Wg | Wb]^T
     tile_gemm<NT>(l, ew, nproj,
-        [&](int m, int k) { return rnd<T>(dcol(m, k)); },
-        [&](int k, int n) { return to_f(wgbT[k * ew + n]); },
+        [&](int m, int k) { return dcol(m, k); },
+        [&](int k, int n) { return wgbT[k * ew + n]; },
         [&](int m, int n, float y) { eln[m * ew + n] = y; });
     __syncthreads();
     for (int c = tid; c < ew; c += NT) {
@@ -386,7 +411,7 @@ __global__ void __launch_bounds__(NT) bwd_attn_kernel(Params p) {
       for (int c = lane; c < ew; c += 32) {
         const float dx = d[c] * g1[c];
         const size_t o = ebase + (size_t)j * ew + c;
-        DE[o] = from_f<T>((dx - m1 - xr[c] * m2) * rs + to_f(DM[o]));
+        DE[o] = (dx - m1 - xr[c] * m2) * rs + DM[o];
       }
     }
   }
@@ -410,15 +435,18 @@ __global__ void __launch_bounds__(NT) bwd_attn_kernel(Params p) {
 //   warp f32:   per (key, head) of the warp's row: s0 (logit, exp, a_sm),
 //               s1 (gate pre-activation, sigmoid, da_sm), P (pre-activation
 //               of the edge bias); per key: mean and rstd of LN1; the warp's
-//               dg1 / db1 column sums (EK each);
+//               dg1 / db1 column sums (EK each); general body: the warp's
+//               [dW | dbg, dbb] sums (none at one warp a block: the block's
+//               sums take them);
 //   block bf16: [Wg | Wb] as stored (EK x NPK, zero-padded), k and v of the
-//               graph (l x (dh + 8));
-//   warp bf16:  the row's e (LK x EK; a tile's rows take rnd(e_ln) for the
-//               dW product once LN1 has read them, then de on its way out);
-//               two 16-key tiles of de_mid (tile t + 1 in flight while tile
-//               t is worked); rnd([dgate | dP]) of the row (LK x NPK); the
-//               row's hh and dhh; rnd(ds), rnd(a_drop) per (key, head); q_i
-//               and gv_i.
+//               graph (l x skv);
+//   warp bf16:  the row's e (LK x EK; de on its way out, and in the
+//               register body a tile's rows take rnd(e_ln) for the dW
+//               product once LN1 has read them); de_mid tiles of 16 keys
+//               (register body: two, tile t + 1 in flight while tile t is
+//               worked); rnd([dgate | dP]) of the row (LK x NPK); the row's
+//               hh and dhh; rnd(ds), rnd(a_drop) per (key, head); q_i and
+//               gv_i; general body: a 16-key tile of rnd(e_ln).
 // LK = l rounded up to 16 (keys past l are zero rows), EK = ew and NPK =
 // nproj rounded up to 16 (zero columns). Staged rows are padded by 8
 // columns so the eight rows one ldmatrix reads fall in distinct banks.
@@ -428,14 +456,22 @@ constexpr int ATT_MAX_CLUSTER = 8;    // the portable cluster size
 __host__ __device__ inline int r4(int n) { return (n + 3) & ~3; }
 __host__ __device__ inline int r8(int n) { return (n + 7) & ~7; }
 
+// Whether a shape takes the general body: the register body holds ew <= 64
+// and nproj <= 16 in its fragments and reduces a head over lanes, h | 32
+__host__ __device__ inline bool attn_mma_general(int ew, int h, int gated) {
+  const int nproj = gated ? 2 * h : h;
+  return !(ew <= 64 && nproj <= 16 && 32 % h == 0);
+}
+
 struct AttnMmaLayout {
   int W, C, RB, P;                 // warps a block, blocks a graph (the
                                    // cluster), rows a block, rows a warp
+  bool general;
   int LK, EK, NPK, nproj, se, sd, skv, nwg;
   int red, vec, madd, nfb;                         // block f32 offsets
-  int s0, s1, pp, mu, rs, wrow, nfw;               // warp f32 offsets
+  int s0, s1, pp, mu, rs, wrow, wdw, nfw;          // warp f32 offsets
   int w, k, v, nbb;                                // block bf16 offsets
-  int erow, tb, dcol, hh, dhh, ds, ad, qb, gb, nbw;  // warp bf16 offsets
+  int erow, tb, dcol, hh, dhh, ds, ad, qb, gb, et, nbw;  // warp bf16 offsets
   size_t bytes;
   __host__ __device__ AttnMmaLayout(int l, int ew, int h, int dh, int gated,
                                     int W_) {
@@ -445,9 +481,10 @@ struct AttnMmaLayout {
     RB = (l + C - 1) / C;
     C = (l + RB - 1) / RB;         // no block without a row
     P = (RB + W - 1) / W;
+    general = attn_mma_general(ew, h, gated);
     nproj = gated ? 2 * h : h;
     LK = round16(l); EK = round16(ew); NPK = round16(nproj);
-    se = EK + 8; sd = NPK + 8; skv = dh + 8;
+    se = EK + 8; sd = NPK + 8; skv = ((dh + 1) & ~1) + 8;
     nwg = ew * nproj + nproj + 2 * ew;
     int o = 0;
     red = o;  o += r4(2 * l * dh + nwg);
@@ -461,6 +498,7 @@ struct AttnMmaLayout {
     mu = o;   o += r4(LK);
     rs = o;   o += r4(LK);
     wrow = o; o += r4(2 * EK);
+    wdw = o;  if (general && W > 1) o += r4(ew * nproj + nproj);
     nfw = o;
     o = 0;
     w = o;    o += r8(EK * sd);
@@ -469,7 +507,7 @@ struct AttnMmaLayout {
     nbb = o;
     o = 0;
     erow = o; o += LK * se;
-    tb = o;   o += 32 * se;         // two 16-key tiles of de_mid
+    tb = o;   o += (general ? 16 : 32) * se;
     dcol = o; o += LK * sd;
     hh = o;   o += r8(LK * h);
     dhh = o;  o += r8(LK * h);
@@ -477,26 +515,19 @@ struct AttnMmaLayout {
     ad = o;   o += r8(LK * h);
     qb = o;   o += r8(dh);
     gb = o;   o += r8(dh);
+    et = o;   if (general) o += 16 * se;
     nbw = o;
     bytes = (size_t)(nfb + W * nfw) * 4 + (size_t)(nbb + W * nbw) * 2;
   }
 };
 
-// Shapes the tensor-core body takes (a head's keys reduce inside a warp,
-// the register tiles cover ew <= 128 and nproj <= 32)
-__host__ __device__ inline bool attn_mma_supported(int ew, int h, int dh,
-                                                   int gated) {
-  const int nproj = gated ? 2 * h : h;
-  return h >= 1 && h <= 32 && (32 % h) == 0 && dh % h == 0 && dh % 2 == 0 &&
-         ew >= 1 && ew <= 128 && nproj <= 32 && !(ew > 64 && nproj > 16);
-}
-
-// The most warps a block (up to 8) whose shared memory fits in `limit`
-// bytes; 0 if not even one does
-inline int attn_mma_warps(int l, int ew, int h, int dh, int gated,
-                          size_t limit) {
+// The most warps a block (up to 8) whose shared memory fits 227 KB; 0 if not
+// even one does
+__host__ __device__ inline int attn_mma_warps(int l, int ew, int h, int dh,
+                                              int gated) {
   for (int W = ATT_MMA_WARPS; W > 0; --W)
-    if (AttnMmaLayout(l, ew, h, dh, gated, W).bytes <= limit) return W;
+    if (AttnMmaLayout(l, ew, h, dh, gated, W).bytes <= (size_t)SMEM_MAX)
+      return W;
   return 0;
 }
 
@@ -536,13 +567,14 @@ __device__ __forceinline__ void stage_vec(__nv_bfloat16* S,
   }
 }
 
-// Sum (max) over the lanes of one head: lanes hd, hd + h, hd + 2h, ...
-__device__ __forceinline__ float head_sum(float v, int h) {
-  for (int o = h; o < 32; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+// Sum (max) over the lanes of one head: lanes hd, hd + hl, hd + 2 hl, ...
+// (hl lanes a key group; none to add when hl is 32)
+__device__ __forceinline__ float head_sum(float v, int hl) {
+  for (int o = hl; o < 32; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
-__device__ __forceinline__ float head_max(float v, int h) {
-  for (int o = h; o < 32; o <<= 1)
+__device__ __forceinline__ float head_max(float v, int hl) {
+  for (int o = hl; o < 32; o <<= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
@@ -565,11 +597,59 @@ __device__ __forceinline__ float tile_colsum(float x0, float x1, float y0,
   return k + __shfl_xor_sync(0xffffffffu, k, 4);
 }
 
-// NTE: n8 tiles of the edge width a lane holds (ew <= 8 NTE); NPT: n8 tiles
-// of the [gates | bias] projections (nproj <= 8 NPT)
-template <int NTE, int NPT>
+// LN1 of the lane's rows gq and gq + 8 of a 16-key tile S of e (row stride
+// ld, columns past n zero): their mean and rsqrt(variance + eps), the
+// variance taken about the mean, as ln_stats
+__device__ __forceinline__ void tile_ln_stats(const __nv_bfloat16* S, int ld,
+                                              int n, float (&mu)[2],
+                                              float (&rs)[2]) {
+  const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
+  float s[2] = {0.f, 0.f}, v[2] = {0.f, 0.f};
+  for (int c = 2 * tq; c < n; c += 8)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float2 x = ld_bf2(S + (gq + 8 * r) * ld + c);
+      s[r] += x.x + (c + 1 < n ? x.y : 0.f);
+    }
+  mu[0] = quad_sum(s[0]) / n; mu[1] = quad_sum(s[1]) / n;
+  for (int c = 2 * tq; c < n; c += 8)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float2 x = ld_bf2(S + (gq + 8 * r) * ld + c);
+      const float d0 = x.x - mu[r], d1 = c + 1 < n ? x.y - mu[r] : 0.f;
+      v[r] += d0 * d0 + d1 * d1;
+    }
+  rs[0] = rsqrtf(quad_sum(v[0]) / n + LN_EPS);
+  rs[1] = rsqrtf(quad_sum(v[1]) / n + LN_EPS);
+}
+
+// rnd(g1 x1 + b1), x1 = (e - mu) rs, of the lane's rows gq and gq + 8 of the
+// tile S into D (same stride; zeros in the columns past n, up to nk)
+__device__ __forceinline__ void tile_eln(__nv_bfloat16* D,
+                                         const __nv_bfloat16* S, int ld,
+                                         int n, int nk, const float* g1,
+                                         const float* b1, const float (&mu)[2],
+                                         const float (&rs)[2]) {
+  const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
+  for (int c = 2 * tq; c < nk; c += 8)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float2 x = ld_bf2(S + (gq + 8 * r) * ld + c);
+      const float y0 = c < n ? g1[c] * ((x.x - mu[r]) * rs[r]) + b1[c] : 0.f;
+      const float y1 =
+          c + 1 < n ? g1[c + 1] * ((x.y - mu[r]) * rs[r]) + b1[c + 1] : 0.f;
+      st_bf2(D + (gq + 8 * r) * ld + c, y0, y1);
+    }
+}
+
+// GENERAL picks the general body (see the top of the file). NTE: n8 tiles
+// of the edge width a lane holds at once (all of ew <= 64 in the register
+// body, a 64-column chunk in the general one); NPT: n8 tiles of the
+// [gates | bias] projections (all of nproj <= 16, or a 32-column chunk)
+template <bool GENERAL>
 __global__ void __launch_bounds__(ATT_MMA_WARPS * 32, 1)
     bwd_attn_mma_kernel(Params p) {
+  constexpr int NTE = 8, NPT = GENERAL ? 4 : 2;
   using bf = __nv_bfloat16;
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
@@ -593,12 +673,15 @@ __global__ void __launch_bounds__(ATT_MMA_WARPS * 32, 1)
   float* wf = sm + L.nfb + warp * L.nfw;
   float *s0 = wf + L.s0, *s1 = wf + L.s1, *pp = wf + L.pp;
   float *mu_s = wf + L.mu, *rs_s = wf + L.rs, *wrow = wf + L.wrow;
+  // general body: the warp's [dW (ew, nproj) | dbg, dbb] sums
+  float* wdw = nw > 1 ? wf + L.wdw : acc;
+  float* wdb = wdw + ew * nproj;
   bf* bs = reinterpret_cast<bf*>(sm + L.nfb + nw * L.nfw);
   bf *Ws = bs + L.w, *ks = bs + L.k, *vs = bs + L.v;
   bf* wb = bs + L.nbb + warp * L.nbw;
   bf *erow = wb + L.erow, *tb = wb + L.tb, *dcol = wb + L.dcol;
   bf *hh_s = wb + L.hh, *dhh_s = wb + L.dhh, *ds_s = wb + L.ds;
-  bf *ad_s = wb + L.ad, *qb = wb + L.qb, *gb = wb + L.gb;
+  bf *ad_s = wb + L.ad, *qb = wb + L.qb, *gb = wb + L.gb, *et = wb + L.et;
 
   const bf* E = (const bf*)p.e;
   const bf* QKV = (const bf*)p.qkv;
@@ -653,7 +736,7 @@ __global__ void __launch_bounds__(ATT_MMA_WARPS * 32, 1)
       cp_async16(ks + j * skv + f, r + dh + f, true);
       cp_async16(vs + j * skv + f, r + 2 * dh + f, true);
     }
-  } else {
+  } else if ((dh & 1) == 0) {
     const int hdh = dh >> 1;
     for (int t = tid; t < l * hdh; t += blockDim.x) {
       const int j = t / hdh, f = 2 * (t - j * hdh);
@@ -662,6 +745,13 @@ __global__ void __launch_bounds__(ATT_MMA_WARPS * 32, 1)
           *reinterpret_cast<const uint32_t*>(r + dh + f);
       *reinterpret_cast<uint32_t*>(vs + j * skv + f) =
           *reinterpret_cast<const uint32_t*>(r + 2 * dh + f);
+    }
+  } else {
+    for (int t = tid; t < l * dh; t += blockDim.x) {
+      const int j = t / dh, f = t - j * dh;
+      const bf* r = QKV + ((size_t)b * l + j) * 3 * dh;
+      ks[j * skv + f] = r[dh + f];
+      vs[j * skv + f] = r[2 * dh + f];
     }
   }
   cp_async_commit();
@@ -680,17 +770,58 @@ __global__ void __launch_bounds__(ATT_MMA_WARPS * 32, 1)
     cp_async_commit();
   };
 
+  // [G | P] + [bg | bb] of the columns n0 + (n8 tiles of gp) at key tile t
+  // into s1 (gates) and pp (edge bias)
+  auto proj_out = [&](const float (&gp)[NPT][4], int n0, int t) {
+#pragma unroll
+    for (int jn = 0; jn < NPT; ++jn)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int n = n0 + 8 * jn + 2 * tq + (q & 1);
+        const int j = 16 * t + gq + ((q >> 1) << 3);
+        if (j < l && n < nproj) {
+          const float z = gp[jn][q] + bgb[n];
+          if (p.gated && n < h) s1[j * h + n] = z;
+          else pp[j * h + n - (nproj - h)] = z;
+        }
+      }
+  };
+  // general body: de_ln = rnd([dgate | dP]) . [Wg | Wb]^T of key tile j0,
+  // edge columns c0 .. c0 + 63
+  auto de_ln_chunk = [&](float (&dl)[NTE][4], int j0, int c0) {
+#pragma unroll
+    for (int j = 0; j < NTE; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) dl[j][q] = 0.f;
+    for (int kp = 0; kp < NPK / 16; ++kp) {
+      uint32_t a[4];
+      lda(a, dcol, sd, j0, 16 * kp);
+#pragma unroll
+      for (int jb = 0; jb < NTE / 2; ++jb) {
+        if (c0 + 16 * jb < EK) {
+          uint32_t bb[4];
+          ldb_nk(bb, Ws, sd, 16 * kp, c0 + 16 * jb);
+          mma16816(dl[2 * jb], a, bb[0], bb[1]);
+          mma16816(dl[2 * jb + 1], a, bb[2], bb[3]);
+        }
+      }
+    }
+  };
+
   const int rbeg = rank * L.RB, rend = min(l, rbeg + L.RB);
-  const int KG = 32 / h, hd = lane & (h - 1), kg = lane / h;
+  // lane (kg, hd0): key group kg of KG, first head hd0 (heads hd0, hd0 + 32,
+  // ... when a lane takes whole heads, HL = 32)
+  const int HL = (32 % h == 0) ? h : 32, KG = 32 / HL;
+  const int kg = lane / HL, hd0 = lane - kg * HL;
   const int ndd = dh / h, ntile = LK / 16;
-  float dwacc[NTE / 2][NPT][4];              // this warp's dW, over its rows
+  float dwacc[NTE / 2][NPT][4];              // register body: the warp's dW
 #pragma unroll
   for (int a = 0; a < NTE / 2; ++a)
 #pragma unroll
     for (int n = 0; n < NPT; ++n)
 #pragma unroll
       for (int q = 0; q < 4; ++q) dwacc[a][n][q] = 0.f;
-  float sdg = 0.f, sdp = 0.f;                // this lane's dbg, dbb parts
+  float sdg = 0.f, sdp = 0.f;                // register body: dbg, dbb parts
   if (rbeg + warp < rend) {
     issue_row(rbeg + warp);
   } else {                                   // the same count of groups
@@ -708,70 +839,94 @@ __global__ void __launch_bounds__(ATT_MMA_WARPS * 32, 1)
       __syncwarp();
 
       // ---- LN1 and [G | P] = rnd(e_ln) . [Wg | Wb] + [bg | bb], 16 keys a
-      // tile; e_ln goes from the C-fragment layout of e straight into the
-      // A fragments
+      // tile
       for (int t = 0; t < ntile; ++t) {
-        float x[NTE][4];
-#pragma unroll
-        for (int j = 0; j < NTE; ++j) {
-          if (j < EK / 8) {
-            const int c = 8 * j + 2 * tq;
-            const float2 e0 = ld_bf2(erow + (16 * t + gq) * se + c);
-            const float2 e1 = ld_bf2(erow + (16 * t + gq + 8) * se + c);
-            x[j][0] = e0.x; x[j][1] = e0.y; x[j][2] = e1.x; x[j][3] = e1.y;
-          } else {
-            x[j][0] = x[j][1] = x[j][2] = x[j][3] = 0.f;
+        if constexpr (GENERAL) {
+          // rnd(e_ln) into the tile buffer, the products in 32-column chunks
+          float mu[2], rs[2];
+          tile_ln_stats(erow + 16 * t * se, se, ew, mu, rs);
+          if (tq == 0) {
+            mu_s[16 * t + gq] = mu[0]; rs_s[16 * t + gq] = rs[0];
+            mu_s[16 * t + gq + 8] = mu[1]; rs_s[16 * t + gq + 8] = rs[1];
           }
-        }
-        float mu[2], rs[2];
-        ln_stats(x, ew, mu, rs);
-        if (tq == 0) {
-          mu_s[16 * t + gq] = mu[0]; rs_s[16 * t + gq] = rs[0];
-          mu_s[16 * t + gq + 8] = mu[1]; rs_s[16 * t + gq + 8] = rs[1];
-        }
-        float gp[NPT][4];
+          tile_eln(et, erow + 16 * t * se, se, ew, EK, g1, b1, mu, rs);
+          __syncwarp();
+          for (int n0 = 0; n0 < NPK; n0 += 8 * NPT) {
+            float gp[NPT][4];
 #pragma unroll
-        for (int n = 0; n < NPT; ++n)
+            for (int n = 0; n < NPT; ++n)
 #pragma unroll
-          for (int q = 0; q < 4; ++q) gp[n][q] = 0.f;
+              for (int q = 0; q < 4; ++q) gp[n][q] = 0.f;
+            for (int ke = 0; ke < EK / 16; ++ke) {
+              uint32_t a[4];
+              lda(a, et, se, 0, 16 * ke);
 #pragma unroll
-        for (int ke = 0; ke < NTE / 2; ++ke) {
-          if (ke < EK / 16) {
-            float v[2][4];
-#pragma unroll
-            for (int jj = 0; jj < 2; ++jj)
-#pragma unroll
-              for (int q = 0; q < 4; ++q) {
-                const int c = 16 * ke + 8 * jj + 2 * tq + (q & 1);
-                v[jj][q] = c < ew ? g1[c] * ((x[2 * ke + jj][q] - mu[q >> 1]) *
-                                             rs[q >> 1]) + b1[c]
-                                  : 0.f;
+              for (int nb = 0; nb < NPT / 2; ++nb) {
+                if (n0 + 16 * nb < NPK) {
+                  uint32_t bb[4];
+                  ldb_kn(bb, Ws, sd, 16 * ke, n0 + 16 * nb);
+                  mma16816(gp[2 * nb], a, bb[0], bb[1]);
+                  mma16816(gp[2 * nb + 1], a, bb[2], bb[3]);
+                }
               }
-            const uint32_t a[4] = {pack_bf16(v[0][0], v[0][1]),
-                                   pack_bf16(v[0][2], v[0][3]),
-                                   pack_bf16(v[1][0], v[1][1]),
-                                   pack_bf16(v[1][2], v[1][3])};
+            }
+            proj_out(gp, n0, t);
+          }
+          __syncwarp();                      // et is the next tile's
+        } else {
+          // e_ln goes from the C-fragment layout of e straight into the A
+          // fragments
+          float x[NTE][4];
 #pragma unroll
-            for (int nb = 0; nb < NPT / 2; ++nb) {
-              uint32_t bb[4];
-              ldb_kn(bb, Ws, sd, 16 * ke, 16 * nb);
-              mma16816(gp[2 * nb], a, bb[0], bb[1]);
-              mma16816(gp[2 * nb + 1], a, bb[2], bb[3]);
+          for (int j = 0; j < NTE; ++j) {
+            if (j < EK / 8) {
+              const int c = 8 * j + 2 * tq;
+              const float2 e0 = ld_bf2(erow + (16 * t + gq) * se + c);
+              const float2 e1 = ld_bf2(erow + (16 * t + gq + 8) * se + c);
+              x[j][0] = e0.x; x[j][1] = e0.y; x[j][2] = e1.x; x[j][3] = e1.y;
+            } else {
+              x[j][0] = x[j][1] = x[j][2] = x[j][3] = 0.f;
             }
           }
+          float mu[2], rs[2];
+          ln_stats(x, ew, mu, rs);
+          if (tq == 0) {
+            mu_s[16 * t + gq] = mu[0]; rs_s[16 * t + gq] = rs[0];
+            mu_s[16 * t + gq + 8] = mu[1]; rs_s[16 * t + gq + 8] = rs[1];
+          }
+          float gp[NPT][4];
+#pragma unroll
+          for (int n = 0; n < NPT; ++n)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) gp[n][q] = 0.f;
+#pragma unroll
+          for (int ke = 0; ke < NTE / 2; ++ke) {
+            if (ke < EK / 16) {
+              float v[2][4];
+#pragma unroll
+              for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+                for (int q = 0; q < 4; ++q) {
+                  const int c = 16 * ke + 8 * jj + 2 * tq + (q & 1);
+                  v[jj][q] = c < ew ? g1[c] * ((x[2 * ke + jj][q] - mu[q >> 1]) *
+                                               rs[q >> 1]) + b1[c]
+                                    : 0.f;
+                }
+              const uint32_t a[4] = {pack_bf16(v[0][0], v[0][1]),
+                                     pack_bf16(v[0][2], v[0][3]),
+                                     pack_bf16(v[1][0], v[1][1]),
+                                     pack_bf16(v[1][2], v[1][3])};
+#pragma unroll
+              for (int nb = 0; nb < NPT / 2; ++nb) {
+                uint32_t bb[4];
+                ldb_kn(bb, Ws, sd, 16 * ke, 16 * nb);
+                mma16816(gp[2 * nb], a, bb[0], bb[1]);
+                mma16816(gp[2 * nb + 1], a, bb[2], bb[3]);
+              }
+            }
+          }
+          proj_out(gp, 0, t);
         }
-#pragma unroll
-        for (int jn = 0; jn < NPT; ++jn)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int n = 8 * jn + 2 * tq + (q & 1);
-            const int j = 16 * t + gq + ((q >> 1) << 3);
-            if (j < l && n < nproj) {
-              const float z = gp[jn][q] + bgb[n];
-              if (p.gated && n < h) s1[j * h + n] = z;
-              else pp[j * h + n - (nproj - h)] = z;
-            }
-          }
       }
       __syncwarp();
 
@@ -779,206 +934,338 @@ __global__ void __launch_bounds__(ATT_MMA_WARPS * 32, 1)
       // takes keys kg, kg + KG, ... of head hd, so a head's sums over its
       // keys stay inside the warp
       const float* arow = p.amask ? p.amask + row * l : nullptr;
-      float mx = -INFINITY;
+      for (int hd = hd0; hd < h; hd += 32) {
+        float mx = -INFINITY;
 #pragma unroll 4
-      for (int j = kg; j < l; j += KG) {
-        const int t = j * h + hd;
-        float add = madd[j];
-        if (arow) add += (arow[j] - 1.f) * 1e9f;
-        const float rm = p.dr.mask_add(b, i, j, hd);
-        const float lg = to_f(hh_s[t]) + add + rm;
-        s0[t] = lg;
-        if (p.gated) s1[t] = sigmoid(s1[t] + add + rm);
-        mx = fmaxf(mx, lg);
-      }
-      mx = head_max(mx, h);
-      float sum = 0.f;
+        for (int j = kg; j < l; j += KG) {
+          const int t = j * h + hd;
+          float add = madd[j];
+          if (arow) add += (arow[j] - 1.f) * 1e9f;
+          const float rm = p.dr.mask_add(b, i, j, hd);
+          const float lg = to_f(hh_s[t]) + add + rm;
+          s0[t] = lg;
+          if (p.gated) s1[t] = sigmoid(s1[t] + add + rm);
+          mx = fmaxf(mx, lg);
+        }
+        mx = head_max(mx, HL);
+        float sum = 0.f;
 #pragma unroll 4
-      for (int j = kg; j < l; j += KG) {
-        const int t = j * h + hd;
-        const float ex = expf(s0[t] - mx);
-        s0[t] = ex;
-        sum += ex;
-      }
-      const float den = fmaxf(head_sum(sum, h), 1e-30f);
-      // dropout and gate backward; a_sm and da_sm replace exp and sg
-      float ts = 0.f;
+        for (int j = kg; j < l; j += KG) {
+          const int t = j * h + hd;
+          const float ex = expf(s0[t] - mx);
+          s0[t] = ex;
+          sum += ex;
+        }
+        const float den = fmaxf(head_sum(sum, HL), 1e-30f);
+        // dropout and gate backward; a_sm and da_sm replace exp and sg
+        float ts = 0.f, dgs = 0.f, dps = 0.f;
 #pragma unroll 2
-      for (int j = kg; j < l; j += KG) {
-        const int t = j * h + hd;
-        float da = 0.f;
+        for (int j = kg; j < l; j += KG) {
+          const int t = j * h + hd;
+          float da = 0.f;
 #pragma unroll 8
-        for (int dd = 0; dd < ndd; ++dd) {
-          const int f = dd * h + hd;
-          da = fmaf(to_f(gb[f]), to_f(vs[j * skv + f]), da);
+          for (int dd = 0; dd < ndd; ++dd) {
+            const int f = dd * h + hd;
+            da = fmaf(to_f(gb[f]), to_f(vs[j * skv + f]), da);
+          }
+          const float a_sm = s0[t] / den, s = s1[t];
+          float a = p.gated ? a_sm * s : a_sm;
+          if (dropping) {
+            const bool kp = p.dr.kept(b, i, j, hd);
+            da = kp ? da / p.dr.keep : 0.f;
+            a = kp ? a / p.dr.keep : 0.f;
+          }
+          ad_s[t] = __float2bfloat16_rn(a);
+          float dasm = da;
+          if (p.gated) {
+            dasm = da * s;
+            const float dgt = da * a_sm * s * (1.f - s);
+            dcol[j * sd + hd] = __float2bfloat16_rn(dgt);
+            dgs += dgt;
+          }
+          s0[t] = a_sm;
+          s1[t] = dasm;
+          ts += dasm * a_sm;
         }
-        const float a_sm = s0[t] / den, s = s1[t];
-        float a = p.gated ? a_sm * s : a_sm;
-        if (dropping) {
-          const bool kp = p.dr.kept(b, i, j, hd);
-          da = kp ? da / p.dr.keep : 0.f;
-          a = kp ? a / p.dr.keep : 0.f;
-        }
-        ad_s[t] = __float2bfloat16_rn(a);
-        float dasm = da;
-        if (p.gated) {
-          dasm = da * s;
-          const float dgt = da * a_sm * s * (1.f - s);
-          dcol[j * sd + hd] = __float2bfloat16_rn(dgt);
-          sdg += dgt;
-        }
-        s0[t] = a_sm;
-        s1[t] = dasm;
-        ts += dasm * a_sm;
-      }
-      ts = head_sum(ts, h);
-      // softmax and clip backward; edge-bias activation backward
+        ts = head_sum(ts, HL);
+        // softmax and clip backward; edge-bias activation backward
 #pragma unroll 4
-      for (int j = kg; j < l; j += KG) {
-        const int t = j * h + hd;
-        const float dH = s0[t] * (s1[t] - ts) + to_f(dhh_s[t]);
-        float d = dH * p.scale;
-        const float P = pp[t];
-        const float Ev = act_fn(p.edge_act, p.edge_alpha, P);
-        if (p.has_clip) {
-          const float sc = to_f(hh_s[t]) - Ev;
-          if (!(sc > p.lo && sc < p.hi)) d = 0.f;
+        for (int j = kg; j < l; j += KG) {
+          const int t = j * h + hd;
+          const float dH = s0[t] * (s1[t] - ts) + to_f(dhh_s[t]);
+          float d = dH * p.scale;
+          const float P = pp[t];
+          const float Ev = act_fn(p.edge_act, p.edge_alpha, P);
+          if (p.has_clip) {
+            const float sc = to_f(hh_s[t]) - Ev;
+            if (!(sc > p.lo && sc < p.hi)) d = 0.f;
+          }
+          ds_s[t] = __float2bfloat16_rn(d);
+          const float dp = dH * act_grad(p.edge_act, p.edge_alpha, P, Ev);
+          dcol[j * sd + (nproj - h) + hd] = __float2bfloat16_rn(dp);
+          dps += dp;
         }
-        ds_s[t] = __float2bfloat16_rn(d);
-        const float dp = dH * act_grad(p.edge_act, p.edge_alpha, P, Ev);
-        dcol[j * sd + (nproj - h) + hd] = __float2bfloat16_rn(dp);
-        sdp += dp;
+        if constexpr (GENERAL) {             // the head's owning lane adds
+          dgs = head_sum(dgs, HL);
+          dps = head_sum(dps, HL);
+          if (kg == 0) {
+            if (p.gated) wdb[hd] += dgs;
+            wdb[(nproj - h) + hd] += dps;
+          }
+        } else {
+          sdg += dgs;
+          sdp += dps;
+        }
       }
       __syncwarp();
 
       // ---- dq_i = sum_j rnd(ds) k_j, two features a lane
-      for (int f0 = 2 * lane; f0 < dh; f0 += 64) {
-        const int h0 = f0 & (h - 1), h1 = (f0 + 1) & (h - 1);
-        float a0 = 0.f, a1 = 0.f;
+      if ((dh & 1) == 0) {
+        for (int f0 = 2 * lane; f0 < dh; f0 += 64) {
+          const int h0 = f0 % h, h1 = (f0 + 1) % h;
+          float a0 = 0.f, a1 = 0.f;
 #pragma unroll 4
-        for (int j = 0; j < l; ++j) {
-          const float2 kv = ld_bf2(ks + j * skv + f0);
-          a0 = fmaf(to_f(ds_s[j * h + h0]), kv.x, a0);
-          a1 = fmaf(to_f(ds_s[j * h + h1]), kv.y, a1);
+          for (int j = 0; j < l; ++j) {
+            const float2 kv = ld_bf2(ks + j * skv + f0);
+            a0 = fmaf(to_f(ds_s[j * h + h0]), kv.x, a0);
+            a1 = fmaf(to_f(ds_s[j * h + h1]), kv.y, a1);
+          }
+          st_bf2(DQ + row * dh + f0, a0, a1);
         }
-        st_bf2(DQ + row * dh + f0, a0, a1);
+      } else {
+        for (int f = lane; f < dh; f += 32) {
+          const int hf = f % h;
+          float a0 = 0.f;
+          for (int j = 0; j < l; ++j)
+            a0 = fmaf(to_f(ds_s[j * h + hf]), to_f(ks[j * skv + f]), a0);
+          DQ[row * dh + f] = __float2bfloat16_rn(a0);
+        }
       }
 
       // ---- per 16-key tile: de_ln = rnd([dgate | dP]) . [Wg | Wb]^T,
       // dW += rnd(e_ln)^T rnd([dgate | dP]), LN1 backward plus de_mid
       for (int t = 0; t < ntile; ++t) {
         const int j0 = 16 * t;
-        bf* dmb = tb + (t & 1) * 16 * se;        // de_mid's tile t (in flight)
-        bf* eln = erow + j0 * se;                // rnd(e_ln) over e's tile
-        // de_mid's next tile into the other buffer (its tile t - 1 is read)
-        if (t + 1 < ntile)
-          stage_rows(tb + ((t + 1) & 1) * 16 * se, se,
-                     DM + (row * l + j0 + 16) * ew, 16, min(16, l - j0 - 16),
-                     ew);
+        // de_mid's tile t: register body, in flight since tile t - 1 in
+        // buffer t & 1, with tile t + 1 staged now into the other (its
+        // tile t - 1 is read); general body, staged now into its one buffer
+        bf* dmb = GENERAL ? tb : tb + (t & 1) * 16 * se;
+        const int jn = GENERAL ? j0 : j0 + 16;
+        if (GENERAL ? t > 0 : t + 1 < ntile)
+          stage_rows(GENERAL ? tb : tb + ((t + 1) & 1) * 16 * se, se,
+                     DM + (row * l + jn) * ew, 16, min(16, l - jn), ew);
         cp_async_commit();
         const float mu0 = mu_s[j0 + gq], rs0 = rs_s[j0 + gq];
         const float mu1 = mu_s[j0 + gq + 8], rs1 = rs_s[j0 + gq + 8];
-        float x1[NTE][4];
-#pragma unroll
-        for (int j = 0; j < NTE; ++j) {
-          if (j < EK / 8) {
-            const int c = 8 * j + 2 * tq;
-            const float2 e0 = ld_bf2(erow + (j0 + gq) * se + c);
-            const float2 e1 = ld_bf2(erow + (j0 + gq + 8) * se + c);
-            const float ev[4] = {e0.x, e0.y, e1.x, e1.y};
-            float y[4];
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              const bool ok = c + (q & 1) < ew;
-              x1[j][q] = ok ? (ev[q] - (q < 2 ? mu0 : mu1)) * (q < 2 ? rs0 : rs1)
-                            : 0.f;
-              y[q] = ok ? g1[c + (q & 1)] * x1[j][q] + b1[c + (q & 1)] : 0.f;
-            }
-            st_bf2(eln + gq * se + c, y[0], y[1]);
-            st_bf2(eln + (gq + 8) * se + c, y[2], y[3]);
-          } else {
-            x1[j][0] = x1[j][1] = x1[j][2] = x1[j][3] = 0.f;
-          }
-        }
-        __syncwarp();
-        float dl[NTE][4];
-#pragma unroll
-        for (int j = 0; j < NTE; ++j)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) dl[j][q] = 0.f;
-#pragma unroll
-        for (int kp = 0; kp < NPT / 2; ++kp) {
-          uint32_t a[4];
-          lda(a, dcol, sd, j0, 16 * kp);
-#pragma unroll
-          for (int jb = 0; jb < NTE / 2; ++jb) {
-            if (jb < EK / 16) {
-              uint32_t bb[4];
-              ldb_nk(bb, Ws, sd, 16 * kp, 16 * jb);
-              mma16816(dl[2 * jb], a, bb[0], bb[1]);
-              mma16816(dl[2 * jb + 1], a, bb[2], bb[3]);
-            }
-          }
-        }
-#pragma unroll
-        for (int mb = 0; mb < NTE / 2; ++mb) {
-          if (mb < EK / 16) {
+        if constexpr (GENERAL) {
+          const float mu[2] = {mu0, mu1}, rs[2] = {rs0, rs1};
+          bf* e_t = erow + j0 * se;
+          tile_eln(et, e_t, se, ew, EK, g1, b1, mu, rs);
+          __syncwarp();
+          // dW into the warp's f32 sums, 16 x 32 a chunk (one owning lane
+          // an element)
+          for (int mb = 0; mb < EK / 16; ++mb) {
             uint32_t a[4];
-            lda_t(a, eln, se, 0, 16 * mb);
+            lda_t(a, et, se, 0, 16 * mb);
+            for (int n0 = 0; n0 < NPK; n0 += 8 * NPT) {
+              float d[NPT][4];
 #pragma unroll
-            for (int nb = 0; nb < NPT / 2; ++nb) {
-              uint32_t bb[4];
-              ldb_kn(bb, dcol, sd, j0, 16 * nb);
-              mma16816(dwacc[mb][2 * nb], a, bb[0], bb[1]);
-              mma16816(dwacc[mb][2 * nb + 1], a, bb[2], bb[3]);
+              for (int n = 0; n < NPT; ++n)
+#pragma unroll
+                for (int q = 0; q < 4; ++q) d[n][q] = 0.f;
+#pragma unroll
+              for (int nb = 0; nb < NPT / 2; ++nb) {
+                if (n0 + 16 * nb < NPK) {
+                  uint32_t bb[4];
+                  ldb_kn(bb, dcol, sd, j0, n0 + 16 * nb);
+                  mma16816(d[2 * nb], a, bb[0], bb[1]);
+                  mma16816(d[2 * nb + 1], a, bb[2], bb[3]);
+                }
+              }
+#pragma unroll
+              for (int jn2 = 0; jn2 < NPT; ++jn2)
+#pragma unroll
+                for (int q = 0; q < 4; ++q) {
+                  const int m = 16 * mb + gq + ((q >> 1) << 3);
+                  const int n = n0 + 8 * jn2 + 2 * tq + (q & 1);
+                  if (m < ew && n < nproj) wdw[m * nproj + n] += d[jn2][q];
+                }
             }
           }
-        }
-        cp_async_wait<1>();                      // de_mid's tile t
-        __syncwarp();
-        // LN1 backward: de = (dx - m1 - x1 m2) rstd + de_mid, dx = de_ln g1;
-        // dg1 += sum de_ln x1, db1 += sum de_ln (keys past l add 0)
-        float a0 = 0.f, c0 = 0.f, a1 = 0.f, c1 = 0.f;
+          // LN1 backward, first pass: the row sums of dx = de_ln g1 and of
+          // dx x1, and the tile's dg1 / db1 column sums
+          float a0 = 0.f, c0 = 0.f, a1 = 0.f, c1 = 0.f;
+          for (int cc = 0; cc < EK; cc += 8 * NTE) {
+            float dl[NTE][4];
+            de_ln_chunk(dl, j0, cc);
 #pragma unroll
-        for (int j = 0; j < NTE; ++j)
+            for (int j = 0; j < NTE; ++j) {
+              const int cb = cc + 8 * j + 2 * tq;
+              if (cc + 8 * j < EK) {
+                const float2 e0 = ld_bf2(e_t + gq * se + cb);
+                const float2 e1 = ld_bf2(e_t + (gq + 8) * se + cb);
+                const float ev[4] = {e0.x, e0.y, e1.x, e1.y};
+                float sg1[2], sb1[2];
 #pragma unroll
-          for (int q = 0; q < 2; ++q) {
-            const int c = 8 * j + 2 * tq + q;
-            if (c < ew) {
-              const float d0 = dl[j][q] * g1[c], d1 = dl[j][2 + q] * g1[c];
-              a0 += d0; c0 += d0 * x1[j][q];
-              a1 += d1; c1 += d1 * x1[j][2 + q];
+                for (int q = 0; q < 2; ++q) {
+                  const int c = cb + q;
+                  const bool ok = c < ew;
+                  const float x0 = ok ? (ev[q] - mu0) * rs0 : 0.f;
+                  const float x1 = ok ? (ev[2 + q] - mu1) * rs1 : 0.f;
+                  const float d0 = dl[j][q], d1 = dl[j][2 + q];
+                  if (ok) {
+                    a0 += d0 * g1[c]; c0 += d0 * g1[c] * x0;
+                    a1 += d1 * g1[c]; c1 += d1 * g1[c] * x1;
+                  }
+                  sg1[q] = d0 * x0 + d1 * x1;
+                  sb1[q] = d0 + d1;
+                }
+                const float cs = tile_colsum(sg1[0], sg1[1], sb1[0], sb1[1]);
+                if (!(lane & 4))
+                  wrow[(lane & 16 ? EK : 0) + cb + (lane & 8 ? 1 : 0)] += cs;
+              }
             }
           }
-        const float m10 = quad_sum(a0) / ew, m20 = quad_sum(c0) / ew;
-        const float m11 = quad_sum(a1) / ew, m21 = quad_sum(c1) / ew;
+          const float m10 = quad_sum(a0) / ew, m20 = quad_sum(c0) / ew;
+          const float m11 = quad_sum(a1) / ew, m21 = quad_sum(c1) / ew;
+          cp_async_wait<0>();                    // de_mid's tile t
+          __syncwarp();
+          // second pass: de_ln again, de over e's own elements
+          for (int cc = 0; cc < EK; cc += 8 * NTE) {
+            float dl[NTE][4];
+            de_ln_chunk(dl, j0, cc);
 #pragma unroll
-        for (int j = 0; j < NTE; ++j) {
-          if (j < EK / 8) {
-            const int cb = 8 * j + 2 * tq;
-            const float2 dm0 = ld_bf2(dmb + gq * se + cb);
-            const float2 dm1 = ld_bf2(dmb + (gq + 8) * se + cb);
-            const float dmv[4] = {dm0.x, dm0.y, dm1.x, dm1.y};
-            float de[4], sg1[2], sb1[2];
+            for (int j = 0; j < NTE; ++j) {
+              const int cb = cc + 8 * j + 2 * tq;
+              if (cc + 8 * j < EK) {
+                const float2 e0 = ld_bf2(e_t + gq * se + cb);
+                const float2 e1 = ld_bf2(e_t + (gq + 8) * se + cb);
+                const float2 dm0 = ld_bf2(dmb + gq * se + cb);
+                const float2 dm1 = ld_bf2(dmb + (gq + 8) * se + cb);
+                const float ev[4] = {e0.x, e0.y, e1.x, e1.y};
+                const float dmv[4] = {dm0.x, dm0.y, dm1.x, dm1.y};
+                float de[4];
+#pragma unroll
+                for (int q = 0; q < 2; ++q) {
+                  const int c = cb + q;
+                  const bool ok = c < ew;
+                  const float x0 = (ev[q] - mu0) * rs0;
+                  const float x1 = (ev[2 + q] - mu1) * rs1;
+                  de[q] = ok ? (dl[j][q] * g1[c] - m10 - x0 * m20) * rs0 + dmv[q]
+                             : 0.f;
+                  de[2 + q] = ok ? (dl[j][2 + q] * g1[c] - m11 - x1 * m21) * rs1 +
+                                       dmv[2 + q]
+                                 : 0.f;
+                }
+                st_bf2(e_t + gq * se + cb, de[0], de[1]);
+                st_bf2(e_t + (gq + 8) * se + cb, de[2], de[3]);
+              }
+            }
+          }
+        } else {
+          bf* eln = erow + j0 * se;              // rnd(e_ln) over e's tile
+          float x1[NTE][4];
+#pragma unroll
+          for (int j = 0; j < NTE; ++j) {
+            if (j < EK / 8) {
+              const int c = 8 * j + 2 * tq;
+              const float2 e0 = ld_bf2(erow + (j0 + gq) * se + c);
+              const float2 e1 = ld_bf2(erow + (j0 + gq + 8) * se + c);
+              const float ev[4] = {e0.x, e0.y, e1.x, e1.y};
+              float y[4];
+#pragma unroll
+              for (int q = 0; q < 4; ++q) {
+                const bool ok = c + (q & 1) < ew;
+                x1[j][q] = ok ? (ev[q] - (q < 2 ? mu0 : mu1)) * (q < 2 ? rs0 : rs1)
+                              : 0.f;
+                y[q] = ok ? g1[c + (q & 1)] * x1[j][q] + b1[c + (q & 1)] : 0.f;
+              }
+              st_bf2(eln + gq * se + c, y[0], y[1]);
+              st_bf2(eln + (gq + 8) * se + c, y[2], y[3]);
+            } else {
+              x1[j][0] = x1[j][1] = x1[j][2] = x1[j][3] = 0.f;
+            }
+          }
+          __syncwarp();
+          float dl[NTE][4];
+#pragma unroll
+          for (int j = 0; j < NTE; ++j)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) dl[j][q] = 0.f;
+#pragma unroll
+          for (int kp = 0; kp < NPT / 2; ++kp) {
+            uint32_t a[4];
+            lda(a, dcol, sd, j0, 16 * kp);
+#pragma unroll
+            for (int jb = 0; jb < NTE / 2; ++jb) {
+              if (jb < EK / 16) {
+                uint32_t bb[4];
+                ldb_nk(bb, Ws, sd, 16 * kp, 16 * jb);
+                mma16816(dl[2 * jb], a, bb[0], bb[1]);
+                mma16816(dl[2 * jb + 1], a, bb[2], bb[3]);
+              }
+            }
+          }
+#pragma unroll
+          for (int mb = 0; mb < NTE / 2; ++mb) {
+            if (mb < EK / 16) {
+              uint32_t a[4];
+              lda_t(a, eln, se, 0, 16 * mb);
+#pragma unroll
+              for (int nb = 0; nb < NPT / 2; ++nb) {
+                uint32_t bb[4];
+                ldb_kn(bb, dcol, sd, j0, 16 * nb);
+                mma16816(dwacc[mb][2 * nb], a, bb[0], bb[1]);
+                mma16816(dwacc[mb][2 * nb + 1], a, bb[2], bb[3]);
+              }
+            }
+          }
+          cp_async_wait<1>();                    // de_mid's tile t
+          __syncwarp();
+          // LN1 backward: de = (dx - m1 - x1 m2) rstd + de_mid, dx = de_ln
+          // g1; dg1 += sum de_ln x1, db1 += sum de_ln (keys past l add 0)
+          float a0 = 0.f, c0 = 0.f, a1 = 0.f, c1 = 0.f;
+#pragma unroll
+          for (int j = 0; j < NTE; ++j)
 #pragma unroll
             for (int q = 0; q < 2; ++q) {
-              const int c = cb + q;
-              const bool ok = c < ew;
-              const float d0 = dl[j][q], d1 = dl[j][2 + q];
-              de[q] = ok ? (d0 * g1[c] - m10 - x1[j][q] * m20) * rs0 + dmv[q]
-                         : 0.f;
-              de[2 + q] = ok ? (d1 * g1[c] - m11 - x1[j][2 + q] * m21) * rs1 +
-                                   dmv[2 + q]
-                             : 0.f;
-              sg1[q] = d0 * x1[j][q] + d1 * x1[j][2 + q];
-              sb1[q] = d0 + d1;
+              const int c = 8 * j + 2 * tq + q;
+              if (c < ew) {
+                const float d0 = dl[j][q] * g1[c], d1 = dl[j][2 + q] * g1[c];
+                a0 += d0; c0 += d0 * x1[j][q];
+                a1 += d1; c1 += d1 * x1[j][2 + q];
+              }
             }
-            st_bf2(erow + (j0 + gq) * se + cb, de[0], de[1]);
-            st_bf2(erow + (j0 + gq + 8) * se + cb, de[2], de[3]);
-            // the tile's dg1 (X), db1 (Y) column sums; one owning lane each
-            const float cs = tile_colsum(sg1[0], sg1[1], sb1[0], sb1[1]);
-            if (!(lane & 4))
-              wrow[(lane & 16 ? EK : 0) + cb + (lane & 8 ? 1 : 0)] += cs;
+          const float m10 = quad_sum(a0) / ew, m20 = quad_sum(c0) / ew;
+          const float m11 = quad_sum(a1) / ew, m21 = quad_sum(c1) / ew;
+#pragma unroll
+          for (int j = 0; j < NTE; ++j) {
+            if (j < EK / 8) {
+              const int cb = 8 * j + 2 * tq;
+              const float2 dm0 = ld_bf2(dmb + gq * se + cb);
+              const float2 dm1 = ld_bf2(dmb + (gq + 8) * se + cb);
+              const float dmv[4] = {dm0.x, dm0.y, dm1.x, dm1.y};
+              float de[4], sg1[2], sb1[2];
+#pragma unroll
+              for (int q = 0; q < 2; ++q) {
+                const int c = cb + q;
+                const bool ok = c < ew;
+                const float d0 = dl[j][q], d1 = dl[j][2 + q];
+                de[q] = ok ? (d0 * g1[c] - m10 - x1[j][q] * m20) * rs0 + dmv[q]
+                           : 0.f;
+                de[2 + q] = ok ? (d1 * g1[c] - m11 - x1[j][2 + q] * m21) * rs1 +
+                                     dmv[2 + q]
+                               : 0.f;
+                sg1[q] = d0 * x1[j][q] + d1 * x1[j][2 + q];
+                sb1[q] = d0 + d1;
+              }
+              st_bf2(erow + (j0 + gq) * se + cb, de[0], de[1]);
+              st_bf2(erow + (j0 + gq + 8) * se + cb, de[2], de[3]);
+              // the tile's dg1 (X), db1 (Y) column sums; one owning lane each
+              const float cs = tile_colsum(sg1[0], sg1[1], sb1[0], sb1[1]);
+              if (!(lane & 4))
+                wrow[(lane & 16 ? EK : 0) + cb + (lane & 8 ? 1 : 0)] += cs;
+            }
           }
         }
         __syncwarp();
@@ -992,7 +1279,7 @@ __global__ void __launch_bounds__(ATT_MMA_WARPS * 32, 1)
     __syncthreads();
     const int nrows = min(nw, rend - (rbeg + pass * nw));
     for (int t = tid; t < l * dh; t += blockDim.x) {
-      const int j = t / dh, f = t - j * dh, hf = f & (h - 1);
+      const int j = t / dh, f = t - j * dh, hf = f % h;
       float dk = dk_s[t], dv = dv_s[t];
 #pragma unroll 4
       for (int w = 0; w < nrows; ++w) {
@@ -1010,31 +1297,52 @@ __global__ void __launch_bounds__(ATT_MMA_WARPS * 32, 1)
   cp_async_wait<0>();
 
   // ---- the warps' weight-gradient parts into the block's sums, in warp
-  // order (each element has one owning lane)
-  sdg = head_sum(sdg, h);
-  sdp = head_sum(sdp, h);
-  for (int w = 0; w < nw; ++w) {
-    if (warp == w) {
-#pragma unroll
-      for (int mo = 0; mo < NTE / 2; ++mo)
-#pragma unroll
-        for (int jn = 0; jn < NPT; ++jn)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int m = 16 * mo + gq + ((q >> 1) << 3);
-            const int n = 8 * jn + 2 * tq + (q & 1);
-            if (m < ew && n < nproj) acc[m * nproj + n] += dwacc[mo][jn][q];
-          }
-      if (kg == 0) {
-        if (p.gated) acc[ew * nproj + hd] += sdg;
-        acc[ew * nproj + (nproj - h) + hd] += sdp;
+  // order (each element has one owning lane or thread)
+  if constexpr (GENERAL) {
+    if (nw > 1) {                            // one warp: already there
+      const int nd = ew * nproj + nproj;
+      for (int t = tid; t < nd + 2 * ew; t += blockDim.x) {
+        float s = acc[t];
+        for (int w = 0; w < nw; ++w) {
+          const float* ww = sm + L.nfb + w * L.nfw;
+          s += t < nd ? ww[L.wdw + t]
+                      : ww[L.wrow + (t - nd < ew ? t - nd : EK + t - nd - ew)];
+        }
+        acc[t] = s;
       }
-      for (int c = lane; c < ew; c += 32) {
+    } else {
+      for (int c = tid; c < ew; c += blockDim.x) {
         acc[ew * nproj + nproj + c] += wrow[c];
         acc[ew * nproj + nproj + ew + c] += wrow[EK + c];
       }
     }
     __syncthreads();
+  } else {
+    sdg = head_sum(sdg, HL);
+    sdp = head_sum(sdp, HL);
+    for (int w = 0; w < nw; ++w) {
+      if (warp == w) {
+#pragma unroll
+        for (int mo = 0; mo < NTE / 2; ++mo)
+#pragma unroll
+          for (int jn = 0; jn < NPT; ++jn)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const int m = 16 * mo + gq + ((q >> 1) << 3);
+              const int n = 8 * jn + 2 * tq + (q & 1);
+              if (m < ew && n < nproj) acc[m * nproj + n] += dwacc[mo][jn][q];
+            }
+        if (kg == 0) {
+          if (p.gated) acc[ew * nproj + hd0] += sdg;
+          acc[ew * nproj + (nproj - h) + hd0] += sdp;
+        }
+        for (int c = lane; c < ew; c += 32) {
+          acc[ew * nproj + nproj + c] += wrow[c];
+          acc[ew * nproj + nproj + ew + c] += wrow[EK + c];
+        }
+      }
+      __syncthreads();
+    }
   }
 
   // ---- the cluster's sum: rank r adds its share of [dk | dv | sums] over
@@ -1062,17 +1370,12 @@ __global__ void __launch_bounds__(ATT_MMA_WARPS * 32, 1)
   cluster.sync();      // no block leaves while another reads its memory
 }
 
-template <int NTE, int NPT>
+template <bool GENERAL>
 int launch_mma(const Params& p, float* dw, cudaStream_t stream) {
-  int dev = 0, optin = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  const int W = attn_mma_warps(p.l, p.ew, p.h, p.dh, p.gated, (size_t)optin);
+  const int W = attn_mma_warps(p.l, p.ew, p.h, p.dh, p.gated);
   if (W == 0) return (int)cudaErrorInvalidConfiguration;
   const AttnMmaLayout L(p.l, p.ew, p.h, p.dh, p.gated, W);
-  auto kern = bwd_attn_mma_kernel<NTE, NPT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.bytes);
+  cudaError_t err = allow_smem<bwd_attn_mma_kernel<GENERAL>>(L.bytes);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(p.B * L.C));
@@ -1086,7 +1389,7 @@ int launch_mma(const Params& p, float* dw, cudaStream_t stream) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kern, p);
+  err = cudaLaunchKernelEx(&cfg, bwd_attn_mma_kernel<GENERAL>, p);
   if (err != cudaSuccess) return (int)err;
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -1097,24 +1400,20 @@ int launch_mma(const Params& p, float* dw, cudaStream_t stream) {
 int launch_simt(const Params& p, float* dw, cudaStream_t stream) {
   const int nproj = p.gated ? 2 * p.h : p.h;
   const Layout L(p.l, p.ew, p.h, p.dh, nproj);
-  const size_t smem = L.bytes<float>();
-  auto kern = bwd_attn_kernel<float>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const size_t smem = L.bytes();
+  if (smem > (size_t)SMEM_MAX) return (int)cudaErrorInvalidConfiguration;
+  cudaError_t err = allow_smem<bwd_attn_kernel>(smem);
   if (err != cudaSuccess) return (int)err;
-  kern<<<(unsigned)p.B, NT, smem, stream>>>(p);
+  bwd_attn_kernel<<<(unsigned)p.B, NT, smem, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return launch_sum_partials(p.partials, p.B, L.nw, dw, stream);
 }
 
 int launch_bf16(const Params& p, float* dw, cudaStream_t stream) {
-  if (!attn_mma_supported(p.ew, p.h, p.dh, p.gated))
-    return (int)cudaErrorInvalidValue;
-  const int nproj = p.gated ? 2 * p.h : p.h;
-  if (nproj > 16) return launch_mma<8, 4>(p, dw, stream);
-  return p.ew <= 64 ? launch_mma<8, 2>(p, dw, stream)
-                    : launch_mma<16, 2>(p, dw, stream);
+  return attn_mma_general(p.ew, p.h, p.gated)
+             ? launch_mma<true>(p, dw, stream)
+             : launch_mma<false>(p, dw, stream);
 }
 
 }  // namespace
@@ -1125,9 +1424,24 @@ int launch_bf16(const Params& p, float* dw, cudaStream_t stream) {
 extern "C" long long fused_layer_bwd_attn_smem(int dtype, int l, int ew, int h,
                                                int dh, int gated) {
   if (dtype == 0) return (long long)Layout(l, ew, h, dh, gated ? 2 * h : h)
-                             .bytes<float>();
-  const int W = attn_mma_warps(l, ew, h, dh, gated, 227 * 1024);
+                             .bytes();
+  const int W = attn_mma_warps(l, ew, h, dh, gated);
   return (long long)AttnMmaLayout(l, ew, h, dh, gated, W ? W : 1).bytes;
+}
+
+// How the bf16 body spreads one graph: out = [warps a block, blocks a graph
+// (the cluster), rows a block, rows a warp, 1 for the general body, shared
+// memory bytes a block]; returns 0, or 1 (out untouched) when one warp a
+// block would need more than 227 KB
+extern "C" long long fused_layer_bwd_attn_geometry(int l, int ew, int h,
+                                                   int dh, int gated,
+                                                   int* out) {
+  const int W = attn_mma_warps(l, ew, h, dh, gated);
+  if (W == 0) return 1;
+  const AttnMmaLayout L(l, ew, h, dh, gated, W);
+  out[0] = L.W; out[1] = L.C; out[2] = L.RB; out[3] = L.P;
+  out[4] = L.general ? 1 : 0; out[5] = (int)L.bytes;
+  return 0;
 }
 
 // dtype: 0 = float32, 1 = bfloat16. e, de_mid, de (B, l, l, ew), hh, dhh

@@ -11,10 +11,12 @@ f32: K3 (`fused_layer_fwd`, training mode with the draws and h_hat out,
 and inference), K4 (`fused_layer_bwd_tail`), K5 (`fused_layer_bwd_attn`,
 the draws live) and K9 (`edge_block_bwd`, h_hat head-major as path C
 hands it over); CUDA events, median of 30
-launches with L2 flushed before each. Then, in bf16 as shipped, the
-median wall time of 8 training steps on path A (K3; K4, K5) and on path C
-(K1, K8; K9, K2) and of 8 serving requests on path A, 128 graphs each,
-after a warm-up. Prints the card's name and power limit, then one JSON
+launches with L2 flushed before each. The host time of one K4 and one K5
+call (the wrapper's checks and launches, mean of 100 calls while a spin
+kernel keeps the card busy, so the clock sees the host's work alone).
+Then, in bf16 as shipped, the median wall time of 24 training steps on
+path A (K3; K4, K5) and on path C (K1, K8; K9, K2) and of 24 serving
+requests on path A, 128 graphs each, after a warm-up. Prints the card's name and power limit, then one JSON
 line. Needs a CUDA device.
 """
 
@@ -29,7 +31,7 @@ import time
 from pathlib import Path
 
 B, L, EW, H, DH, HID = 128, 40, 64, 8, 64, 128
-STEPS = 8
+STEPS = 24
 
 
 def main(argv=None) -> int:
@@ -78,6 +80,17 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         return statistics.median(s.elapsed_time(e) for s, e in marks)
 
+    def host_us(fn, iters=100):
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(100_000_000)        # the queue never drains
+        t = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        dt = time.perf_counter() - t
+        torch.cuda.synchronize()
+        return 1e6 * dt / iters
+
     def randn(*shape, scale=1.0):
         return scale * torch.randn(shape, generator=gen, device=dev)
 
@@ -113,10 +126,14 @@ def main(argv=None) -> int:
         gv = randn(B, L, DH).to(dt)
         res[f"K5 {name}"] = time_ms(lambda: fl._bwd_attn_cuda(
             tspec, e, qkv, mask, None, w, hh, dhh, dm, gv, 77))
+        res[f"K4 host us {name}"] = host_us(
+            lambda: fl._bwd_tail_cuda(spec, e, hh, g, w))
+        res[f"K5 host us {name}"] = host_us(lambda: fl._bwd_attn_cuda(
+            tspec, e, qkv, mask, None, w, hh, dhh, dm, gv, 77))
         hm = randn(B, H, L, L, scale=2.0).to(dt).permute(0, 2, 3, 1)
         tw = {k: w[k] for k in fl.TAIL_KEYS}
         res[f"K9 {name}"] = time_ms(lambda: eb._edge_block_bwd_cuda(hm, e, g, tw))
-        print(f"  {name}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in res.items()
+        print(f"  {name}: " + ", ".join(f"{k} {v:.4f}" for k, v in res.items()
                                         if k.endswith(name)), flush=True)
 
     config = root / "configs" / "main" / "zinc" / "500k" / "egt.json"

@@ -38,6 +38,8 @@ mask and dropout draw from `ops/rng.py` (Philox; `csrc/philox.cuh`).
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import os
 from typing import NamedTuple
 
@@ -510,59 +512,32 @@ def fused_layer_bwd_attn_plain(spec: LayerSpec, e, qkv, mask, amask, w, hh,
     return de.to(dt), dq.reshape(flat), dk.reshape(flat), dv.reshape(flat), dw
 
 
+@functools.lru_cache(maxsize=None)
+def _attn_smem(code: int, l: int, ew: int, h: int, dh: int, gated: int) -> int:
+    return BWD_ATTN_KERNEL.query("fused_layer_bwd_attn_smem", "iiiiii", code,
+                                 l, ew, h, dh, gated)
+
+
 def bwd_attn_smem(spec: LayerSpec, dtype) -> int:
     """Shared memory K5 needs for one block, in bytes (f32: one block a
-    graph; bf16: the tensor-core body at `bwd_attn_geometry`'s warps)."""
-    return BWD_ATTN_KERNEL.query(
-        "fused_layer_bwd_attn_smem", "iiiiii", _cuda.DTYPE_CODES[dtype],
-        spec.l, spec.ew, spec.h, spec.dh, int(spec.gated))
+    graph; bf16: the tensor-core body at the most warps a block that fit)."""
+    return _attn_smem(_cuda.DTYPE_CODES[dtype], spec.l, spec.ew, spec.h,
+                      spec.dh, int(spec.gated))
 
 
-_ATTN_MMA_WARPS = 8         # warps a block of K5's bf16 body, at most
-_ATTN_MAX_CLUSTER = 8       # blocks a graph: the portable cluster size
-
-
-def _up(n: int, m: int) -> int:
-    return -(-n // m) * m
-
-
-def bwd_attn_geometry(spec: LayerSpec) -> dict:
-    """How K5's bf16 body spreads one graph over the card, as
-    `csrc/fused_layer_bwd_attn.cu` (`AttnMmaLayout`, `attn_mma_warps`)
-    computes it: `warps` a block (one query row a warp), `cluster` blocks a
-    graph, `rows_per_block`, `passes` (rows a warp) and `smem` bytes a
-    block. Raises ValueError for a shape the body does not take."""
-    l, ew, h, dh = spec.l, spec.ew, spec.h, spec.dh
-    nproj = 2 * h if spec.gated else h
-    where = f"fused_layer_bwd_attn (bf16): l={l}, ew={ew}, h={h}, dh={dh}"
-    if not (1 <= h <= 32 and 32 % h == 0):
-        raise ValueError(f"{where}: a head's keys reduce inside one warp, so "
-                         "h must divide 32")
-    if dh % h or dh % 2:
-        raise ValueError(f"{where}: dh must be even and a multiple of h")
-    if ew > 128 or nproj > 32 or (ew > 64 and nproj > 16):
-        raise ValueError(f"{where}: the register tiles take ew <= 128 and "
-                         f"{'2h' if spec.gated else 'h'} <= 32 (<= 16 above "
-                         "ew 64)")
-    lk, ek, npk = _up(l, 16), _up(ew, 16), _up(nproj, 16)
-    se, sd, skv = ek + 8, npk + 8, dh + 8
-    nwg = ew * nproj + nproj + 2 * ew
-    nfb = _up(2 * l * dh + nwg, 4) + _up(npk + 2 * ek, 4) + _up(lk, 4)
-    nfw = 3 * _up(lk * h, 4) + 2 * _up(lk, 4) + _up(2 * ek, 4)
-    nbb = _up(ek * sd, 8) + 2 * _up(l * skv, 8)
-    nbw = lk * se + 32 * se + lk * sd + 4 * _up(lk * h, 8) + 2 * _up(dh, 8)
-
-    def nbytes(w):
-        return 4 * (nfb + w * nfw) + 2 * (nbb + w * nbw)
-
-    warps = next((w for w in range(_ATTN_MMA_WARPS, 0, -1)
-                  if nbytes(w) <= _SMEM_MAX), 0)
-    if not warps:
-        raise ValueError(f"{where}: needs {nbytes(1)} bytes of shared memory "
-                         "at one warp a block (max 227 KB)")
-    rows = -(-l // min(-(-l // warps), _ATTN_MAX_CLUSTER))
-    return dict(warps=warps, cluster=-(-l // rows), rows_per_block=rows,
-                passes=-(-rows // warps), smem=nbytes(warps))
+def bwd_attn_geometry(spec: LayerSpec) -> dict | None:
+    """How K5's bf16 body spreads one graph over the card, from the kernel's
+    own layout: `warps` a block (one query row a warp), `cluster` blocks a
+    graph, `rows_per_block`, `passes` (rows a warp), `general` (the body
+    for shapes past the register body's tiles) and `smem` bytes a block;
+    None when one warp a block would need more than 227 KB."""
+    out = (ctypes.c_int * 6)()
+    if BWD_ATTN_KERNEL.query("fused_layer_bwd_attn_geometry", "iiiiip",
+                             spec.l, spec.ew, spec.h, spec.dh,
+                             int(spec.gated), ctypes.addressof(out)):
+        return None
+    keys = ("warps", "cluster", "rows_per_block", "passes", "general", "smem")
+    return dict(zip(keys, out))
 
 
 def _bwd_attn_cuda(spec: LayerSpec, e, qkv, mask, amask, w, hh, dhh, de_mid,
@@ -581,13 +556,11 @@ def _bwd_attn_cuda(spec: LayerSpec, e, qkv, mask, amask, w, hh, dhh, de_mid,
     if amask is not None:
         _cuda.check_cuda("amask", amask, (b, l, l), torch.float32)
     _check_weights(spec, w, dt, ("wg", "bg", "wb", "bb", "g1", "b1"))
-    if dt == torch.bfloat16:
-        bwd_attn_geometry(spec)          # raises for a shape it cannot take
     smem = bwd_attn_smem(spec, dt)
     if smem > _SMEM_MAX:
-        raise ValueError(f"fused_layer_bwd_attn: l={l}, ew={ew}, dh={dh} need "
-                         f"{smem} bytes of shared memory per block "
-                         "(max 227 KB)")
+        raise ValueError(f"fused_layer_bwd_attn: l={l}, ew={ew}, h={h}, "
+                         f"dh={dh} need {smem} bytes of shared memory per "
+                         "block (max 227 KB)")
     nproj = 2 * h if spec.gated else h
     de = torch.empty_like(e)
     dq = torch.empty((b, l, dh), dtype=dt, device=e.device)

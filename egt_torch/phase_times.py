@@ -36,42 +36,49 @@ from .ops import fused_layer as fl
 
 B, L, EW, H, DH, HID = 128, 40, 64, 8, 64, 128
 
-# kernel: (source, file patched, {phase: loop header, or a tuple of them});
-# each header's bound becomes SKIP_<PHASE> ? 0 : bound wherever it occurs
+# kernel: (source, file patched, {phase: {loop header: how many times it
+# occurs}}); each header's bound becomes SKIP_<PHASE> ? 0 : bound at every
+# occurrence, and a count that differs stops the build
 PHASES = {
     "K3": ("fused_layer_fwd", "fused_layer_fwd.cu", {
-        "projection": "for (int n0 = 0; n0 < NP; n0 += 16) {",
-        "pair": "for (int it = lane; it < 16 * h; it += 32) {",
-        "ffn": "for (int u0 = 0; u0 < UK; u0 += 16) {",
-        "softmax": "for (int base = warp * per; base < nr * h; "
-                   "base += nw * per) {",
-        "av": "for (int t = tid; t < nr * dh; t += blockDim.x) {\n"
-              "      const int rg = t / dh, f = t - rg * dh;\n"
-              "      const int row = row0 + rg, b = row / l;",
+        "projection": {"for (int n0 = 0; n0 < NP; n0 += 16) {": 1},
+        "pair": {"for (int it = lane; it < 16 * h; it += 32) {": 1},
+        "ffn": {"for (int u0 = 0; u0 < UK; u0 += 16) {": 1},
+        "softmax": {"for (int base = warp * per; base < nr * h; "
+                    "base += nw * per) {": 1},
+        "av": {"for (int t = tid; t < nr * dh; t += blockDim.x) {\n"
+               "      const int rg = t / dh, f = t - rg * dh;\n"
+               "      const int row = row0 + rg, b = row / l;": 1},
     }),
     "K4": ("fused_layer_bwd_tail", "tail_bwd.cuh", {
-        "e_mid": "for (int k0 = 0; k0 < HK; k0 += 16) {",
-        "ffn": "for (int ub = 0; ub < ucw; ub += 16) {",
-        "wgrad_ffn": "for (int bi = warp; bi < 2 * n2; bi += nw) {",
-        "dhh": "for (int n0 = 0; n0 < HK; n0 += 16) {",
-        "wgrad_r": "for (int bi = warp; bi < (HK / 16) * nbr; bi += nw) {",
+        "e_mid": {"for (int k0 = 0; k0 < HK; k0 += 16) {": 1},
+        "ffn": {"for (int ub = 0; ub < ucw; ub += 16) {": 1},
+        "wgrad_ffn": {"for (int bi = warp; bi < 2 * n2; bi += nw) {": 1},
+        "dhh": {"for (int n0 = 0; n0 < HK; n0 += 16) {": 1},
+        "wgrad_r": {"for (int bi = warp; bi < (HK / 16) * nbr; "
+                    "bi += nw) {": 1},
     }),
+    # the register body's products (the flagship's); the chain's four key
+    # loops, shared by both bodies
     "K5": ("fused_layer_bwd_attn", "fused_layer_bwd_attn.cu", {
-        "head_mma": ("for (int ke = 0; ke < NTE / 2; ++ke) {",
-                     "for (int kp = 0; kp < NPT / 2; ++kp) {",
-                     "for (int mb = 0; mb < NTE / 2; ++mb) {"),
-        "chain": "for (int j = kg; j < l; j += KG) {",
-        "per_head": ("for (int dd = 0; dd < ndd; ++dd) {",
-                     "for (int f0 = 2 * lane; f0 < dh; f0 += 64) {",
-                     "for (int w = 0; w < nrows; ++w) {"),
+        "head_mma": {"for (int ke = 0; ke < NTE / 2; ++ke) {": 1,
+                     "for (int kp = 0; kp < NPT / 2; ++kp) {": 1,
+                     "for (int mb = 0; mb < NTE / 2; ++mb) {": 1},
+        "chain": {"for (int j = kg; j < l; j += KG) {": 4},
+        "per_head": {"for (int dd = 0; dd < ndd; ++dd) {": 1,
+                     "for (int f0 = 2 * lane; f0 < dh; f0 += 64) {": 1,
+                     "for (int w = 0; w < nrows; ++w) {": 1},
     }),
 }
 
 
 def _patch(text: str, phases: dict) -> str:
     for name, headers in phases.items():
-        for header in (headers,) if isinstance(headers, str) else headers:
-            assert header in text, header
+        for header, count in headers.items():
+            found = text.count(header)
+            if found != count:
+                raise RuntimeError(f"phase {name}: {header!r} occurs {found} "
+                                   f"times, expected {count}")
             first = header.split("\n")[0]
             init, rest = first.split("; ", 1)
             cond, step = rest.split("; ", 1)

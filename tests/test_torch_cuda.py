@@ -503,10 +503,21 @@ def test_tail_weight_gradients_bit_identical_across_launches(dev, dtype):
 # K5 alone, (b, l, ew, h, dh): the bf16 body spreads a graph's query rows
 # over a cluster of blocks, one row a warp, keys padded to 16; l 9 and 41 are
 # no multiple of 8 or 16 (a last block with fewer rows, padded keys), ew 48
-# and 80 the other widths of its register tiles, l 150 several rows a warp
+# the other shipped width of its register body, l 150 several rows a warp.
+# The rest run its general body: ew 80, 136 and 256 (64-column chunks), h 16
+# gated and h 32 (2h past 16), h 64 and 128 (two and four heads a lane), h 6
+# (no divisor of 32), odd dh, ew 10; h 64 at ew 96, l 4 gated takes one warp
+# a block (its dW sums in the block's)
 BWD_ATTN_SHAPES = {"flagship": (4, 40, 64, 8, 64), "ew8_l9": (3, 9, 8, 8, 64),
                    "ew48_l41": (3, 41, 48, 8, 48), "ew80_l41": (2, 41, 80, 8, 64),
-                   "ew8_l150": (2, 150, 8, 8, 64), "h4_l37": (3, 37, 32, 4, 32)}
+                   "ew8_l150": (2, 150, 8, 8, 64), "h4_l37": (3, 37, 32, 4, 32),
+                   "h16_l41": (2, 41, 64, 16, 64), "h32_l20": (2, 20, 64, 32, 64),
+                   "h64_l12": (2, 12, 16, 64, 64), "h128_l9": (2, 9, 8, 128, 128),
+                   "ew136_l23": (2, 23, 136, 8, 64),
+                   "ew256_h4_l17": (2, 17, 256, 4, 32),
+                   "h6_dh18_l13": (3, 13, 24, 6, 18),
+                   "h1_dh7_l11": (2, 11, 10, 1, 7),
+                   "h64_ew96_l4": (2, 4, 96, 64, 64)}
 
 
 def _bwd_attn_case(dev, dtype, shape, gated, constrained):
@@ -535,12 +546,18 @@ def _bwd_attn_case(dev, dtype, shape, gated, constrained):
     mask = (torch.arange(l, device=dev)[None] < n).float()
     am = (torch.rand((b, l, l), generator=g_, device=dev) < 0.4).float() \
         if constrained else None
-    # h_hat drawn on its own (3 sigma): pairs beyond the clip, none at its edge
-    args = (spec, rnd(b, l, l, ew).to(dtype), rnd(b, l, 3 * dh).to(dtype), mask,
-            am, fl.layer_weights(p, dtype), rnd(b, l, l, h, scale=3.0).to(dtype),
+    # h_hat drawn on its own (3 sigma): pairs beyond the clip, and none
+    # within 0.05 of its edges in hh - E, where K5's strict in-range test
+    # follows E's last bits (one bf16 rounding of e_ln, taken after LN1's
+    # sums in another order, moves E by ~1e-3)
+    e, w = rnd(b, l, l, ew).to(dtype), fl.layer_weights(p, dtype)
+    hh = rnd(b, l, l, h, scale=3.0).to(dtype).float()
+    d = hh - fl._edge_head(spec, e, w)[5]
+    near = ((d - spec.clip[0]).abs() < 0.05) | ((d - spec.clip[1]).abs() < 0.05)
+    hh = torch.where(near, hh + 0.25, hh).to(dtype)
+    return (spec, e, rnd(b, l, 3 * dh).to(dtype), mask, am, w, hh,
             rnd(b, l, l, h).to(dtype), rnd(b, l, l, ew).to(dtype),
             rnd(b, l, dh).to(dtype), 7)
-    return args
 
 
 @pytest.mark.parametrize("shape", list(BWD_ATTN_SHAPES))
@@ -562,7 +579,8 @@ def test_bwd_attn_kernel_matches_plain(dev, dtype, constrained, gated, shape):
         _close(out[4][k], r, dtype, scaled=True)
 
 
-@pytest.mark.parametrize("shape", ["flagship", "ew8_l150"])
+@pytest.mark.parametrize("shape", ["flagship", "ew8_l150", "ew136_l23",
+                                   "h64_ew96_l4"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bwd_attn_sums_bit_identical_across_launches(dev, dtype, shape):
     """dk, dv and the six weight gradients: fixed-order sums (the cluster's
@@ -575,18 +593,66 @@ def test_bwd_attn_sums_bit_identical_across_launches(dev, dtype, shape):
         assert torch.equal(runs[0][4][k], runs[1][4][k]), k
 
 
-def test_bwd_attn_geometry_matches_kernel_layout(dev):
-    """`fused_layer.bwd_attn_geometry` mirrors the kernel's layout: the same
-    shared memory as the kernel reports, or a ValueError where the kernel
-    reports more than a block may use."""
-    for l in (1, 9, 16, 40, 41, 64, 65, 118, 150):
-        for ew in (8, 48, 64, 80, 128):
+def _first_body_bytes(l, ew, h, dh, gated):
+    """Shared memory of the first K5 body in bf16 (one block a graph, f32
+    staging and a transposed weight copy), as its `Layout` computed it."""
+    nproj = 2 * h if gated else h
+    floats = (ew * nproj + nproj + 2 * ew + nproj + 2 * ew + 4 * l * dh
+              + 2 * dh + 2 * l * ew + l + 11 * l * h + l + h)
+    return 4 * ((floats + 3) & ~3) + 2 * (2 * ew * nproj)
+
+
+@pytest.mark.parametrize("h", [1, 2, 4, 6, 8, 16, 32, 64, 128])
+def test_bwd_attn_bf16_takes_every_shape_the_first_body_took(dev, h):
+    """Every shape whose bf16 shared memory fitted 227 KB in the first K5
+    body (one block a graph) fits in the cluster body, at l 1-256 and edge
+    widths 8-512: every query row has a block and a warp, at most 8 blocks
+    a cluster, and the geometry's bytes are those the wrapper checks."""
+    for dh in sorted({h, 2 * h, 7 * h, max(64, h) // h * h, 768 // h * h}):
+        for ew in (8, 10, 48, 64, 80, 96, 128, 136, 256, 512):
             for gated in (True, False):
-                spec = fl.LayerSpec(l=l, ew=ew, h=8, dh=64, hidden=2 * ew,
-                                    gated=gated, constrained=False, clip=None,
-                                    edge_act=None, act="elu", scale=0.35)
-                smem = fl.bwd_attn_smem(spec, torch.bfloat16)
-                try:
-                    assert fl.bwd_attn_geometry(spec)["smem"] == smem, (l, ew)
-                except ValueError:
-                    assert smem > 227 * 1024, (l, ew)
+                for l in range(1, 257):
+                    spec = fl.LayerSpec(l=l, ew=ew, h=h, dh=dh,
+                                        hidden=2 * ew, gated=gated,
+                                        constrained=False, clip=None,
+                                        edge_act=None, act="elu", scale=0.35)
+                    g = fl.bwd_attn_geometry(spec)
+                    smem = fl.bwd_attn_smem(spec, torch.bfloat16)
+                    where = (l, ew, h, dh, gated, g)
+                    if g is None:
+                        assert smem > 227 * 1024, where
+                        assert _first_body_bytes(l, ew, h, dh, gated) > \
+                            227 * 1024, where
+                        continue
+                    w, c, rows = g["warps"], g["cluster"], g["rows_per_block"]
+                    assert g["smem"] == smem <= 227 * 1024, where
+                    assert 1 <= w <= 8 and 1 <= c <= 8, where
+                    assert c * rows >= l > (c - 1) * rows, where
+                    assert g["passes"] * w >= rows > (g["passes"] - 1) * w, \
+                        where
+                    assert g["general"] == (ew > 64 or (2 * h if gated else h)
+                                            > 16 or 32 % h != 0), where
+
+
+def test_bwd_attn_refuses_a_shape_past_227_kb(dev):
+    """A shape whose one-warp block needs more than 227 KB raises a
+    ValueError that names the limit, and launches nothing."""
+    spec = fl.LayerSpec(l=64, ew=64, h=8, dh=768, hidden=128, gated=True,
+                        constrained=False, clip=None, edge_act=None,
+                        act="elu", scale=0.35, training=True)
+    assert fl.bwd_attn_geometry(spec) is None    # dk, dv alone: 393 KB
+    b, l, ew, dh = 1, spec.l, spec.ew, spec.dh
+
+    def z(*s):
+        return torch.zeros(s, device=dev, dtype=torch.bfloat16)
+
+    w = dict(wg=z(ew, 8), bg=torch.zeros(8, device=dev), wb=z(ew, 8),
+             bb=torch.zeros(8, device=dev), g1=torch.ones(ew, device=dev),
+             b1=torch.zeros(ew, device=dev))
+    before = fl.BWD_ATTN_KERNEL.launches
+    with pytest.raises(ValueError, match="227 KB"):
+        fl.fused_layer_bwd_attn(spec, z(b, l, l, ew), z(b, l, 3 * dh),
+                                torch.ones(b, l, device=dev), None, w,
+                                z(b, l, l, 8), z(b, l, l, 8), z(b, l, l, ew),
+                                z(b, l, dh))
+    assert fl.BWD_ATTN_KERNEL.launches == before
