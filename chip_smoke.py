@@ -8,15 +8,17 @@ final result line):
   1. host record: `nvidia-smi` name and power limit, torch and CUDA versions,
      `nvcc --version`;
   2. build the nine CUDA kernels from `egt_torch/csrc` (one nvcc each, in
-     parallel); the HMMA (tensor-core) instruction count of K3's, K4's and
-     K5's libraries per kernel function from `cuobjdump -sass` ("not
-     available" without it): non-zero in the bf16 bodies, zero in the f32
-     ones;
+     parallel); the HMMA (tensor-core) instruction count of K3's, K4's,
+     K5's and K7's libraries per kernel function from `cuobjdump -sass`
+     ("not available" without it): non-zero in the bf16 tensor-core bodies,
+     zero in the f32 ones;
   3. each kernel against its plain PyTorch version on the card, at the
      ZINC-500k shapes in f32 and bf16 with ragged node masks, plus one
      awkward shape: the forwards K1 and K3 at inference and in training mode
      (random mask 0.1 and dropout 0.1 live, h_hat out), the backwards K4, K5,
-     K7 (merged), K6 (mono) and K2 with the same draws (awkward: l 37, ew 32,
+     K7 (merged: K4's and K5's bodies, de_mid and dhh handed over in f32;
+     bit-identical across two launches, and in f32 equal to K4 then K5 bit
+     for bit), K6 (mono) and K2 with the same draws (awkward: l 37, ew 32,
      h 4, hard mask); the edge block's K8 and K9 with h_hat head-major, as
      path C hands it over (awkward: ew 32, hidden 64, h 4, rows, a pair
      count that is no multiple of the 32-pair tile); K3, K4 and K9 (and K5-
@@ -175,12 +177,12 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {src}: {line.strip()}")
 
-    # tensor-core instructions in the SASS of K3's, K4's and K5's
+    # tensor-core instructions in the SASS of K3's, K4's, K5's and K7's
     # libraries, per kernel function: the bf16 bodies run mma.sync (HMMA),
     # the f32 ones none (exact f32, no TF32)
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     for src in ("fused_layer_fwd", "fused_layer_bwd_tail",
-                "fused_layer_bwd_attn"):
+                "fused_layer_bwd_attn", "fused_layer_bwd_merged"):
         if not Path(cuobjdump).exists():
             print(f"  {src}: HMMA count not available (no cuobjdump)")
             continue
@@ -453,11 +455,27 @@ def main() -> int:
                     for i, (o, r) in enumerate(zip(out[:4], ref[:4]))]
             errs += [max_err(out[4][k], r, dtype, scaled=True)
                      for k, r in ref[4].items()]
+            if key == "merged":
+                check(same_bwd(out, kfn(*rargs)),
+                      f"{name} {shape}: every output bit-identical across "
+                      "two launches")
+            if key == "merged" and dtype == torch.float32:
+                t4 = fl._bwd_tail_cuda(spec, e, hh, ge, w)
+                s5 = fl._bwd_attn_cuda(spec, e, qkv, mask, am, w, hh, t4[1],
+                                       t4[0], gv, 77)
+                check(same_bwd(out, (*s5[:4], {**t4[2], **s5[4]})),
+                      f"{name} {shape}: equals K4 then K5 bit for bit")
             res[key] = timed(f"{name} {shape}", errs,
                              lambda: kfn(*rargs), lambda: pfn(*rargs),
                              nbytes, mm, pairs * (50 * ew + 5 * hid + 40 * h),
                              dtype, timing)
         return res
+
+    def same_bwd(a, b):
+        """(de, dq, dk, dv, dw) a and b equal bit for bit."""
+        return (all(torch.equal(x, y) for x, y in zip(a[:4], b[:4]))
+                and sorted(a[4]) == sorted(b[4])
+                and all(torch.equal(a[4][k], b[4][k]) for k in a[4]))
 
     def check_attn_rerun(tag, out, aargs):
         rerun = fl._bwd_attn_cuda(*aargs)

@@ -1,7 +1,7 @@
 // The edge tail of an EGT layer (dense_edge_r + residual -> LayerNorm ->
 // FFN + residual) on a tile of pairs in shared memory, forward and backward:
 // the chain of edge_block_fwd.cu (K8) and, one query row at a time, of
-// fused_layer_bwd_row.cuh (K6, K7). tail_bwd.cuh (K4, K9) runs the same
+// fused_layer_bwd_row.cuh (K6). tail_bwd.cuh (K4, K9, K7) runs the same
 // backward inline over flattened pairs, and takes hh_index and load_hh
 // from here.
 //

@@ -14,5 +14,5 @@
 #include "fused_layer_bwd_row.cuh"
 
 extern "C" int fused_layer_bwd_mono(EGT_ROW_ARGS) {
-  return egt::row_entry<true>(dtype, EGT_ROW_PARAMS, dw, stream);
+  return egt::row_entry(dtype, EGT_ROW_PARAMS, dw, stream);
 }

@@ -1,18 +1,17 @@
-// Whole EGT layer, backward in one kernel, for sm_90a: the edge tail's
-// backward (K4's chain, edge_tail.cuh's tile functions) and the attention
-// and edge-head backward (K5's chain) run one query row after the other
-// inside one block, so de_mid and dhh never go to device memory. Two
-// kernels are built from it:
-//   fused_layer_bwd_merged.cu (K7, MONO false): fed by the saved h_hat
-//     (egt_tpu/ops/fused_layer_pallas.py::_bwd_merged_kernel);
-//   fused_layer_bwd_mono.cu (K6, MONO true): no saved h_hat; q.k and h_hat
-//     are recomputed (fused_layer_pallas.py::_bwd_kernel).
+// Whole EGT layer, backward in one kernel with nothing saved but the inputs
+// ("mono", K6), for sm_90a: the edge tail's backward (K4's chain,
+// edge_tail.cuh's tile functions) and the attention and edge-head backward
+// (K5's chain) run one query row after the other inside one block, so
+// de_mid and dhh never go to device memory. It serves
+// fused_layer_bwd_mono.cu (K6) only: no saved h_hat; q.k and h_hat are
+// recomputed (egt_tpu/ops/fused_layer_pallas.py::_bwd_kernel). (K7, the
+// merged backward from the saved h_hat, runs K4's and K5's own bodies:
+// fused_layer_bwd_merged.cu.)
 //
 // For every query row (b, i) and key j, head hd (feature f = dd * h + hd):
 //   x1 = LN(e) normalised, e_ln = rnd(g1 x1 + b1)
 //   G = e_ln . Wg + bg,  P = e_ln . Wb + bb,  E = act_e(P)
-//   MONO:   s = q_i . k_j * scale,  hh = clip(s) + E  (f32),  sc = s
-//   merged: hh = the saved h_hat,                      sc = hh - E
+//   s = q_i . k_j * scale,  hh = clip(s) + E  (f32),  sc = s
 //   the tail backward of the l pairs (i, .) from rnd(hh) and g_eout:
 //     de_mid (ew) and dhh (h) in f32, kept on chip; its 8 weight gradients
 //   softmax chain at hh: logits = hh + madd (+ aadd) (+ rmask),
@@ -31,10 +30,9 @@
 // gradients are f32.
 //
 // What bounds it on an H100: at the ZINC-500k training shape (b 128, l 40,
-// ew 64, h 8, hidden 128, dh 64, bf16) merged moves ~65 MB (e, g_eout and
-// de; the saved hh; qkv, g_vatt, dq, dk, dv), ~19 us at 3.35 TB/s, mono
-// ~3 MB less (no hh); both do ~18 GFLOP of products, ~19 us at the bf16
-// tensor-core peak. This first kernel runs its products on the f32 CUDA
+// ew 64, h 8, hidden 128, dh 64, bf16) it moves ~62 MB (e, g_eout and de;
+// qkv, g_vatt, dq, dk, dv), ~19 us at 3.35 TB/s, and does ~18 GFLOP of
+// products, ~19 us at the bf16 tensor-core peak. This first kernel runs its products on the f32 CUDA
 // cores (67 TFLOP/s), so those FLOPs set its time.
 //
 // Design: the TPU kernel carries dk, dv and the 14 weight-gradient sums in
@@ -53,7 +51,7 @@
 // buffers and the tile's scratch: ~211 KB in bf16 (a whole row a tile),
 // ~216 KB in f32 (16 pairs a tile). Measured on an H100, the tile
 // functions run the tail ~40% slower than K4's inline body, and one block
-// a graph fills 128 of 132 SMs: K7 takes ~1.7x K4 + K5 (PERF.md).
+// a graph fills 128 of 132 SMs (PERF.md).
 #pragma once
 
 #include "edge_tail.cuh"
@@ -69,7 +67,6 @@ struct RowParams {
   const float* g1; const float* b1;
   const void* wr; const float* br; const float* g2; const float* b2;
   const void* w1; const float* bb1; const void* w2; const float* bb2;
-  const void* hh;   // saved h_hat (b, l, l, h); null for MONO
   const void* geout; const void* gv;
   void* de; void* dq; float* dk; float* dv; float* partials;
   int B, l, ew, h, dh, hid, gated, has_clip;
@@ -136,8 +133,8 @@ struct RowLayout {
   }
 };
 
-template <typename T, bool MONO>
-__global__ void __launch_bounds__(ROW_NT) bwd_row_kernel(RowParams p) {
+template <typename T>
+__global__ void __launch_bounds__(ROW_NT) bwd_mono_kernel(RowParams p) {
   constexpr int NT = ROW_NT;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
@@ -185,7 +182,6 @@ __global__ void __launch_bounds__(ROW_NT) bwd_row_kernel(RowParams p) {
 
   const T* E = (const T*)p.e;
   const T* QKV = (const T*)p.qkv;
-  const T* HH = (const T*)p.hh;
   const T* GE = (const T*)p.geout;
   const T* GV = (const T*)p.gv;
   T* DE = (T*)p.de;
@@ -208,8 +204,6 @@ __global__ void __launch_bounds__(ROW_NT) bwd_row_kernel(RowParams p) {
       x1[t] = x;
       em[t] = x;
     }
-    if (!MONO)
-      for (int t = tid; t < l * h; t += NT) hh[t] = to_f(HH[row * l * h + t]);
     __syncthreads();
 
     // ---- edge pre-LN, one warp per key: x1 normalised, e_ln rounded
@@ -244,23 +238,17 @@ __global__ void __launch_bounds__(ROW_NT) bwd_row_kernel(RowParams p) {
         });
     __syncthreads();
 
-    // ---- h_hat (MONO: from q.k) and the masked logits and gates
+    // ---- h_hat from q.k and the masked logits and gates
     for (int t = tid; t < l * h; t += NT) {
       const int j = t / h, hd = t % h;
       const float Ev = act_fn(p.edge_act, p.edge_alpha, pp[t]);
       ev[t] = Ev;
-      float hval;
-      if (MONO) {
-        float sv = 0.f;
-        for (int f = hd; f < dh; f += h) sv = fmaf(q_s[f], kv(j, f, 1), sv);
-        sv *= p.scale;
-        sc[t] = sv;
-        hval = (p.has_clip ? fminf(fmaxf(sv, p.lo), p.hi) : sv) + Ev;
-        hh[t] = hval;
-      } else {
-        hval = hh[t];
-        sc[t] = hval - Ev;
-      }
+      float sv = 0.f;
+      for (int f = hd; f < dh; f += h) sv = fmaf(q_s[f], kv(j, f, 1), sv);
+      sv *= p.scale;
+      sc[t] = sv;
+      const float hval = (p.has_clip ? fminf(fmaxf(sv, p.lo), p.hi) : sv) + Ev;
+      hh[t] = hval;
       float add = madd[j];
       if (arow) add += (arow[j] - 1.f) * 1e9f;
       const float rm = p.dr.mask_add(b, i, j, hd);
@@ -426,7 +414,7 @@ __host__ inline int row_tp(int l, int ew, int h, int dh, int hid, int gated,
   return 0;
 }
 
-template <typename T, bool MONO>
+template <typename T>
 int row_launch(RowParams p, float* dw, cudaStream_t stream) {
   int dev = 0, optin = 0;
   cudaGetDevice(&dev);
@@ -434,7 +422,7 @@ int row_launch(RowParams p, float* dw, cudaStream_t stream) {
   p.tp = row_tp<T>(p.l, p.ew, p.h, p.dh, p.hid, p.gated, (size_t)optin);
   if (p.tp == 0) return (int)cudaErrorInvalidConfiguration;
   const size_t smem = row_smem<T>(p.l, p.ew, p.h, p.dh, p.hid, p.gated, p.tp);
-  auto kern = bwd_row_kernel<T, MONO>;
+  auto kern = bwd_mono_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -446,9 +434,8 @@ int row_launch(RowParams p, float* dw, cudaStream_t stream) {
   return launch_sum_partials(p.partials, p.B, L.nw, dw, stream);
 }
 
-// The C entry point of either kernel. dtype: 0 = float32, 1 = bfloat16.
-// e, g_eout, de (B, l, l, ew), hh (B, l, l, h; MONO: null), qkv (B, l,
-// 3 dh), gv, dq (B, l, dh) and the weight matrices (wg, wb (ew, h), wr
+// The C entry point of K6. dtype: 0 = float32, 1 = bfloat16.
+// e, g_eout, de (B, l, l, ew), qkv (B, l, 3 dh), gv, dq (B, l, dh) and the weight matrices (wg, wb (ew, h), wr
 // (h, ew), w1 (ew, hid), w2 (hid, ew)) are in the working type; mask (B, l),
 // amask (B, l, l; may be null), the biases and LN parameters, dk, dv
 // (B, l, dh) and dw are f32; ungated, wg and bg are null. dw receives the
@@ -456,18 +443,19 @@ int row_launch(RowParams p, float* dw, cudaStream_t stream) {
 // head's [dwgb (ew, nproj) | dbgb (nproj) | dg1 | db1], nproj = 2h gated
 // ([gates | bias] columns) else h; `partials` is f32 scratch of B rows of
 // that length.
-template <bool MONO>
-int row_entry(int dtype, RowParams p, float* dw, void* stream) {
+inline int row_entry(int dtype, RowParams p, float* dw, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return row_launch<float, MONO>(p, dw, s);
-  if (dtype == 1) return row_launch<__nv_bfloat16, MONO>(p, dw, s);
+  if (dtype == 0) return row_launch<float>(p, dw, s);
+  if (dtype == 1) return row_launch<__nv_bfloat16>(p, dw, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace egt
 
-// Shared memory either kernel needs for one block (one graph), in bytes, at
-// the largest tile that fits in 227 KB (the wrapper checks it).
+// Shared memory the kernel needs for one block (one graph), in bytes, at
+// the largest tile that fits in 227 KB (the wrapper checks it). The old
+// one-block-a-graph K7 ran this kernel's layout, so this is also the test
+// of the shapes it took.
 extern "C" long long fused_layer_bwd_row_smem(int dtype, int l, int ew, int h,
                                               int dh, int hid, int gated) {
   const size_t optin = 227 * 1024;
@@ -481,13 +469,13 @@ extern "C" long long fused_layer_bwd_row_smem(int dtype, int l, int ew, int h,
                                                  tp ? tp : 8);
 }
 
-// The argument list both entry points take, and the RowParams it fills.
+// The argument list of K6's entry point, and the RowParams it fills.
 #define EGT_ROW_ARGS                                                         \
   int dtype, const void *e, const void *qkv, const float *mask,             \
       const float *amask, const void *wg, const float *bg, const void *wb,  \
       const float *bb, const float *g1, const float *b1, const void *wr,    \
       const float *br, const float *g2, const float *b2, const void *w1,    \
-      const float *bb1, const void *w2, const float *bb2, const void *hh,   \
+      const float *bb1, const void *w2, const float *bb2,                   \
       const void *geout, const void *gv, void *de, void *dq, float *dk,     \
       float *dv, float *dw, float *partials, int B, int l, int ew, int h,   \
       int dh, int hid, int gated, int has_clip, float lo, float hi,         \
@@ -497,7 +485,7 @@ extern "C" long long fused_layer_bwd_row_smem(int dtype, int l, int ew, int h,
 #define EGT_ROW_PARAMS                                                       \
   egt::RowParams {                                                           \
     e, qkv, mask, amask, wg, bg, wb, bb, g1, b1, wr, br, g2, b2, w1, bb1,   \
-        w2, bb2, hh, geout, gv, de, dq, dk, dv, partials, B, l, ew, h, dh,  \
+        w2, bb2, geout, gv, de, dq, dk, dv, partials, B, l, ew, h, dh,  \
         hid, gated, has_clip, lo, hi, scale, edge_act, act, edge_alpha,     \
         act_alpha, Draws{seed_lo, seed_hi, mask_p, drop_p, keep}, 0    \
   }

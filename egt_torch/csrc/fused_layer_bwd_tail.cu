@@ -24,6 +24,34 @@
 
 #include "tail_bwd.cuh"
 
+// Which body takes a shape, in bytes of shared memory up to 227 KB: out =
+// [1 for the tensor-core body (bf16), warps a block there or pairs a tile
+// in the CUDA-core body, 1 with the transposed weight copies, shared memory
+// bytes a block]. f32_handoff 1 asks for K7's (de_mid and dhh written in
+// f32), which in bf16 also takes the CUDA-core body where the tensor-core
+// one does not fit. Returns 0, or 1 (out untouched) when no body does.
+extern "C" long long fused_layer_bwd_tail_geometry(int dtype, int ew, int h,
+                                                   int hid, int f32_handoff,
+                                                   int* out) {
+  const size_t optin = 227 * 1024;
+  if (dtype == 1) {
+    const int nw = egt::tail_mma_warps(ew, h, hid, optin);
+    if (nw > 0) {
+      out[0] = 1; out[1] = nw; out[2] = 0;
+      out[3] = (int)egt::TailMmaLayout(ew, h, hid, nw).bytes;
+      return 0;
+    }
+    if (!f32_handoff) return 1;
+  }
+  const egt::TailLayout L = dtype == 1
+      ? egt::tail_simt_layout<__nv_bfloat16>(ew, h, hid, optin)
+      : egt::tail_simt_layout<float>(ew, h, hid, optin);
+  if (L.tp == 0) return 1;
+  out[0] = 0; out[1] = L.tp; out[2] = L.copies ? 1 : 0;
+  out[3] = (int)(dtype == 1 ? L.bytes<__nv_bfloat16>() : L.bytes<float>());
+  return 0;
+}
+
 // dtype: 0 = float32, 1 = bfloat16. e, g (pairs, ew), hh (pairs, h) and the
 // weight matrices (wr (h, ew), w1 (ew, hid), w2 (hid, ew)) are in the
 // working type; br, g2, b2, bb1, bb2 are f32. Writes de_mid (pairs, ew) and

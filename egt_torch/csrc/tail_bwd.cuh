@@ -1,5 +1,6 @@
 // The edge tail's backward over flattened pairs, the kernel of
-// fused_layer_bwd_tail.cu (K4) and edge_block_bwd.cu (K9).
+// fused_layer_bwd_tail.cu (K4), edge_block_bwd.cu (K9) and the first half
+// of fused_layer_bwd_merged.cu (K7, which takes de_mid and dhh in f32).
 //
 // For every pair p, with e (.., ew), h_hat hh (.., h) and the cotangent g of
 // the output, all in the working type:
@@ -49,8 +50,11 @@
 // (`python3 -m egt_torch.phase_times` times each phase by ablation). The
 // f32 body (tail_bwd_kernel) is the first port's, on the CUDA cores, exact
 // in f32: register-tiled shared-memory products with transposed weight
-// copies. (edge_tail.cuh has the f32-core chain as functions on a tile, for
-// the kernels that run it one query row at a time.)
+// copies, or, where those do not fit (f32 at ew 80, hidden 160), the
+// weights as stored read by column. K7 also runs it in bf16 where the
+// tensor-core body cannot take a shape. (edge_tail.cuh has the f32-core
+// chain as functions on a tile, for K6, which runs it one query row at a
+// time.)
 #pragma once
 
 #include <type_traits>
@@ -73,13 +77,19 @@ struct TailParams {
               // (a template switch, so K4's rows kernel carries no layout code)
 };
 
-// shared-memory carve-up: floats first, then working-type weights
+// shared-memory carve-up: floats first, then working-type weights: with
+// copies, Wr and W1 as stored and transposed and W2 transposed (the
+// products read rows); without (shapes whose copies do not fit), the three
+// as stored, the transposed products reading columns
 struct TailLayout {
   // weight-gradient sums, in output order
   int dwr, dbr, dg2, db2, dw1, dbb1, dw2, dbb2, nw;
   int vec, hh, em, x2, xn, hid, g, rstd, nf;  // float offsets
-  int wr, wrT, w1, w1T, w2T, nt;              // T offsets
-  __host__ __device__ TailLayout(int ew, int h, int hid_, int tp) {
+  int wr, wrT, w1, w1T, w2T, w2, nt;          // T offsets
+  int tp;                                     // pairs a tile
+  bool copies;
+  __host__ __device__ TailLayout(int ew, int h, int hid_, int tp_,
+                                 bool copies_) : tp(tp_), copies(copies_) {
     int o = 0;
     dwr = o;  o += h * ew;
     dbr = o;  o += ew;
@@ -99,12 +109,14 @@ struct TailLayout {
     g = o;    o += tp * ew;
     rstd = o; o += tp;
     nf = (o + 3) & ~3;
+    const int cp = copies ? 1 : 0;
     int w = 0;
     wr = w;  w += h * ew;
-    wrT = w; w += ew * h;
+    wrT = w; w += cp * ew * h;
     w1 = w;  w += ew * hid_;
-    w1T = w; w += hid_ * ew;
-    w2T = w; w += ew * hid_;
+    w1T = w; w += cp * hid_ * ew;
+    w2T = w; w += cp * ew * hid_;
+    w2 = w;  w += (1 - cp) * hid_ * ew;
     nt = w;
   }
   template <typename T> __host__ __device__ size_t bytes() const {
@@ -112,14 +124,16 @@ struct TailLayout {
   }
 };
 
-// HM: hh and dhh head-major (b, h, l, l) with l = p.hh_l; else rows
-template <typename T, bool HM>
+// HM: hh and dhh head-major (b, h, l, l) with l = p.hh_l; else rows. TR:
+// the layout's transposed copies. OT: the type de_mid and dhh are written
+// in (the working type; f32 for K7's hand-off).
+template <typename T, bool HM, bool TR, typename OT>
 __global__ void __launch_bounds__(TAIL_NT) tail_bwd_kernel(TailParams p) {
   constexpr int NT = TAIL_NT;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const int ew = p.ew, h = p.h, hid = p.hid, tp = p.tp;
-  const TailLayout L(ew, h, hid, tp);
+  const TailLayout L(ew, h, hid, tp, TR);
   T* ws = reinterpret_cast<T*>(sm + L.nf);
   float *acc = sm, *dwr = sm + L.dwr, *dbr = sm + L.dbr, *dg2 = sm + L.dg2;
   float *db2 = sm + L.db2, *dw1 = sm + L.dw1, *dbb1 = sm + L.dbb1;
@@ -129,7 +143,7 @@ __global__ void __launch_bounds__(TAIL_NT) tail_bwd_kernel(TailParams p) {
   float *hh_s = sm + L.hh, *em = sm + L.em, *x2 = sm + L.x2, *xn = sm + L.xn;
   float *hid_s = sm + L.hid, *g_s = sm + L.g, *rstd = sm + L.rstd;
   T *wr = ws + L.wr, *wrT = ws + L.wrT, *w1 = ws + L.w1, *w1T = ws + L.w1T;
-  T *w2T = ws + L.w2T;
+  T *w2T = ws + L.w2T, *w2 = ws + L.w2;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
   // ---- weights (and transposes) once per block; zero the sums
@@ -139,14 +153,18 @@ __global__ void __launch_bounds__(TAIL_NT) tail_bwd_kernel(TailParams p) {
   for (int t = tid; t < h * ew; t += NT) {
     const int k = t / ew, c = t % ew;
     wr[t] = Wr[t];
-    wrT[c * h + k] = Wr[t];
+    if (TR) wrT[c * h + k] = Wr[t];
   }
   for (int t = tid; t < ew * hid; t += NT) {
     const int c = t / hid, u = t % hid;      // W1 (ew, hid)
     w1[t] = W1[t];
-    w1T[u * ew + c] = W1[t];
     const int u2 = t / ew, c2 = t % ew;      // W2 (hid, ew)
-    w2T[c2 * hid + u2] = W2[t];
+    if (TR) {
+      w1T[u * ew + c] = W1[t];
+      w2T[c2 * hid + u2] = W2[t];
+    } else {
+      w2[t] = W2[t];
+    }
   }
   for (int t = tid; t < ew; t += NT) {
     br[t] = p.br[t]; g2[t] = p.g2[t]; b2[t] = p.b2[t]; bb2[t] = p.bb2[t];
@@ -157,8 +175,8 @@ __global__ void __launch_bounds__(TAIL_NT) tail_bwd_kernel(TailParams p) {
   const T* E = (const T*)p.e;
   const T* HH = (const T*)p.hh;
   const T* G = (const T*)p.g;
-  T* DM = (T*)p.demid;
-  T* DH = (T*)p.dhh;
+  OT* DM = (OT*)p.demid;
+  OT* DH = (OT*)p.dhh;
   const long long ntiles = (p.pairs + tp - 1) / tp;
 
   for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
@@ -226,7 +244,7 @@ __global__ void __launch_bounds__(TAIL_NT) tail_bwd_kernel(TailParams p) {
     // and written by the thread that owns it)
     tile_gemm<NT>(np, hid, ew,
         [&](int m, int k) { return g_s[m * ew + k]; },
-        [&](int k, int n) { return to_f(w2T[k * hid + n]); },
+        [&](int k, int n) { return to_f(TR ? w2T[k * hid + n] : w2[n * ew + k]); },
         [&](int m, int n, float y) {
           const float post = hid_s[m * hid + n];
           // act(pre) > 0 iff pre > 0 for elu, relu and leaky relu
@@ -247,7 +265,7 @@ __global__ void __launch_bounds__(TAIL_NT) tail_bwd_kernel(TailParams p) {
     }
     tile_gemm<NT>(np, ew, hid,
         [&](int m, int k) { return rnd<T>(hid_s[m * hid + k]); },
-        [&](int k, int n) { return to_f(w1T[k * ew + n]); },
+        [&](int k, int n) { return to_f(TR ? w1T[k * ew + n] : w1[n * hid + k]); },
         [&](int m, int n, float y) { em[m * ew + n] = y; });
     __syncthreads();
 
@@ -279,7 +297,7 @@ __global__ void __launch_bounds__(TAIL_NT) tail_bwd_kernel(TailParams p) {
         const float dx = d[c] * g2[c];
         const float v = (dx - m1 - xr[c] * m2) * rs + g_s[m * ew + c];
         d[c] = v;
-        DM[(p0 + m) * ew + c] = from_f<T>(v);
+        DM[(p0 + m) * ew + c] = from_f<OT>(v);
       }
     }
     __syncthreads();
@@ -296,10 +314,10 @@ __global__ void __launch_bounds__(TAIL_NT) tail_bwd_kernel(TailParams p) {
     }
     tile_gemm<NT>(np, h, ew,
         [&](int m, int k) { return rnd<T>(em[m * ew + k]); },
-        [&](int k, int n) { return to_f(wrT[k * h + n]); },
+        [&](int k, int n) { return to_f(TR ? wrT[k * h + n] : wr[n * ew + k]); },
         [&](int m, int n, float y) {
           DH[HM ? hh_index(p0 + m, n, h, p.hh_l) : (p0 + m) * h + n] =
-              from_f<T>(y);
+              from_f<OT>(y);
         });
   }
   __syncthreads();
@@ -370,6 +388,19 @@ __device__ __forceinline__ void stage_hh16(__nv_bfloat16* S, int ld,
   }
 }
 
+// Columns c and c + 1 (those < w) of an f32 row r of width w, if ok; one
+// 8-byte store when w is even (c is)
+__device__ __forceinline__ void st_f2_row(float* r, int c, int w, bool ok,
+                                          const float (&v)[2]) {
+  if (!ok || c >= w) return;
+  if ((w & 1) == 0) {
+    *reinterpret_cast<float2*>(r + c) = make_float2(v[0], v[1]);
+  } else {
+    r[c] = v[0];
+    if (c + 1 < w) r[c + 1] = v[1];
+  }
+}
+
 // acc[base + m * ldo + n] += the 16 x 16 block of C fragments c, for
 // m < M, n < N; (m0, n0) is the block's corner
 __device__ __forceinline__ void add_block(float* acc, int ldo, int M, int N,
@@ -406,10 +437,15 @@ __device__ __forceinline__ void wgrad_block(float (&c)[2][4],
   }
 }
 
-// NTE: the most n8 tiles of the edge width a lane holds (ew <= 8 NTE)
-template <bool HM, int NTE>
+// NTE: the most n8 tiles of the edge width a lane holds (ew <= 8 NTE).
+// OT: the type de_mid and dhh are written in: bf16, from the staged
+// rnd(de_mid) and rounded dhh sums (K4, K9), or f32 (K7's hand-off), de_mid
+// unrounded from the registers that computed it and dhh from its f32 sums;
+// the body's own products take rnd(de_mid) either way.
+template <bool HM, int NTE, typename OT>
 __global__ void __launch_bounds__(TAIL_MMA_WARPS * 32, 1)
     tail_bwd_mma_kernel(TailParams p) {
+  constexpr bool F32OUT = std::is_same<OT, float>::value;
   using bf = __nv_bfloat16;
   constexpr int NKE = NTE / 2;            // k16 steps over the edge width
   extern __shared__ float4 smem4[];
@@ -452,8 +488,8 @@ __global__ void __launch_bounds__(TAIL_MMA_WARPS * 32, 1)
   const bf* E_ = (const bf*)p.e;
   const bf* HH = (const bf*)p.hh;
   const bf* G = (const bf*)p.g;
-  bf* DM = (bf*)p.demid;
-  bf* DH = (bf*)p.dhh;
+  OT* DM = (OT*)p.demid;
+  OT* DH = (OT*)p.dhh;
   const long long ntiles = (p.pairs + TP - 1) / TP;
   auto rows_of = [&](long long tile, long long& p0) {
     p0 = tile * TP + warp * 16;
@@ -669,10 +705,14 @@ __global__ void __launch_bounds__(TAIL_MMA_WARPS * 32, 1)
         }
         st_bf2(hdW + gq * sb + c0, de0[0], de0[1]);
         st_bf2(hdW + (gq + 8) * sb + c0, de1[0], de1[1]);
+        if constexpr (F32OUT) {
+          st_f2_row(DM + (p0 + gq) * E, c0, E, gq < nv, de0);
+          st_f2_row(DM + (p0 + gq + 8) * E, c0, E, gq + 8 < nv, de1);
+        }
       }
     }
     __syncwarp();
-    store_rows16(DM + p0 * E, hdW, sb, nv, E);
+    if constexpr (!F32OUT) store_rows16(DM + p0 * E, hdW, sb, nv, E);
     // g is read: prefetch the next tile's
     if (next < ntiles) stage_rows16(gW, se, G + pn * E, nvn, E);
     cp_async_commit();
@@ -698,7 +738,7 @@ __global__ void __launch_bounds__(TAIL_MMA_WARPS * 32, 1)
           const int r = gq + ((q >> 1) << 3);
           if (k < H && r < nv)
             DH[HM ? hh_index(p0 + r, k, H, p.hh_l) : (p0 + r) * H + k] =
-                __float2bfloat16_rn(c[jj][q]);
+                from_f<OT>(c[jj][q]);
         }
     }
     __syncthreads();     // every warp's de_mid is staged
@@ -730,16 +770,21 @@ __global__ void __launch_bounds__(TAIL_MMA_WARPS * 32, 1)
   for (int t = tid; t < A.n; t += blockDim.x) part[t] = acc[t];
 }
 
-// The bf16 launch: the most warps a block (up to 8) whose shared memory fits
-template <bool HM, int NTE>
-int tail_bwd_mma_launch(TailParams p, float* dw, int max_grid, int sms,
-                        int optin, cudaStream_t stream) {
+// The most warps a block (up to 8) whose tensor-core layout fits in optin
+// bytes; 0 where none does or ew > 128 (the body holds at most 16 n8 tiles)
+inline int tail_mma_warps(int ew, int h, int hid, size_t optin) {
+  if (ew > 128) return 0;
   int nw = TAIL_MMA_WARPS;
-  while (nw > 0 && TailMmaLayout(p.ew, p.h, p.hid, nw).bytes > (size_t)optin)
-    --nw;
-  if (nw == 0) return (int)cudaErrorInvalidConfiguration;
+  while (nw > 0 && TailMmaLayout(ew, h, hid, nw).bytes > optin) --nw;
+  return nw;
+}
+
+// The bf16 launch at nw warps a block
+template <bool HM, int NTE, typename OT>
+int tail_bwd_mma_launch(TailParams p, float* dw, int max_grid, int sms,
+                        int nw, cudaStream_t stream) {
   const TailMmaLayout L(p.ew, p.h, p.hid, nw);
-  auto kern = tail_bwd_mma_kernel<HM, NTE>;
+  auto kern = tail_bwd_mma_kernel<HM, NTE, OT>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.bytes);
   if (err != cudaSuccess) return (int)err;
@@ -759,17 +804,32 @@ int tail_bwd_mma_launch(TailParams p, float* dw, int max_grid, int sms,
                              dw, stream);
 }
 
-// f32: the CUDA-core body (exact f32 products)
+// The CUDA-core body (exact f32 products in f32): 32 pairs a tile, or 16 or
+// 8 where that does not fit, with the transposed weight copies where they
+// fit, else without. tp is 0 where no layout fits in optin bytes.
 template <typename T>
+inline TailLayout tail_simt_layout(int ew, int h, int hid, size_t optin) {
+  for (int copies = 1; copies >= 0; --copies)
+    for (int tp = 32; tp >= 8; tp /= 2) {
+      const TailLayout L(ew, h, hid, tp, copies);
+      if (L.bytes<T>() <= optin) return L;
+    }
+  TailLayout L(ew, h, hid, 8, false);
+  L.tp = 0;
+  return L;
+}
+
+template <typename T, typename OT>
 int tail_bwd_simt_launch(TailParams p, float* dw, int max_grid, int sms,
                          int optin, cudaStream_t stream) {
-  // 32 pairs a tile, 16 where that does not fit (f32 at wide edges)
-  p.tp = 32;
-  if (TailLayout(p.ew, p.h, p.hid, p.tp).bytes<T>() > (size_t)optin) p.tp = 16;
-  const TailLayout L(p.ew, p.h, p.hid, p.tp);
+  const TailLayout L = tail_simt_layout<T>(p.ew, p.h, p.hid, (size_t)optin);
+  if (L.tp == 0) return (int)cudaErrorInvalidConfiguration;
+  p.tp = L.tp;
   const size_t smem = L.bytes<T>();
-  if (smem > (size_t)optin) return (int)cudaErrorInvalidConfiguration;
-  auto kern = p.hh_l ? tail_bwd_kernel<T, true> : tail_bwd_kernel<T, false>;
+  auto kern = p.hh_l ? (L.copies ? tail_bwd_kernel<T, true, true, OT>
+                                 : tail_bwd_kernel<T, true, false, OT>)
+                     : (L.copies ? tail_bwd_kernel<T, false, true, OT>
+                                 : tail_bwd_kernel<T, false, false, OT>);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -788,7 +848,11 @@ int tail_bwd_simt_launch(TailParams p, float* dw, int max_grid, int sms,
   return launch_sum_partials(p.partials, (int)grid, L.nw, dw, stream);
 }
 
-template <typename T>
+// bf16 runs the tensor-core body. With de_mid and dhh written in f32 (K7,
+// OT float) a shape that body cannot take (ew > 128, or past 227 KB at one
+// warp a block) runs the CUDA-core body in bf16: the old one-block-a-graph
+// K7 took such shapes. K4 and K9 refuse them, as before.
+template <typename T, typename OT = T>
 int tail_bwd_launch(TailParams p, float* dw, int max_grid,
                     cudaStream_t stream) {
   int dev = 0, sms = 0, optin = 0;
@@ -796,14 +860,19 @@ int tail_bwd_launch(TailParams p, float* dw, int max_grid,
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (p.ew > 128) return (int)cudaErrorInvalidValue;
+    const int nw = tail_mma_warps(p.ew, p.h, p.hid, (size_t)optin);
+    if (nw == 0) {
+      if constexpr (std::is_same<OT, float>::value)
+        return tail_bwd_simt_launch<T, OT>(p, dw, max_grid, sms, optin, stream);
+      return (int)cudaErrorInvalidValue;
+    }
     if (p.ew <= 64)
-      return p.hh_l ? tail_bwd_mma_launch<true, 8>(p, dw, max_grid, sms, optin, stream)
-                    : tail_bwd_mma_launch<false, 8>(p, dw, max_grid, sms, optin, stream);
-    return p.hh_l ? tail_bwd_mma_launch<true, 16>(p, dw, max_grid, sms, optin, stream)
-                  : tail_bwd_mma_launch<false, 16>(p, dw, max_grid, sms, optin, stream);
+      return p.hh_l ? tail_bwd_mma_launch<true, 8, OT>(p, dw, max_grid, sms, nw, stream)
+                    : tail_bwd_mma_launch<false, 8, OT>(p, dw, max_grid, sms, nw, stream);
+    return p.hh_l ? tail_bwd_mma_launch<true, 16, OT>(p, dw, max_grid, sms, nw, stream)
+                  : tail_bwd_mma_launch<false, 16, OT>(p, dw, max_grid, sms, nw, stream);
   } else {
-    return tail_bwd_simt_launch<T>(p, dw, max_grid, sms, optin, stream);
+    return tail_bwd_simt_launch<T, OT>(p, dw, max_grid, sms, optin, stream);
   }
 }
 

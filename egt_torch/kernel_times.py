@@ -9,20 +9,25 @@ per checkout, in turns, in one session on the card. At the flagship
 ZINC-500k shapes (b 128, l 40, ew 64, h 8, dh 64, hidden 128), in bf16 and
 f32: K3 (`fused_layer_fwd`, training mode with the draws and h_hat out,
 and inference), K4 (`fused_layer_bwd_tail`), K5 (`fused_layer_bwd_attn`,
-the draws live) and K9 (`edge_block_bwd`, h_hat head-major as path C
-hands it over); CUDA events, median of 30
-launches with L2 flushed before each. The host time of one K4 and one K5
-call (the wrapper's checks and launches, mean of 100 calls while a spin
-kernel keeps the card busy, so the clock sees the host's work alone).
-Then, in bf16 as shipped, the median wall time of 24 training steps on
-path A (K3; K4, K5) and on path C (K1, K8; K9, K2) and of 24 serving
-requests on path A, 128 graphs each, after a warm-up. Prints the card's name and power limit, then one JSON
-line. Needs a CUDA device.
+the draws live), K7 (`fused_layer_bwd_merged`, the draws live), K6
+(`fused_layer_bwd_mono`) and K9 (`edge_block_bwd`, h_hat head-major as
+path C hands it over); K5 and K7 also at h 32 gated (`h32`: K5's general
+body); CUDA events, median of 30 launches with L2 flushed before each.
+The host time of one K4, K5 and K7 call (the wrapper's checks and
+launches, mean of 100 calls while a spin kernel keeps the card busy, so
+the clock sees the host's work alone). A digest (sha256 of the output
+bytes) of K4's, K5's, K6's and K9's outputs, to show that two checkouts
+compute them bit for bit alike. Then, in bf16 as shipped, the median wall
+time of 24 training steps on path A (K3; K4, K5), on path C (K1, K8; K9,
+K2) and on A-merged (K3; K7), and of 24 serving requests on path A, 128
+graphs each, after a warm-up. Prints the card's name and power limit, then
+one JSON line. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import statistics
 import subprocess
@@ -31,6 +36,7 @@ import time
 from pathlib import Path
 
 B, L, EW, H, DH, HID = 128, 40, 64, 8, 64, 128
+H32 = 32            # K5's general body: 2h = 64 projection columns
 STEPS = 24
 
 
@@ -59,7 +65,8 @@ def main(argv=None) -> int:
     print(smi, flush=True)
     _cuda.build(("fused_layer_fwd", "fused_layer_bwd_tail", "edge_block_bwd",
                  "fused_layer_bwd_attn", "egt_attention_fwd",
-                 "egt_attention_bwd", "edge_block_fwd"))
+                 "egt_attention_bwd", "edge_block_fwd",
+                 "fused_layer_bwd_merged", "fused_layer_bwd_mono"))
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
@@ -94,17 +101,39 @@ def main(argv=None) -> int:
     def randn(*shape, scale=1.0):
         return scale * torch.randn(shape, generator=gen, device=dev)
 
-    res = {"root": str(root), "device": smi}
-    for dt in (torch.bfloat16, torch.float32):
-        name = str(dt).split(".")[-1]
-        w = dict(wg=randn(EW, H, scale=0.2), bg=randn(H, scale=0.1),
-                 wb=randn(EW, H, scale=0.2), bb=randn(H, scale=0.1),
+    def digest(out):
+        """sha256 of every tensor in out (nested tuples and dicts)."""
+        h = hashlib.sha256()
+
+        def add(x):
+            if isinstance(x, dict):
+                for k in sorted(x):
+                    add(x[k])
+            elif isinstance(x, (tuple, list)):
+                for y in x:
+                    add(y)
+            else:
+                h.update(x.contiguous().view(torch.uint8).cpu().numpy()
+                         .tobytes())
+        torch.cuda.synchronize()
+        add(out)
+        return h.hexdigest()[:16]
+
+    def weights(dt, h):
+        w = dict(wg=randn(EW, h, scale=0.2), bg=randn(h, scale=0.1),
+                 wb=randn(EW, h, scale=0.2), bb=randn(h, scale=0.1),
                  g1=1 + randn(EW, scale=0.1), b1=randn(EW, scale=0.1),
-                 wr=randn(H, EW, scale=0.3), br=randn(EW, scale=0.1),
+                 wr=randn(h, EW, scale=0.3), br=randn(EW, scale=0.1),
                  g2=1 + randn(EW, scale=0.1), b2=randn(EW, scale=0.1),
                  w1=randn(EW, HID, scale=0.2), bb1=randn(HID, scale=0.1),
                  w2=randn(HID, EW, scale=0.2), bb2=randn(EW, scale=0.1))
-        w = {k: (v.to(dt) if k.startswith("w") else v) for k, v in w.items()}
+        return {k: (v.to(dt) if k.startswith("w") else v)
+                for k, v in w.items()}
+
+    res = {"root": str(root), "device": smi}
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).split(".")[-1]
+        w = weights(dt, H)
         e = randn(B, L, L, EW).to(dt)
         qkv = randn(B, L, 3 * DH).to(dt)
         n = torch.randint(9, 39, (B,), generator=gen, device=dev)
@@ -126,15 +155,53 @@ def main(argv=None) -> int:
         gv = randn(B, L, DH).to(dt)
         res[f"K5 {name}"] = time_ms(lambda: fl._bwd_attn_cuda(
             tspec, e, qkv, mask, None, w, hh, dhh, dm, gv, 77))
+        margs = (tspec, e, qkv, mask, None, w, hh, g, gv, 77)
+        res[f"K7 {name}"] = time_ms(lambda: fl._bwd_merged_cuda(*margs))
+        res[f"K6 {name}"] = time_ms(lambda: fl._bwd_mono_cuda(
+            tspec, e, qkv, mask, None, w, g, gv, 77))
         res[f"K4 host us {name}"] = host_us(
             lambda: fl._bwd_tail_cuda(spec, e, hh, g, w))
         res[f"K5 host us {name}"] = host_us(lambda: fl._bwd_attn_cuda(
             tspec, e, qkv, mask, None, w, hh, dhh, dm, gv, 77))
+        res[f"K7 host us {name}"] = host_us(
+            lambda: fl._bwd_merged_cuda(*margs))
         hm = randn(B, H, L, L, scale=2.0).to(dt).permute(0, 2, 3, 1)
         tw = {k: w[k] for k in fl.TAIL_KEYS}
         res[f"K9 {name}"] = time_ms(lambda: eb._edge_block_bwd_cuda(hm, e, g, tw))
-        print(f"  {name}: " + ", ".join(f"{k} {v:.4f}" for k, v in res.items()
-                                        if k.endswith(name)), flush=True)
+        res[f"digest K4 K5 K6 K9 {name}"] = " ".join(digest(x) for x in (
+            fl._bwd_tail_cuda(spec, e, hh, g, w),
+            fl._bwd_attn_cuda(tspec, e, qkv, mask, None, w, hh, dhh, dm, gv,
+                              77),
+            fl._bwd_mono_cuda(tspec, e, qkv, mask, None, w, g, gv, 77),
+            eb._edge_block_bwd_cuda(hm, e, g, tw)))
+        # K5's general body (and K7 through it): h 32 gated, 2h past 16
+        w32 = weights(dt, H32)
+        spec32 = tspec._replace(h=H32, scale=float(DH // H32) ** -0.5)
+        hh32 = randn(B, L, L, H32, scale=3.0).to(dt)
+        dhh32 = randn(B, L, L, H32).to(dt)
+        res[f"K5 h32 {name}"] = time_ms(lambda: fl._bwd_attn_cuda(
+            spec32, e, qkv, mask, None, w32, hh32, dhh32, dm, gv, 77))
+        try:           # an older K7 may refuse the shape (227 KB a block)
+            res[f"K7 h32 {name}"] = time_ms(lambda: fl._bwd_merged_cuda(
+                spec32, e, qkv, mask, None, w32, hh32, g, gv, 77))
+        except ValueError as exc:
+            res[f"K7 h32 {name}"] = f"refused ({exc})"
+        print(f"  {name}: " + ", ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in res.items() if k.endswith(name)), flush=True)
+
+    # bytes K7's two launches move in bf16, each tensor read or written once
+    # per launch: K4's body reads e, hh, g and writes de_mid, dhh in f32;
+    # K5's reads e, hh, qkv, gv and the f32 de_mid, dhh, writes de, dq and
+    # the f32 dk, dv. The f32 hand-off is written once and read once.
+    pairs, it = B * L * L, 2
+    handoff = pairs * (EW + H) * 4
+    tail = pairs * (2 * EW + H) * it + handoff
+    attn = (pairs * (2 * EW + H) + B * L * 5 * DH) * it + handoff + \
+        2 * B * L * DH * 4
+    res["K7 hand-off MB written + read"] = 2 * handoff / 1e6
+    res["K7 composition MB"] = (tail + attn) / 1e6
+    res["K7 composition floor ms at 3.35 TB/s"] = (tail + attn) / 3.35e9
 
     config = root / "configs" / "main" / "zinc" / "500k" / "egt.json"
     raw = json.loads(config.read_text())
@@ -143,7 +210,10 @@ def main(argv=None) -> int:
     batches = [synthetic.zinc_batch(rng, B, L) for _ in range(STEPS + 2)]
     path_c = {"use_pallas": True, "use_pallas_layer": False,
               "use_pallas_edge": True}
-    for tag, over in (("train A", {}), ("train C", path_c)):
+    for tag, over, impl in (("train A", {}, "split"),
+                            ("train C", path_c, "split"),
+                            ("train A-merged", {}, "merged")):
+        fl.BWD_IMPL = impl
         tr = load_trainer({**raw, **over}, flat)
         for bt in batches[:2]:
             tr.train_step(bt)                           # warm-up
@@ -153,6 +223,7 @@ def main(argv=None) -> int:
             tr.train_step(bt)                           # ends in .item()
             times.append(time.perf_counter() - t)
         res[f"{tag} step ms"] = 1e3 * statistics.median(times)
+    fl.BWD_IMPL = "split"
     predict = serving.load_predictor(raw, flat)
     predict(batches[0])
     times = []

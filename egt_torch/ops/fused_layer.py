@@ -27,10 +27,11 @@ raises):
   JAX reads it into `_BWD_IMPL`; a caller may set the attribute):
   "split" (default): `csrc/fused_layer_bwd_tail.cu` (K4: the edge tail from
   the saved h_hat) then `csrc/fused_layer_bwd_attn.cu` (K5: the softmax chain
-  re-entered at h_hat, the edge head); "merged": both bodies in one kernel,
-  `csrc/fused_layer_bwd_merged.cu` (K7), de_mid and dhh kept on chip;
-  "mono": `csrc/fused_layer_bwd_mono.cu` (K6), nothing saved but the inputs,
-  q.k and h_hat recomputed.
+  re-entered at h_hat, the edge head); "merged":
+  `csrc/fused_layer_bwd_merged.cu` (K7), the same two bodies in one call
+  with de_mid and dhh handed over in f32, as the TPU kernel does; "mono":
+  `csrc/fused_layer_bwd_mono.cu` (K6), nothing saved but the inputs, q.k
+  and h_hat recomputed.
 
 `FusedLayerFn` is the `torch.autograd.Function` around them. The random
 mask and dropout draw from `ops/rng.py` (Philox; `csrc/philox.cuh`).
@@ -53,11 +54,10 @@ BWD_TAIL_KERNEL = _cuda.CudaKernel("fused_layer_bwd_tail", _cuda.argtypes(
     "i ppp pppp pppp pp pp i L iii if"))
 BWD_ATTN_KERNEL = _cuda.CudaKernel("fused_layer_bwd_attn", _cuda.argtypes(
     "i pppp pppp pp pppp pppp pp iiiii ii fff if uu fff"))
-_ROW_ARGS = "i pppp pppp pp pppp pppp ppp pppp pp iiiiii ii fff ifif uu fff"
-BWD_MERGED_KERNEL = _cuda.CudaKernel("fused_layer_bwd_merged",
-                                     _cuda.argtypes(_ROW_ARGS))
-BWD_MONO_KERNEL = _cuda.CudaKernel("fused_layer_bwd_mono",
-                                   _cuda.argtypes(_ROW_ARGS))
+BWD_MERGED_KERNEL = _cuda.CudaKernel("fused_layer_bwd_merged", _cuda.argtypes(
+    "i pppp pppp pp pppp pppp ppp pp pppp pp i iiiiiiii fff ifif uu fff"))
+BWD_MONO_KERNEL = _cuda.CudaKernel("fused_layer_bwd_mono", _cuda.argtypes(
+    "i pppp pppp pp pppp pppp pp pppp pp iiiiii ii fff ifif uu fff"))
 
 BWD_IMPLS = ("split", "merged", "mono")
 BWD_IMPL = os.environ.get("EGT_FUSED_BWD", "split")
@@ -520,24 +520,63 @@ def _attn_smem(code: int, l: int, ew: int, h: int, dh: int, gated: int) -> int:
 
 def bwd_attn_smem(spec: LayerSpec, dtype) -> int:
     """Shared memory K5 needs for one block, in bytes (f32: one block a
-    graph; bf16: the tensor-core body at the most warps a block that fit)."""
+    graph; bf16: the tensor-core body at the most warps a block that fit;
+    either with k, v, dk and dv in device memory where they do not fit
+    in shared memory)."""
     return _attn_smem(_cuda.DTYPE_CODES[dtype], spec.l, spec.ew, spec.h,
                       spec.dh, int(spec.gated))
 
 
-def bwd_attn_geometry(spec: LayerSpec) -> dict | None:
-    """How K5's bf16 body spreads one graph over the card, from the kernel's
-    own layout: `warps` a block (one query row a warp), `cluster` blocks a
-    graph, `rows_per_block`, `passes` (rows a warp), `general` (the body
-    for shapes past the register body's tiles) and `smem` bytes a block;
-    None when one warp a block would need more than 227 KB."""
-    out = (ctypes.c_int * 6)()
-    if BWD_ATTN_KERNEL.query("fused_layer_bwd_attn_geometry", "iiiiip",
-                             spec.l, spec.ew, spec.h, spec.dh,
-                             int(spec.gated), ctypes.addressof(out)):
+@functools.lru_cache(maxsize=None)
+def _attn_geometry(l: int, ew: int, h: int, dh: int, gated: int,
+                   f32_handoff: int) -> tuple | None:
+    out = (ctypes.c_int * 7)()
+    if BWD_ATTN_KERNEL.query("fused_layer_bwd_attn_geometry", "iiiiiip",
+                             l, ew, h, dh, gated, f32_handoff,
+                             ctypes.addressof(out)):
         return None
-    keys = ("warps", "cluster", "rows_per_block", "passes", "general", "smem")
-    return dict(zip(keys, out))
+    return tuple(out)
+
+
+def bwd_attn_geometry(spec: LayerSpec,
+                      f32_handoff: bool = False) -> dict | None:
+    """How K5's bf16 body spreads one graph over the card, from the kernel's
+    own layout, with de_mid and dhh handed over in bf16 (K5) or in f32
+    (`f32_handoff`, K7): `warps` a block (one query row a warp), `cluster`
+    blocks a graph, `rows_per_block`, `passes` (rows a warp), `general` (the
+    body for shapes past the register body's tiles), `smem` bytes a block
+    and `kv_global` (k, v, dk and dv in device memory, one block a graph,
+    where no layout with them in shared memory fits); None when no layout
+    fits 227 KB."""
+    g = _attn_geometry(spec.l, spec.ew, spec.h, spec.dh, int(spec.gated),
+                       int(f32_handoff))
+    keys = ("warps", "cluster", "rows_per_block", "passes", "general", "smem",
+            "kv_global")
+    return None if g is None else dict(zip(keys, g))
+
+
+@functools.lru_cache(maxsize=None)
+def _tail_geometry(code: int, ew: int, h: int, hid: int,
+                   f32_handoff: int) -> tuple | None:
+    out = (ctypes.c_int * 4)()
+    if BWD_TAIL_KERNEL.query("fused_layer_bwd_tail_geometry", "iiiiip", code,
+                             ew, h, hid, f32_handoff, ctypes.addressof(out)):
+        return None
+    return tuple(out)
+
+
+def bwd_tail_geometry(spec: LayerSpec, dtype,
+                      f32_handoff: bool = False) -> dict | None:
+    """Which of K4's bodies takes a shape, from the kernel's own layouts:
+    `tensor_cores` (the bf16 body), `tile` (warps a block there, pairs a
+    tile in the CUDA-core body), `copies` (the CUDA-core body's transposed
+    weights) and `smem` bytes a block; with `f32_handoff` (K7) a bf16 shape
+    the tensor-core body cannot take runs the CUDA-core body in bf16. None
+    when no body fits 227 KB."""
+    g = _tail_geometry(_cuda.DTYPE_CODES[dtype], spec.ew, spec.h, spec.hidden,
+                       int(f32_handoff))
+    keys = ("tensor_cores", "tile", "copies", "smem")
+    return None if g is None else dict(zip(keys, g))
 
 
 def _bwd_attn_cuda(spec: LayerSpec, e, qkv, mask, amask, w, hh, dhh, de_mid,
@@ -628,57 +667,55 @@ def fused_layer_bwd_mono_plain(spec: LayerSpec, e, qkv, mask, amask, w,
     return (*out, {**dw, **dw_head})
 
 
-def _bwd_row_cuda(kernel, spec: LayerSpec, e, qkv, mask, amask, w, hh,
-                  g_eout, g_vatt, seed):
-    """Launch K7 (hh given) or K6 (hh None)."""
+def _check_bwd_inputs(name, spec: LayerSpec, e, qkv, mask, amask, w, g_eout,
+                      g_vatt, hh=None):
     dt = e.dtype
     if dt not in _cuda.DTYPE_CODES:
-        raise ValueError(f"{kernel.source}: unsupported dtype {dt}")
+        raise ValueError(f"{name}: unsupported dtype {dt}")
     b, l = mask.shape
-    ew, h, dh, hid = spec.ew, spec.h, spec.dh, spec.hidden
-    for name, t, shape in (("e", e, (b, l, l, ew)), ("qkv", qkv, (b, l, 3 * dh)),
-                           ("g_eout", g_eout, (b, l, l, ew)),
-                           ("g_vatt", g_vatt, (b, l, dh))):
-        _cuda.check_cuda(name, t, shape, dt)
+    ew, h, dh = spec.ew, spec.h, spec.dh
+    for arg, t, shape in (("e", e, (b, l, l, ew)),
+                          ("qkv", qkv, (b, l, 3 * dh)),
+                          ("g_eout", g_eout, (b, l, l, ew)),
+                          ("g_vatt", g_vatt, (b, l, dh))):
+        _cuda.check_cuda(arg, t, shape, dt)
     if hh is not None:
         _cuda.check_cuda("hh", hh, (b, l, l, h), dt)
     _cuda.check_cuda("mask", mask, (b, l), torch.float32)
     if amask is not None:
         _cuda.check_cuda("amask", amask, (b, l, l), torch.float32)
     _check_weights(spec, w, dt)
-    smem = kernel.query("fused_layer_bwd_row_smem", "iiiiiii",
-                        _cuda.DTYPE_CODES[dt], l, ew, h, dh, hid,
-                        int(spec.gated))
-    if smem > _SMEM_MAX:
-        raise ValueError(f"{kernel.source}: l={l}, ew={ew}, hidden={hid} "
-                         f"need {smem} bytes of shared memory per block "
-                         "(max 227 KB)")
-    nproj = 2 * h if spec.gated else h
+
+
+def _bwd_outputs(spec: LayerSpec, e, b: int, l: int):
+    """de, dq, dk, dv and the 14 f32 weight-gradient sums (tail, then head)
+    of K6 and K7."""
+    dt, dh = e.dtype, spec.dh
     de = torch.empty_like(e)
     dq = torch.empty((b, l, dh), dtype=dt, device=e.device)
     dk = torch.empty((b, l, dh), dtype=torch.float32, device=e.device)
     dv = torch.empty_like(dk)
+    dw = torch.empty(_tail_len(spec) + _head_len(spec), dtype=torch.float32,
+                     device=e.device)
+    return de, dq, dk, dv, dw
+
+
+def _tail_len(spec: LayerSpec) -> int:
+    ew, h, hid = spec.ew, spec.h, spec.hidden
+    return h * ew + 4 * ew + 2 * ew * hid + hid
+
+
+def _head_len(spec: LayerSpec) -> int:
+    nproj = 2 * spec.h if spec.gated else spec.h
+    return spec.ew * nproj + nproj + 2 * spec.ew
+
+
+def _split_dw(spec: LayerSpec, dw):
+    """The 14 weight gradients from [tail sums | head sums]."""
+    ew, h, hid = spec.ew, spec.h, spec.hidden
+    nproj = 2 * h if spec.gated else h
     tail_sizes = (h * ew, ew, ew, ew, ew * hid, hid, hid * ew, ew)
     head_sizes = (ew * nproj, nproj, ew, ew)
-    dw = torch.empty(sum(tail_sizes) + sum(head_sizes), dtype=torch.float32,
-                     device=e.device)
-    partials = torch.empty((b, dw.numel()), dtype=torch.float32,
-                           device=e.device)
-    clip = spec.clip if spec.clip is not None else (0.0, 0.0)
-    ea, ea_alpha = _act_code(spec.edge_act)
-    act, act_alpha = _act_code(spec.act)
-    kernel(_cuda.DTYPE_CODES[dt], e.data_ptr(), qkv.data_ptr(),
-           mask.data_ptr(), _cuda.ptr(amask), _cuda.ptr(w["wg"]),
-           _cuda.ptr(w["bg"]), w["wb"].data_ptr(), w["bb"].data_ptr(),
-           w["g1"].data_ptr(), w["b1"].data_ptr(), w["wr"].data_ptr(),
-           w["br"].data_ptr(), w["g2"].data_ptr(), w["b2"].data_ptr(),
-           w["w1"].data_ptr(), w["bb1"].data_ptr(), w["w2"].data_ptr(),
-           w["bb2"].data_ptr(), _cuda.ptr(hh), g_eout.data_ptr(),
-           g_vatt.data_ptr(), de.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-           dv.data_ptr(), dw.data_ptr(), partials.data_ptr(), b, l, ew, h, dh,
-           hid, int(spec.gated), int(spec.clip is not None), float(clip[0]),
-           float(clip[1]), spec.scale, ea, ea_alpha, act, act_alpha,
-           *draw_args(spec, seed))
     tail, head = torch.split(dw, (sum(tail_sizes), sum(head_sizes)))
     shapes = dict(wr=(h, ew), w1=(ew, hid), w2=(hid, ew))
     grads = {k: x.view(shapes.get(k, (-1,)))
@@ -688,19 +725,100 @@ def _bwd_row_cuda(kernel, spec: LayerSpec, e, qkv, mask, amask, w, hh,
     grads.update(wb=dwgb[:, nproj - h:], bb=dbgb[nproj - h:], g1=dg1, b1=db1)
     if spec.gated:
         grads.update(wg=dwgb[:, :h], bg=dbgb[:h])
-    return de, dq, dk, dv, grads
+    return grads
+
+
+def _layer_args(spec: LayerSpec, w):
+    """The C entry points' draw-free layer arguments after the shape ones:
+    (has_clip, lo, hi, scale, edge_act, edge_alpha, act, act_alpha)."""
+    clip = spec.clip if spec.clip is not None else (0.0, 0.0)
+    ea, ea_alpha = _act_code(spec.edge_act)
+    act, act_alpha = _act_code(spec.act)
+    return (int(spec.clip is not None), float(clip[0]), float(clip[1]),
+            spec.scale, ea, ea_alpha, act, act_alpha)
+
+
+def _weight_ptrs(w):
+    return (_cuda.ptr(w["wg"]), _cuda.ptr(w["bg"]),
+            *(w[k].data_ptr() for k in ("wb", "bb", "g1", "b1", "wr", "br",
+                                        "g2", "b2", "w1", "bb1", "w2",
+                                        "bb2")))
+
+
+def bwd_merged_check(spec: LayerSpec, dtype) -> None:
+    """Raise a ValueError naming the limit when K4's or K5's bodies cannot
+    take a shape with de_mid and dhh handed over in f32 (K7)."""
+    if bwd_tail_geometry(spec, dtype, f32_handoff=True) is None:
+        raise ValueError(
+            f"fused_layer_bwd_merged: ew={spec.ew}, h={spec.h}, "
+            f"hidden={spec.hidden}: no body of the tail backward (K4) fits "
+            "227 KB of shared memory per block")
+    if dtype == torch.bfloat16:
+        fits = bwd_attn_geometry(spec, f32_handoff=True) is not None
+    else:                  # the f32 body reads the working type: the split's
+        fits = bwd_attn_smem(spec, dtype) <= _SMEM_MAX
+    if not fits:
+        raise ValueError(
+            f"fused_layer_bwd_merged: l={spec.l}, ew={spec.ew}, h={spec.h}, "
+            f"dh={spec.dh}: the attention backward (K5) needs more than "
+            "227 KB of shared memory per block")
 
 
 def _bwd_merged_cuda(spec: LayerSpec, e, qkv, mask, amask, w, hh, g_eout,
                      g_vatt, seed: int = 0):
-    return _bwd_row_cuda(BWD_MERGED_KERNEL, spec, e, qkv, mask, amask, w, hh,
-                         g_eout, g_vatt, seed)
+    _check_bwd_inputs("fused_layer_bwd_merged", spec, e, qkv, mask, amask, w,
+                      g_eout, g_vatt, hh)
+    dt = e.dtype
+    bwd_merged_check(spec, dt)
+    b, l = mask.shape
+    ew, h = spec.ew, spec.h
+    de, dq, dk, dv, dw = _bwd_outputs(spec, e, b, l)
+    # the hand-off: de_mid and dhh in f32, written by K4's body, read by K5's
+    de_mid = torch.empty((b, l, l, ew), dtype=torch.float32, device=e.device)
+    dhh = torch.empty((b, l, l, h), dtype=torch.float32, device=e.device)
+    max_grid = 2 * torch.cuda.get_device_properties(
+        e.device).multi_processor_count
+    partials = torch.empty(max(max_grid * _tail_len(spec),
+                               b * _head_len(spec)),
+                           dtype=torch.float32, device=e.device)
+    BWD_MERGED_KERNEL(_cuda.DTYPE_CODES[dt], e.data_ptr(), qkv.data_ptr(),
+                      mask.data_ptr(), _cuda.ptr(amask), *_weight_ptrs(w),
+                      hh.data_ptr(), g_eout.data_ptr(), g_vatt.data_ptr(),
+                      de_mid.data_ptr(), dhh.data_ptr(), de.data_ptr(),
+                      dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                      dw.data_ptr(), partials.data_ptr(), max_grid, b, l, ew,
+                      h, spec.dh, spec.hidden, int(spec.gated),
+                      *_layer_args(spec, w), *draw_args(spec, seed))
+    return de, dq, dk, dv, _split_dw(spec, dw)
 
 
 def _bwd_mono_cuda(spec: LayerSpec, e, qkv, mask, amask, w, g_eout, g_vatt,
                    seed: int = 0):
-    return _bwd_row_cuda(BWD_MONO_KERNEL, spec, e, qkv, mask, amask, w, None,
-                         g_eout, g_vatt, seed)
+    kernel = BWD_MONO_KERNEL
+    _check_bwd_inputs(kernel.source, spec, e, qkv, mask, amask, w, g_eout,
+                      g_vatt)
+    dt = e.dtype
+    b, l = mask.shape
+    ew, h, dh, hid = spec.ew, spec.h, spec.dh, spec.hidden
+    smem = kernel.query("fused_layer_bwd_row_smem", "iiiiiii",
+                        _cuda.DTYPE_CODES[dt], l, ew, h, dh, hid,
+                        int(spec.gated))
+    if smem > _SMEM_MAX:
+        raise ValueError(f"{kernel.source}: l={l}, ew={ew}, hidden={hid} "
+                         f"need {smem} bytes of shared memory per block "
+                         "(max 227 KB)")
+    de, dq, dk, dv, dw = _bwd_outputs(spec, e, b, l)
+    partials = torch.empty((b, dw.numel()), dtype=torch.float32,
+                           device=e.device)
+    has_clip, lo, hi, scale, ea, ea_alpha, act, act_alpha = \
+        _layer_args(spec, w)
+    kernel(_cuda.DTYPE_CODES[dt], e.data_ptr(), qkv.data_ptr(),
+           mask.data_ptr(), _cuda.ptr(amask), *_weight_ptrs(w),
+           g_eout.data_ptr(), g_vatt.data_ptr(), de.data_ptr(), dq.data_ptr(),
+           dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), partials.data_ptr(),
+           b, l, ew, h, dh, hid, int(spec.gated), has_clip, lo, hi, scale,
+           ea, ea_alpha, act, act_alpha, *draw_args(spec, seed))
+    return de, dq, dk, dv, _split_dw(spec, dw)
 
 
 @_cuda.dispatch(fused_layer_bwd_merged_plain, _bwd_merged_cuda)

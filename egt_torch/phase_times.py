@@ -60,7 +60,7 @@ PHASES = {
     }),
     # the register body's products (the flagship's); the chain's four key
     # loops, shared by both bodies
-    "K5": ("fused_layer_bwd_attn", "fused_layer_bwd_attn.cu", {
+    "K5": ("fused_layer_bwd_attn", "attn_bwd.cuh", {
         "head_mma": {"for (int ke = 0; ke < NTE / 2; ++ke) {": 1,
                      "for (int kp = 0; kp < NPT / 2; ++kp) {": 1,
                      "for (int mb = 0; mb < NTE / 2; ++mb) {": 1},

@@ -304,13 +304,15 @@ def test_model_training_grads_kernel_path_match_plain_path(dev, knobs):
 @pytest.mark.parametrize("constrained,gated", [(False, True), (True, False)])
 def test_merged_and_mono_kernels_match_plain(dev, dtype, constrained, gated,
                                              shape):
-    """K7 (from an h_hat drawn on its own, as K4 and K5 above) and K6 (which
-    recomputes h_hat; its strict clip test is on the recomputed raw logit)
-    against their plain versions, with the draws live."""
+    """K7 (from an h_hat drawn on its own, as K4 and K5 above, with no pair
+    near the clip's edges) and K6 (which recomputes h_hat; its strict clip
+    test is on the recomputed raw logit) against their plain versions, with
+    the draws live."""
     spec, e, qkv, mask, am, w, (ge, gv) = _layer_case(
         dev, dtype, constrained, gated, shape=shape)
-    hh = (3.0 * torch.randn((e.shape[0], spec.l, spec.l, spec.h),
-                            generator=_gen(dev), device=dev)).to(dtype)
+    hh = _off_clip(spec, e, w, 3.0 * torch.randn(
+        (e.shape[0], spec.l, spec.l, spec.h), generator=_gen(dev),
+        device=dev), dtype)
     counts = (fl.BWD_MERGED_KERNEL.launches, fl.BWD_MONO_KERNEL.launches)
     cases = ((fl.fused_layer_bwd_merged(spec, e, qkv, mask, am, w, hh, ge, gv, 7),
               fl.fused_layer_bwd_merged_plain(spec, e, qkv, mask, am, w, hh,
@@ -326,6 +328,219 @@ def test_merged_and_mono_kernels_match_plain(dev, dtype, constrained, gated,
             _close(out[4][k], r, dtype, scaled=True)
     assert (fl.BWD_MERGED_KERNEL.launches,
             fl.BWD_MONO_KERNEL.launches) == tuple(c + 1 for c in counts)
+
+
+def _off_clip(spec, e, w, hh, dtype):
+    """hh in dtype with every pair at least 0.05 from the clip's edges in
+    hh - E (moved by 0.25 where it is not): at an edge, K5's strict
+    in-range test follows E's last bits (one bf16 rounding of e_ln, taken
+    after LN1's sums in another order, moves E by ~1e-3)."""
+    hh = hh.to(dtype).float()
+    d = hh - fl._edge_head(spec, e, w)[5]
+    lo, hi = spec.clip
+    near = ((d - lo).abs() < 0.05) | ((d - hi).abs() < 0.05)
+    return torch.where(near, hh + 0.25, hh).to(dtype)
+
+
+def _merged_args(dev, dtype, shape, gated=True, constrained=True):
+    """K7's arguments at a shape of MERGED_SHAPES or LAYER_SHAPES."""
+    if shape in LAYER_SHAPES:
+        spec, e, qkv, mask, am, w, (ge, gv) = _layer_case(
+            dev, dtype, constrained, gated, shape=shape)
+    else:
+        b, l, ew, h, dh, hid = MERGED_SHAPES[shape][1:]
+        g_ = _gen(dev)
+
+        def rnd(*s, scale=1.0):
+            return scale * torch.randn(s, generator=g_, device=dev)
+
+        def dense(i, o):
+            return {"kernel": rnd(i, o, scale=0.3), "bias": rnd(o, scale=0.1)}
+
+        def ln(n):
+            return {"gamma": 1 + rnd(n, scale=0.1), "beta": rnd(n, scale=0.1)}
+
+        p = {"dense_edge_b": dense(ew, h), "norm_edge": ln(ew),
+             "dense_edge_r": dense(h, ew),
+             "edge_ffn": {"norm": ln(ew), "lr1": dense(ew, hid),
+                          "lr2": dense(hid, ew)}}
+        if gated:
+            p["attention_gates"] = dense(ew, h)
+        spec = fl.LayerSpec(l=l, ew=ew, h=h, dh=dh, hidden=hid, gated=gated,
+                            constrained=constrained, clip=(-2.0, 2.0),
+                            edge_act="elu", act="elu",
+                            scale=float(dh // h) ** -0.5,
+                            random_mask_prob=0.1, attn_dropout=0.1,
+                            training=True)
+        w = fl.layer_weights(p, dtype)
+        e, qkv = rnd(b, l, l, ew).to(dtype), rnd(b, l, 3 * dh).to(dtype)
+        mask = (torch.arange(l, device=dev)[None] < torch.tensor(
+            [[l], [max(1, l // 2)]][:b], device=dev)).float()
+        am = (torch.rand((b, l, l), generator=g_, device=dev) < 0.4).float() \
+            if constrained else None
+        ge, gv = rnd(b, l, l, ew).to(dtype), rnd(b, l, dh).to(dtype)
+    hh = _off_clip(spec, e, w, 3.0 * torch.randn(
+        (e.shape[0], spec.l, spec.l, spec.h), generator=_gen(dev),
+        device=dev), dtype)
+    return spec, e, qkv, mask, am, w, hh, ge, gv, 7
+
+
+# K7 at the edges of its bodies' layouts, shapes the old one-block-a-graph
+# K7 took: (dtype, b, l, ew, h, dh, hidden), edge activation elu as in
+# K5's cases (at relu's kink, P's last bits, summed in another order by the
+# plain version, decide dP). kv_global: K5's layouts with
+# k, v, dk and dv in shared memory do not fit (bf16: dh 768 at l 64; f32:
+# dh 128 at l 100); f32 ew 80 / hidden 160: K4's CUDA-core body without its
+# transposed weight copies; bf16 ew 128 / hidden 128: past K4's tensor-core
+# body at one warp, so K4's CUDA-core body runs in bf16
+MERGED_SHAPES = {
+    "kv_global_bf16": (torch.bfloat16, 2, 64, 64, 8, 768, 128),
+    "kv_global_f32": (torch.float32, 2, 100, 8, 8, 128, 16),
+    "tail_no_copies_f32": (torch.float32, 2, 7, 80, 1, 8, 160),
+    "tail_cuda_cores_bf16": (torch.bfloat16, 2, 6, 128, 1, 8, 128),
+}
+
+
+@pytest.mark.parametrize("shape", list(MERGED_SHAPES))
+def test_merged_kernel_at_the_edges_of_its_layouts(dev, shape):
+    """K7 against its plain version where its bodies take their other
+    layouts, with the draws live, edge activation elu; one launch a
+    call."""
+    dtype = MERGED_SHAPES[shape][0]
+    args = _merged_args(dev, dtype, shape)
+    g = (fl.bwd_tail_geometry(args[0], dtype, f32_handoff=True),
+         fl.bwd_attn_geometry(args[0], f32_handoff=True)
+         if dtype == torch.bfloat16 else None)
+    if shape.startswith("kv_global") and dtype == torch.bfloat16:
+        assert g[1]["kv_global"] == 1 and g[1]["cluster"] == 1
+    if shape.startswith("tail"):
+        assert g[0]["tensor_cores"] == 0 and g[0]["copies"] == 0, g
+    before = fl.BWD_MERGED_KERNEL.launches
+    out = fl.fused_layer_bwd_merged(*args)
+    assert fl.BWD_MERGED_KERNEL.launches == before + 1
+    ref = fl.fused_layer_bwd_merged_plain(*args)
+    # de with the absolute part scaled by each pair's largest |de|: de_mid
+    # and dhh reach de and dH in f32, summed in another order by K4's
+    # tensor cores than by the plain version, and where dH sits at a bf16
+    # rounding boundary of rnd(dP) or rnd(dgate) one step of it moves the
+    # pair's whole row of de (by the step times a row of [Wg | Wb]); an
+    # element that cancels to well below its row's scale can then differ
+    # by more than 2% of itself (kv_global_bf16: 0.117 at |de| 0.85). The
+    # plain version's own de moves so when its f32 hand-off is scaled by
+    # 1 + 1e-7, and K5 alone, fed one bf16 hand-off on both sides, agrees
+    # with its plain version at that element.
+    atol, rtol = TOL[dtype]
+    row = ref[0].float().abs().amax(-1, keepdim=True).clamp(min=1.0)
+    err = (out[0].float() - ref[0].float()).abs()
+    assert bool((err <= atol * row + rtol * ref[0].float().abs()).all()), \
+        float(err.max())
+    for i, (o, r) in enumerate(zip(out[1:4], ref[1:4])):    # dq dk dv
+        _close(o, r, dtype, scaled=i >= 1)
+    assert sorted(out[4]) == sorted(ref[4])
+    for k, r in ref[4].items():
+        _close(out[4][k], r, dtype, scaled=True)
+
+
+def _same_bwd(a, b):
+    return (all(torch.equal(x, y) for x, y in zip(a[:4], b[:4]))
+            and sorted(a[4]) == sorted(b[4])
+            and all(torch.equal(a[4][k], b[4][k]) for k in a[4]))
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    pytest.param(s, dt, id=f"{s}-{str(dt)[6:]}")
+    for s in LAYER_SHAPES for dt in (torch.float32, torch.bfloat16)] + [
+    pytest.param(s, MERGED_SHAPES[s][0], id=s)
+    for s in ("kv_global_bf16", "kv_global_f32")])
+def test_merged_outputs_bit_identical_across_launches(dev, dtype, shape):
+    """K7's sums run in a fixed order (partial rows, the cluster's ranks in
+    order, no float atomics): two launches agree to the bit."""
+    args = _merged_args(dev, dtype, shape)
+    assert _same_bwd(fl.fused_layer_bwd_merged(*args),
+                     fl.fused_layer_bwd_merged(*args))
+
+
+@pytest.mark.parametrize("shape", list(LAYER_SHAPES))
+@pytest.mark.parametrize("constrained,gated", [(False, True), (True, False)])
+def test_merged_f32_equals_tail_then_attn(dev, constrained, gated, shape):
+    """In f32 the hand-off is the split's own: K7 equals K4 followed by K5
+    (fed K4's de_mid and dhh) bit for bit."""
+    spec, e, qkv, mask, am, w, hh, ge, gv, seed = _merged_args(
+        dev, torch.float32, shape, gated, constrained)
+    out = fl.fused_layer_bwd_merged(spec, e, qkv, mask, am, w, hh, ge, gv,
+                                    seed)
+    de_mid, dhh, dw = fl.fused_layer_bwd_tail(spec, e, hh, ge, w)
+    split = fl.fused_layer_bwd_attn(spec, e, qkv, mask, am, w, hh, dhh,
+                                    de_mid, gv, seed)
+    assert _same_bwd(out, (*split[:4], {**dw, **split[4]}))
+
+
+@pytest.mark.parametrize("h", [1, 2, 4, 6, 8, 16, 32, 64, 128])
+def test_merged_takes_every_shape_the_row_kernel_took(dev, h):
+    """Every shape whose shared memory fitted 227 KB in the old
+    one-block-a-graph K7 (`fused_layer_bwd_row_smem`, the layout K6 still
+    runs), at l 1-256, edge widths 8-256, FFN hidden 1x and 2x the edge
+    width, f32 and bf16, gets a layout of K4's body and a geometry of K5's
+    body for the f32 hand-off, and passes K7's own check."""
+    for dt, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        for dh in sorted({h, 2 * h, 7 * h, max(64, h) // h * h, 768 // h * h}):
+            for ew in (8, 10, 48, 64, 80, 96, 128, 136, 256):
+                for hid in (ew, 2 * ew):
+                    for gated in (True, False):
+                        for l in range(1, 257):
+                            if fl.BWD_MONO_KERNEL.query(
+                                    "fused_layer_bwd_row_smem", "iiiiiii",
+                                    code, l, ew, h, dh, hid, int(gated)) > \
+                                    227 * 1024:
+                                continue
+                            spec = fl.LayerSpec(
+                                l=l, ew=ew, h=h, dh=dh, hidden=hid,
+                                gated=gated, constrained=False, clip=None,
+                                edge_act=None, act="elu", scale=0.35)
+                            where = (str(dt), l, ew, h, dh, hid, gated)
+                            t = fl.bwd_tail_geometry(spec, dt, True)
+                            assert t is not None, where
+                            assert t["smem"] <= 227 * 1024, where
+                            if dt == torch.bfloat16:
+                                g = fl.bwd_attn_geometry(spec, True)
+                                assert g is not None, where
+                                w, c, rows = (g["warps"], g["cluster"],
+                                              g["rows_per_block"])
+                                assert g["smem"] <= 227 * 1024, where
+                                assert c * rows >= l > (c - 1) * rows, where
+                                assert g["passes"] * w >= rows > \
+                                    (g["passes"] - 1) * w, where
+                            else:
+                                assert fl.bwd_attn_smem(spec, dt) <= \
+                                    227 * 1024, where
+                            fl.bwd_merged_check(spec, dt)
+
+
+def test_merged_refuses_a_shape_past_227_kb(dev):
+    """A shape no layout of K5's body fits raises a ValueError that names
+    the limit, and launches nothing."""
+    spec = fl.LayerSpec(l=256, ew=64, h=64, dh=64, hidden=128, gated=True,
+                        constrained=False, clip=None, edge_act=None,
+                        act="elu", scale=0.35, training=True)
+    assert fl.bwd_attn_geometry(spec, f32_handoff=True) is None
+    b, l, ew, h, dh = 1, spec.l, spec.ew, spec.h, spec.dh
+
+    def z(*s, dt=torch.bfloat16):
+        return torch.zeros(s, device=dev, dtype=dt)
+
+    w = dict(wg=z(ew, h), bg=z(h, dt=torch.float32), wb=z(ew, h),
+             bb=z(h, dt=torch.float32), g1=torch.ones(ew, device=dev),
+             b1=z(ew, dt=torch.float32), wr=z(h, ew),
+             br=z(ew, dt=torch.float32), g2=torch.ones(ew, device=dev),
+             b2=z(ew, dt=torch.float32), w1=z(ew, 128),
+             bb1=z(128, dt=torch.float32), w2=z(128, ew),
+             bb2=z(ew, dt=torch.float32))
+    before = fl.BWD_MERGED_KERNEL.launches
+    with pytest.raises(ValueError, match="227 KB"):
+        fl.fused_layer_bwd_merged(spec, z(b, l, l, ew), z(b, l, 3 * dh),
+                                  torch.ones(b, l, device=dev), None, w,
+                                  z(b, l, l, h), z(b, l, l, ew), z(b, l, dh))
+    assert fl.BWD_MERGED_KERNEL.launches == before
 
 
 # (b, l, ew, h): 4 * 7 * 7 pairs is not a multiple of the 32-pair tile
@@ -635,24 +850,26 @@ def test_bwd_attn_bf16_takes_every_shape_the_first_body_took(dev, h):
 
 
 def test_bwd_attn_refuses_a_shape_past_227_kb(dev):
-    """A shape whose one-warp block needs more than 227 KB raises a
-    ValueError that names the limit, and launches nothing."""
-    spec = fl.LayerSpec(l=64, ew=64, h=8, dh=768, hidden=128, gated=True,
+    """A shape whose one-warp block needs more than 227 KB, even with k, v,
+    dk and dv in device memory (kv_global), raises a ValueError that names
+    the limit, and launches nothing."""
+    spec = fl.LayerSpec(l=256, ew=64, h=64, dh=64, hidden=128, gated=True,
                         constrained=False, clip=None, edge_act=None,
                         act="elu", scale=0.35, training=True)
-    assert fl.bwd_attn_geometry(spec) is None    # dk, dv alone: 393 KB
-    b, l, ew, dh = 1, spec.l, spec.ew, spec.dh
+    # the warp's per-(key, head) values alone: 3 x 256 x 64 f32, 196 KB
+    assert fl.bwd_attn_geometry(spec) is None
+    b, l, ew, h, dh = 1, spec.l, spec.ew, spec.h, spec.dh
 
     def z(*s):
         return torch.zeros(s, device=dev, dtype=torch.bfloat16)
 
-    w = dict(wg=z(ew, 8), bg=torch.zeros(8, device=dev), wb=z(ew, 8),
-             bb=torch.zeros(8, device=dev), g1=torch.ones(ew, device=dev),
+    w = dict(wg=z(ew, h), bg=torch.zeros(h, device=dev), wb=z(ew, h),
+             bb=torch.zeros(h, device=dev), g1=torch.ones(ew, device=dev),
              b1=torch.zeros(ew, device=dev))
     before = fl.BWD_ATTN_KERNEL.launches
     with pytest.raises(ValueError, match="227 KB"):
         fl.fused_layer_bwd_attn(spec, z(b, l, l, ew), z(b, l, 3 * dh),
                                 torch.ones(b, l, device=dev), None, w,
-                                z(b, l, l, 8), z(b, l, l, 8), z(b, l, l, ew),
+                                z(b, l, l, h), z(b, l, l, h), z(b, l, l, ew),
                                 z(b, l, dh))
     assert fl.BWD_ATTN_KERNEL.launches == before

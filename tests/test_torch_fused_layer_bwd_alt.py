@@ -118,3 +118,53 @@ def test_unknown_backward_raises(monkeypatch):
     monkeypatch.setattr(tfl, "BWD_IMPL", "fused")
     with pytest.raises(ValueError):
         _port_grads(tcfg, p, e, qkv, mask, am, ge, gv, torch.float32)
+
+
+@pytest.mark.parametrize("draws", [False, True], ids=["no_draws", "draws"])
+@pytest.mark.parametrize("name", ["residual_gated", "constrained_ungated"])
+def test_merged_plain_f32_equals_split_plain(name, draws):
+    """In f32 the merged backward's hand-off (de_mid and dhh in f32) is the
+    split's own: K7's plain version equals K4's then K5's bit for bit, as
+    K7 equals K4 then K5 on the card."""
+    jcfg, tcfg, p, e, qkv, mask, am, ge, gv = _case(name)
+    if draws:
+        tcfg.random_mask_prob, tcfg.attn_dropout = 0.2, 0.15
+    spec = tfl.make_spec(tcfg, e.shape[1], training=True)
+    w = tfl.layer_weights(tree(p, torch.from_numpy), torch.float32)
+    te, tq = torch.from_numpy(e), torch.from_numpy(qkv)
+    mask_t = torch.from_numpy(mask)
+    am_t = None if am is None else torch.from_numpy(am)
+    hh = tfl.fused_layer_plain(spec, te, tq, mask_t, am_t, w, seed=5,
+                               save_hh=True)[2]
+    g_e, g_v = torch.from_numpy(ge), torch.from_numpy(gv)
+    merged = tfl.fused_layer_bwd_merged(spec, te, tq, mask_t, am_t, w, hh,
+                                        g_e, g_v, seed=5)
+    de_mid, dhh, dw = tfl.fused_layer_bwd_tail(spec, te, hh, g_e, w)
+    *split, dw_head = tfl.fused_layer_bwd_attn(spec, te, tq, mask_t, am_t, w,
+                                               hh, dhh, de_mid, g_v, seed=5)
+    for a, b in zip(merged[:4], split):
+        assert torch.equal(a, b)
+    dw.update(dw_head)
+    assert sorted(merged[4]) == sorted(dw)
+    for k in dw:
+        assert torch.equal(merged[4][k], dw[k]), k
+
+
+@pytest.mark.parametrize("gated", [True, False], ids=["gated", "ungated"])
+def test_kernel_weight_gradient_layout(gated):
+    """K6's and K7's one f32 row of weight-gradient sums, [the tail's eight
+    | the head's four], splits into every weight's gradient at its shape,
+    each element once."""
+    spec = tfl.LayerSpec(l=5, ew=6, h=2, dh=4, hidden=12, gated=gated,
+                         constrained=False, clip=None, edge_act=None,
+                         act="elu", scale=0.5)
+    n = tfl._tail_len(spec) + tfl._head_len(spec)
+    grads = tfl._split_dw(spec, torch.arange(n, dtype=torch.float32))
+    shapes = dict(wg=(6, 2), bg=(2,), wb=(6, 2), bb=(2,), g1=(6,), b1=(6,),
+                  wr=(2, 6), br=(6,), g2=(6,), b2=(6,), w1=(6, 12),
+                  bb1=(12,), w2=(12, 6), bb2=(6,))
+    if not gated:
+        del shapes["wg"], shapes["bg"]
+    assert {k: tuple(v.shape) for k, v in grads.items()} == shapes
+    seen = torch.cat([v.reshape(-1) for v in grads.values()])
+    assert sorted(seen.tolist()) == list(range(n))
