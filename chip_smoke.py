@@ -9,17 +9,20 @@ final result line):
      `nvcc --version`;
   2. build the nine CUDA kernels from `egt_torch/csrc` (one nvcc each, in
      parallel); the HMMA (tensor-core) instruction count of K3's, K4's,
-     K5's and K7's libraries per kernel function from `cuobjdump -sass`
-     ("not available" without it): non-zero in the bf16 tensor-core bodies,
-     zero in the f32 ones;
+     K5's, K7's and K6's libraries per kernel function from `cuobjdump
+     -sass` ("not available" without it): non-zero in the bf16
+     tensor-core bodies, zero in the f32 ones;
   3. each kernel against its plain PyTorch version on the card, at the
      ZINC-500k shapes in f32 and bf16 with ragged node masks, plus one
      awkward shape: the forwards K1 and K3 at inference and in training mode
      (random mask 0.1 and dropout 0.1 live, h_hat out), the backwards K4, K5,
-     K7 (merged: K4's and K5's bodies, de_mid and dhh handed over in f32;
-     bit-identical across two launches, and in f32 equal to K4 then K5 bit
-     for bit), K6 (mono) and K2 with the same draws (awkward: l 37, ew 32,
-     h 4, hard mask); the edge block's K8 and K9 with h_hat head-major, as
+     K7 (merged: K4's and K5's bodies, de_mid and dhh handed over in f32),
+     K6 (mono: a head kernel recomputes h_hat and the clip's in-range flags,
+     then K7's bodies, K5's under the mono switch; the head kernel also
+     alone against its plain version, flags equal; K7 and K6 bit-identical
+     across two launches, and in f32 equal to their parts run in turn bit
+     for bit) and K2 with the same draws (awkward: l 37, ew 32, h 4, hard
+     mask); the edge block's K8 and K9 with h_hat head-major, as
      path C hands it over (awkward: ew 32, hidden 64, h 4, rows, a pair
      count that is no multiple of the 32-pair tile); K3, K4 and K9 (and K5-
      K7) also at the other shipped edge widths, 8 (hidden 16) and 48
@@ -177,12 +180,13 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {src}: {line.strip()}")
 
-    # tensor-core instructions in the SASS of K3's, K4's, K5's and K7's
-    # libraries, per kernel function: the bf16 bodies run mma.sync (HMMA),
-    # the f32 ones none (exact f32, no TF32)
+    # tensor-core instructions in the SASS of K3's, K4's, K5's, K7's and
+    # K6's libraries, per kernel function: the bf16 bodies run mma.sync
+    # (HMMA), the f32 ones none (exact f32, no TF32)
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     for src in ("fused_layer_fwd", "fused_layer_bwd_tail",
-                "fused_layer_bwd_attn", "fused_layer_bwd_merged"):
+                "fused_layer_bwd_attn", "fused_layer_bwd_merged",
+                "fused_layer_bwd_mono"):
         if not Path(cuobjdump).exists():
             print(f"  {src}: HMMA count not available (no cuobjdump)")
             continue
@@ -432,6 +436,24 @@ def main() -> int:
                             lambda: fl.fused_layer_bwd_attn_plain(*aargs),
                             nbytes, mm, pairs * (20 * ew + 40 * h), dtype,
                             timing)
+        # K6's head kernel alone: h_hat recomputed, the clip's flags equal
+        # to the plain version's (random q, k: no raw logit within an ulp
+        # of the clip)
+        hargs = (spec, e, qkv, w)
+        out, ref = fl._mono_head_cuda(*hargs), fl.mono_head_plain(*hargs)
+        torch.cuda.synchronize()
+        check(torch.equal(out[2], ref[2]),
+              f"mono_head {shape}: in-range flags equal the plain "
+              f"version's ({int(ref[2].sum())} of {ref[2].numel()} in range)")
+        res["mono_head"] = timed(
+            f"mono_head {shape}", [max_err(o, r, dtype)
+                                   for o, r in zip(out[:2], ref[:2])],
+            lambda: fl._mono_head_cuda(*hargs),
+            lambda: fl.mono_head_plain(*hargs),
+            (pairs * ew + b * l * 2 * dh + ew * h) * it + (h + 2 * ew) * 4
+            + pairs * h * (4 + (it if it == 2 else 0) + 1),
+            pairs * (2 * ew * h + 2 * dh), pairs * (10 * ew + 10 * h), dtype,
+            timing)
         # K7 from the same h_hat and cotangents; K6 recomputes h_hat from
         # q.k (random q, k: no raw logit within an ulp of the clip)
         bytes_k6 = (3 * pairs * ew + b * l * 3 * dh + 2 * b * l * dh) * it + \
@@ -455,16 +477,22 @@ def main() -> int:
                     for i, (o, r) in enumerate(zip(out[:4], ref[:4]))]
             errs += [max_err(out[4][k], r, dtype, scaled=True)
                      for k, r in ref[4].items()]
-            if key == "merged":
-                check(same_bwd(out, kfn(*rargs)),
-                      f"{name} {shape}: every output bit-identical across "
-                      "two launches")
-            if key == "merged" and dtype == torch.float32:
-                t4 = fl._bwd_tail_cuda(spec, e, hh, ge, w)
-                s5 = fl._bwd_attn_cuda(spec, e, qkv, mask, am, w, hh, t4[1],
-                                       t4[0], gv, 77)
+            check(same_bwd(out, kfn(*rargs)),
+                  f"{name} {shape}: every output bit-identical across two "
+                  "launches")
+            if dtype == torch.float32:
+                # K7: K4 then K5; K6: its head kernel, K4 from the head's
+                # h_hat, then K5 under the mono switch
+                hh_, flags = (hh, None) if key == "merged" else \
+                    fl._mono_head_cuda(spec, e, qkv, w)[::2]
+                t4 = fl._bwd_tail_cuda(spec, e, hh_, ge, w)
+                s5 = fl._bwd_attn_cuda(spec, e, qkv, mask, am, w, hh_, t4[1],
+                                       t4[0], gv, 77, inrange=flags)
                 check(same_bwd(out, (*s5[:4], {**t4[2], **s5[4]})),
-                      f"{name} {shape}: equals K4 then K5 bit for bit")
+                      f"{name} {shape}: equals " + (
+                          "K4 then K5" if key == "merged" else
+                          "its head kernel, K4, then K5 under the mono "
+                          "switch") + " bit for bit")
             res[key] = timed(f"{name} {shape}", errs,
                              lambda: kfn(*rargs), lambda: pfn(*rargs),
                              nbytes, mm, pairs * (50 * ew + 5 * hid + 40 * h),

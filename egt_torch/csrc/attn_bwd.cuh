@@ -1,6 +1,6 @@
 // The attention and edge-head backward of an EGT layer, the kernels of
 // fused_layer_bwd_attn.cu (K5) and, fed by K4's body, of
-// fused_layer_bwd_merged.cu (K7).
+// fused_layer_bwd_merged.cu (K7) and fused_layer_bwd_mono.cu (K6).
 //
 // For every query row (b, i) and key j, head hd (feature f = dd * h + hd):
 //   x1 = LN(e) normalised, e_ln = rnd(g1 x1 + b1)
@@ -95,6 +95,18 @@
 // are cached in shared memory, or, where those four l x dh arrays do not
 // fit (kv_global), read from device memory, with dk and dv summed in the
 // graph's own rows of the outputs.
+//
+// The mono switch (K6, template flag MONO): K6 saves no h_hat, so its head
+// kernel recomputes it and hands over hh in f32 with one in-range flag byte
+// per (pair, head), lo < q.k scale < hi on the raw logit, strict, as the
+// TPU kernel tests it. Under the switch both bodies re-enter the softmax
+// chain at that f32 hh and take the clip's test from the flags in place of
+// lo < hh - E < hi; de_mid and dhh come in f32, as K7's, at K7's layout.
+// The bf16 body reads hh and the flags where it uses them, through the
+// read-only path, having asked for the row's lines in L1 where K5 and K7
+// stage hh: staged in shared memory, they pushed its register body past
+// 255 registers into spills (ptxas -v). Without the switch the code is
+// K5's and K7's.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -120,6 +132,7 @@ struct AttnParams {
   float lo, hi, scale;
   int edge_act; float edge_alpha;
   Draws dr;
+  const unsigned char* inrange;   // the mono switch's flags (B, l, l, h)
 };
 
 // Lets kernel K take `bytes` of dynamic shared memory on the current
@@ -192,8 +205,9 @@ struct AttnLayout {
   }
 };
 
-// KVG: k, v, dk and dv in device memory (AttnLayout's kv_global)
-template <bool KVG>
+// KVG: k, v, dk and dv in device memory (AttnLayout's kv_global); MONO:
+// the clip's test from p.inrange (the mono switch; hh is f32 as it is)
+template <bool KVG, bool MONO = false>
 __global__ void __launch_bounds__(ATT_NT) bwd_attn_kernel(AttnParams p) {
   constexpr int NT = ATT_NT;
   extern __shared__ float4 smem4[];
@@ -364,8 +378,12 @@ __global__ void __launch_bounds__(ATT_NT) bwd_attn_kernel(AttnParams p) {
       const float dH = lm[t] * (dasm[t] - tsum[hd]) + DHH[hbase + t];
       float d = dH * p.scale;
       if (p.has_clip) {
-        const float sc = hv[t] - ev[t];
-        if (!(sc > p.lo && sc < p.hi)) d = 0.f;
+        if constexpr (MONO) {
+          if (!p.inrange[hbase + t]) d = 0.f;
+        } else {
+          const float sc = hv[t] - ev[t];
+          if (!(sc > p.lo && sc < p.hi)) d = 0.f;
+        }
       }
       ds[t] = d;
       dp[t] = dH * act_grad(p.edge_act, p.edge_alpha, ppre[t], ev[t]);
@@ -465,7 +483,8 @@ __global__ void __launch_bounds__(ATT_NT) bwd_attn_kernel(AttnParams p) {
 //               product once LN1 has read them); de_mid tiles of 16 keys
 //               (register body: two, tile t + 1 in flight while tile t is
 //               worked; none with the f32 hand-off); rnd([dgate | dP]) of
-//               the row (LK x NPK); the row's hh and (bf16 hand-off) dhh;
+//               the row (LK x NPK); the row's hh (not under the mono
+//               switch) and (bf16 hand-off) dhh;
 //               rnd(ds), rnd(a_drop) per (key, head); q_i and gv_i; general
 //               body: a 16-key tile of rnd(e_ln).
 // LK = l rounded up to 16 (keys past l are zero rows), EK = ew and NPK =
@@ -714,12 +733,13 @@ __device__ __forceinline__ void tile_eln(__nv_bfloat16* D,
 // body, a 64-column chunk in the general one); NPT: n8 tiles of the
 // [gates | bias] projections (all of nproj <= 16, or a 32-column chunk).
 // HT: the type de_mid and dhh are handed over in (bf16 for K5, float for
-// K7); KVG: the layout's kv_global.
-template <bool GENERAL, typename HT, bool KVG>
+// K7 and K6); KVG: the layout's kv_global; MONO: the mono switch (K6).
+template <bool GENERAL, typename HT, bool KVG, bool MONO = false>
 __global__ void __launch_bounds__(ATT_MMA_WARPS * 32, 1)
     bwd_attn_mma_kernel(AttnParams p) {
   constexpr int NTE = 8, NPT = GENERAL ? 4 : 2;
   constexpr bool F32H = std::is_same<HT, float>::value;
+  static_assert(F32H || !MONO, "the mono switch hands over in f32");
   using bf = __nv_bfloat16;
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
@@ -846,7 +866,18 @@ __global__ void __launch_bounds__(ATT_MMA_WARPS * 32, 1)
   auto issue_row = [&](int i) {
     const size_t row = (size_t)b * l + i;
     stage_rows(erow, se, E + row * l * ew, LK, l, ew);
-    stage_vec(hh_s, HH + row * l * h, l * h);
+    if constexpr (!MONO) {
+      stage_vec(hh_s, HH + row * l * h, l * h);
+    } else {       // the mono switch: the row's f32 hh and flags into L1
+      const char* ph = (const char*)((const float*)p.hh + row * l * h);
+      for (int t = lane * 128; t < l * h * 4; t += 32 * 128)
+        asm volatile("prefetch.global.L1 [%0];" ::"l"(ph + t));
+      if (p.has_clip) {
+        const char* pf = (const char*)(p.inrange + row * l * h);
+        for (int t = lane * 128; t < l * h; t += 32 * 128)
+          asm volatile("prefetch.global.L1 [%0];" ::"l"(pf + t));
+      }
+    }
     if constexpr (F32H) stage_vec_f32(dhf, DHH + row * l * h, l * h);
     else stage_vec(dhh_s, DHH + row * l * h, l * h);
     stage_vec(qb, QKV + row * 3 * dh, dh);
@@ -1028,7 +1059,8 @@ __global__ void __launch_bounds__(ATT_MMA_WARPS * 32, 1)
           float add = madd[j];
           if (arow) add += (arow[j] - 1.f) * 1e9f;
           const float rm = p.dr.mask_add(b, i, j, hd);
-          const float lg = to_f(hh_s[t]) + add + rm;
+          const float lg = (MONO ? __ldg((const float*)p.hh + row * l * h + t)
+                                 : to_f(hh_s[t])) + add + rm;
           s0[t] = lg;
           if (p.gated) s1[t] = sigmoid(s1[t] + add + rm);
           mx = fmaxf(mx, lg);
@@ -1083,8 +1115,12 @@ __global__ void __launch_bounds__(ATT_MMA_WARPS * 32, 1)
           const float P = pp[t];
           const float Ev = act_fn(p.edge_act, p.edge_alpha, P);
           if (p.has_clip) {
-            const float sc = to_f(hh_s[t]) - Ev;
-            if (!(sc > p.lo && sc < p.hi)) d = 0.f;
+            if constexpr (MONO) {
+              if (!__ldg(p.inrange + row * l * h + t)) d = 0.f;
+            } else {
+              const float sc = to_f(hh_s[t]) - Ev;
+              if (!(sc > p.lo && sc < p.hi)) d = 0.f;
+            }
           }
           ds_s[t] = __float2bfloat16_rn(d);
           const float dp = dH * act_grad(p.edge_act, p.edge_alpha, P, Ev);
@@ -1488,11 +1524,12 @@ __global__ void __launch_bounds__(ATT_MMA_WARPS * 32, 1)
   cluster.sync();      // no block leaves while another reads its memory
 }
 
-template <bool GENERAL, typename HT, bool KVG>
+template <bool GENERAL, typename HT, bool KVG, bool MONO>
 int launch_mma(const AttnParams& p, float* dw, const AttnMmaLayout& L,
                cudaStream_t stream) {
-  auto kern = bwd_attn_mma_kernel<GENERAL, HT, KVG>;
-  cudaError_t err = allow_smem<bwd_attn_mma_kernel<GENERAL, HT, KVG>>(L.bytes);
+  auto kern = bwd_attn_mma_kernel<GENERAL, HT, KVG, MONO>;
+  cudaError_t err =
+      allow_smem<bwd_attn_mma_kernel<GENERAL, HT, KVG, MONO>>(L.bytes);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(p.B * L.C));
@@ -1522,31 +1559,36 @@ inline AttnLayout attn_simt_layout(int l, int ew, int h, int dh, int gated) {
                                            : AttnLayout(l, ew, h, dh, nproj, true);
 }
 
-inline int launch_simt(const AttnParams& p, float* dw, cudaStream_t stream) {
+// MONO: the mono switch (K6)
+template <bool MONO = false>
+int launch_simt(const AttnParams& p, float* dw, cudaStream_t stream) {
   const AttnLayout L = attn_simt_layout(p.l, p.ew, p.h, p.dh, p.gated);
   const size_t smem = L.bytes();
   if (smem > (size_t)ATT_SMEM_MAX) return (int)cudaErrorInvalidConfiguration;
-  cudaError_t err = L.kvg ? allow_smem<bwd_attn_kernel<true>>(smem)
-                          : allow_smem<bwd_attn_kernel<false>>(smem);
+  cudaError_t err = L.kvg ? allow_smem<bwd_attn_kernel<true, MONO>>(smem)
+                          : allow_smem<bwd_attn_kernel<false, MONO>>(smem);
   if (err != cudaSuccess) return (int)err;
-  if (L.kvg) bwd_attn_kernel<true><<<(unsigned)p.B, ATT_NT, smem, stream>>>(p);
-  else bwd_attn_kernel<false><<<(unsigned)p.B, ATT_NT, smem, stream>>>(p);
+  if (L.kvg)
+    bwd_attn_kernel<true, MONO><<<(unsigned)p.B, ATT_NT, smem, stream>>>(p);
+  else
+    bwd_attn_kernel<false, MONO><<<(unsigned)p.B, ATT_NT, smem, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return launch_sum_partials(p.partials, p.B, L.nw, dw, stream);
 }
 
-// bf16: the tensor-core cluster body, de_mid and dhh read as HT
-template <typename HT>
+// bf16: the tensor-core cluster body, de_mid and dhh read as HT; MONO: the
+// mono switch (K6; HT float)
+template <typename HT, bool MONO = false>
 int launch_bf16(const AttnParams& p, float* dw, cudaStream_t stream) {
   const AttnMmaLayout L = attn_mma_layout(p.l, p.ew, p.h, p.dh, p.gated,
                                           std::is_same<HT, float>::value);
   if (L.W == 0) return (int)cudaErrorInvalidConfiguration;
   if (L.general)
-    return L.kvg ? launch_mma<true, HT, true>(p, dw, L, stream)
-                 : launch_mma<true, HT, false>(p, dw, L, stream);
-  return L.kvg ? launch_mma<false, HT, true>(p, dw, L, stream)
-               : launch_mma<false, HT, false>(p, dw, L, stream);
+    return L.kvg ? launch_mma<true, HT, true, MONO>(p, dw, L, stream)
+                 : launch_mma<true, HT, false, MONO>(p, dw, L, stream);
+  return L.kvg ? launch_mma<false, HT, true, MONO>(p, dw, L, stream)
+               : launch_mma<false, HT, false, MONO>(p, dw, L, stream);
 }
 
 }  // namespace egt

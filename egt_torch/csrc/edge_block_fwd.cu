@@ -10,7 +10,7 @@
 // (LN eps 1e-3; the hidden activation rounded to the working type before
 // W2; math in f32; out written in the working type). The activation is ELU
 // whatever the model's activation is, as in the TPU kernel. The chain is
-// edge_tail.cuh's tail_fwd_tile, which K6 shares.
+// edge_tail.cuh's tail_fwd_tile.
 //
 // What bounds it on an H100: at the ZINC-500k shape (204,800 pairs, ew 64,
 // h 8, hidden 128, bf16) it moves ~56 MB (hh and e_res in, out), ~17 us at

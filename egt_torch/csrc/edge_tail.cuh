@@ -1,9 +1,8 @@
 // The edge tail of an EGT layer (dense_edge_r + residual -> LayerNorm ->
-// FFN + residual) on a tile of pairs in shared memory, forward and backward:
-// the chain of edge_block_fwd.cu (K8) and, one query row at a time, of
-// fused_layer_bwd_row.cuh (K6). tail_bwd.cuh (K4, K9, K7) runs the same
-// backward inline over flattened pairs, and takes hh_index and load_hh
-// from here.
+// FFN + residual) on a tile of pairs in shared memory: the forward chain of
+// edge_block_fwd.cu (K8). tail_bwd.cuh (K4, K9, K7, K6) runs the backward
+// below inline over flattened pairs, and takes TailAcc, hh_index and
+// load_hh from here.
 //
 // For every pair, with h_hat hh (h), the residual e (ew) and the cotangent g
 // of the output (ew), in the working type:
@@ -155,120 +154,6 @@ __device__ __forceinline__ void tail_fwd_tile(const TailW<T>& W,
       [&](int m, int n, float y) {
         hid[m * nh + n] = act_fn(act, alpha, y + bb1[n]);
       });
-  __syncthreads();
-}
-
-// Backward of the tail from g, after tail_fwd_tile on the same tile: adds
-// the weight gradients into acc (TailAcc offsets; each element owned by one
-// thread, no atomics), leaves de_mid (f32) in em, and hands
-// dem_out(m, c, de_mid) and dhh_out(m, k, dhh) to the caller. Returns
-// synchronised.
-template <int NT, typename T, typename DemOut, typename DhhOut>
-__device__ __forceinline__ void tail_bwd_tile(const TailW<T>& W,
-                                              const TailTile& s, int np,
-                                              int act, float alpha,
-                                              float* acc, DemOut dem_out,
-                                              DhhOut dhh_out) {
-  const int ew = W.ew, h = W.h, nh = W.hid;
-  const int sr = W.sr, s1 = W.s1, s2 = W.s2;
-  const T *wr = W.wr, *w1 = W.w1, *w2 = W.w2;
-  const float* g2 = W.g2;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const TailAcc A(ew, h, nh);
-  float *dwr = acc + A.dwr, *dbr = acc + A.dbr, *dg2 = acc + A.dg2;
-  float *db2 = acc + A.db2, *dw1 = acc + A.dw1, *dbb1 = acc + A.dbb1;
-  float *dw2 = acc + A.dw2, *dbb2 = acc + A.dbb2;
-  float *em = s.em, *hid = s.hid;
-  const float *hh = s.hh, *g = s.g, *x2 = s.x2, *xn = s.xn, *rstd = s.rstd;
-
-  // dW2 += rnd(hid)^T g; db2' += sum g
-  tile_gemm<NT>(nh, ew, np,
-      [&](int m, int k) { return rnd<T>(hid[k * nh + m]); },
-      [&](int k, int n) { return g[k * ew + n]; },
-      [&](int m, int n, float y) { dw2[m * ew + n] += y; });
-  for (int c = tid; c < ew; c += NT) {
-    float sum = 0.f;
-    for (int m = 0; m < np; ++m) sum += g[m * ew + c];
-    dbb2[c] += sum;
-  }
-  __syncthreads();
-
-  // dpre = (g . W2^T) * act'(pre), in place of hid (each element is read
-  // and written by the thread that owns it)
-  tile_gemm<NT>(np, nh, ew,
-      [&](int m, int k) { return g[m * ew + k]; },
-      [&](int k, int n) { return to_f(w2[n * s2 + k]); },
-      [&](int m, int n, float y) {
-        const float post = hid[m * nh + n];
-        // act(pre) > 0 iff pre > 0 for elu, relu and leaky relu
-        const float pre_sign = post > 0.f ? 1.f : -1.f;
-        hid[m * nh + n] = y * act_grad(act, alpha, pre_sign, post);
-      });
-  __syncthreads();
-
-  // dW1 += xn^T rnd(dpre); db1 += sum dpre; dxn = rnd(dpre) . W1^T
-  tile_gemm<NT>(ew, nh, np,
-      [&](int m, int k) { return xn[k * ew + m]; },
-      [&](int k, int n) { return rnd<T>(hid[k * nh + n]); },
-      [&](int m, int n, float y) { dw1[m * nh + n] += y; });
-  for (int u = tid; u < nh; u += NT) {
-    float sum = 0.f;
-    for (int m = 0; m < np; ++m) sum += hid[m * nh + u];
-    dbb1[u] += sum;
-  }
-  tile_gemm<NT>(np, ew, nh,
-      [&](int m, int k) { return rnd<T>(hid[m * nh + k]); },
-      [&](int k, int n) { return to_f(w1[n * s1 + k]); },
-      [&](int m, int n, float y) { em[m * ew + n] = y; });
-  __syncthreads();
-
-  // dg2 += sum dxn x2; db2 += sum dxn
-  for (int c = tid; c < ew; c += NT) {
-    float sum = 0.f, sq = 0.f;
-    for (int m = 0; m < np; ++m) {
-      sum += em[m * ew + c] * x2[m * ew + c];
-      sq += em[m * ew + c];
-    }
-    dg2[c] += sum;
-    db2[c] += sq;
-  }
-  __syncthreads();
-
-  // LayerNorm backward, one warp per pair: de_mid (f32, in em)
-  for (int m = warp; m < np; m += NT / 32) {
-    float* d = em + m * ew;
-    const float* xr = x2 + m * ew;
-    float sum = 0.f, sq = 0.f;
-    for (int c = lane; c < ew; c += 32) {
-      const float dx = d[c] * g2[c];
-      sum += dx;
-      sq += dx * xr[c];
-    }
-    const float m1 = warp_sum(sum) / ew, m2 = warp_sum(sq) / ew;
-    const float rs = rstd[m];
-    for (int c = lane; c < ew; c += 32) {
-      const float dx = d[c] * g2[c];
-      const float v = (dx - m1 - xr[c] * m2) * rs + g[m * ew + c];
-      d[c] = v;
-      dem_out(m, c, v);
-    }
-  }
-  __syncthreads();
-
-  // dWr += rnd(hh)^T rnd(de_mid); dbr += sum de_mid; dhh = rnd(de_mid) . Wr^T
-  tile_gemm<NT>(h, ew, np,
-      [&](int m, int k) { return rnd<T>(hh[k * h + m]); },
-      [&](int k, int n) { return rnd<T>(em[k * ew + n]); },
-      [&](int m, int n, float y) { dwr[m * ew + n] += y; });
-  for (int c = tid; c < ew; c += NT) {
-    float sum = 0.f;
-    for (int m = 0; m < np; ++m) sum += em[m * ew + c];
-    dbr[c] += sum;
-  }
-  tile_gemm<NT>(np, h, ew,
-      [&](int m, int k) { return rnd<T>(em[m * ew + k]); },
-      [&](int k, int n) { return to_f(wr[n * sr + k]); },
-      [&](int m, int n, float y) { dhh_out(m, n, y); });
   __syncthreads();
 }
 

@@ -11,7 +11,7 @@
 // dropout / clip backward and the edge-head backward, and adds de_mid and
 // dhh as the tail kernel wrote them, in the working type: the math, the
 // bodies and their design are in attn_bwd.cuh, which
-// fused_layer_bwd_merged.cu (K7) shares.
+// fused_layer_bwd_merged.cu (K7) and fused_layer_bwd_mono.cu (K6) share.
 //
 // What bounds it on an H100: at the ZINC-500k training shape (b 128, l 40,
 // ew 64, h 8, dh 64, bf16) it moves ~91 MB (e, de_mid and de; hh and dhh;
@@ -33,11 +33,11 @@ extern "C" long long fused_layer_bwd_attn_smem(int dtype, int l, int ew, int h,
 }
 
 // How the bf16 body spreads one graph, with de_mid and dhh handed over in
-// bf16 (K5) or, f32_handoff 1, in f32 (K7): out = [warps a block, blocks a
-// graph (the cluster), rows a block, rows a warp, 1 for the general body,
-// shared memory bytes a block, 1 for kv_global]; returns 0, or 1 (out
-// untouched) when no layout fits 227 KB. The one source of this layout for
-// both kernels' wrappers.
+// bf16 (K5) or, f32_handoff 1, in f32 (K7, and K6 under its mono switch):
+// out = [warps a block, blocks a graph (the cluster), rows a block, rows a
+// warp, 1 for the general body, shared memory bytes a block, 1 for
+// kv_global]; returns 0, or 1 (out untouched) when no layout fits 227 KB.
+// The one source of this layout for the three kernels' wrappers.
 extern "C" long long fused_layer_bwd_attn_geometry(int l, int ew, int h,
                                                    int dh, int gated,
                                                    int f32_handoff, int* out) {
@@ -55,24 +55,30 @@ extern "C" long long fused_layer_bwd_attn_geometry(int l, int ew, int h,
 // biases and LN parameters, dk, dv (B, l, dh) and dw are f32. amask and
 // (ungated) wg / bg may be null. dw receives [dwgb (ew, nproj) | dbgb
 // (nproj) | dg1 | db1], nproj = 2h gated ([gates | bias] columns) else h;
-// `partials` is f32 scratch of B rows of that length. Launches the kernel
-// (f32: one block a graph; bf16: a cluster of blocks a graph) and the
-// partial-sum pass; returns cudaGetLastError().
+// `partials` is f32 scratch of B rows of that length. `inrange` (f32 only;
+// null otherwise) turns on the mono switch: the clip's in-range test is
+// read from these flags (B, l, l, h), one byte a (pair, head), as K6 runs
+// the body. Launches the kernel (f32: one block a graph; bf16: a cluster
+// of blocks a graph) and the partial-sum pass; returns cudaGetLastError().
 extern "C" int fused_layer_bwd_attn(
     int dtype, const void* e, const void* qkv, const float* mask,
     const float* amask, const void* wg, const float* bg, const void* wb,
     const float* bb, const float* g1, const float* b1, const void* hh,
     const void* dhh, const void* demid, const void* gv, void* de, void* dq,
-    float* dk, float* dv, float* dw, float* partials, int B, int l, int ew,
-    int h, int dh, int gated, int has_clip, float lo, float hi, float scale,
-    int edge_act, float edge_alpha, unsigned seed_lo, unsigned seed_hi,
-    float mask_p, float drop_p, float keep, void* stream) {
+    float* dk, float* dv, float* dw, float* partials,
+    const unsigned char* inrange, int B, int l, int ew, int h, int dh,
+    int gated, int has_clip, float lo, float hi, float scale, int edge_act,
+    float edge_alpha, unsigned seed_lo, unsigned seed_hi, float mask_p,
+    float drop_p, float keep, void* stream) {
   egt::AttnParams p{e, qkv, mask, amask, wg, bg, wb, bb, g1, b1, hh, dhh,
                     demid, gv, de, dq, dk, dv, partials, B, l, ew, h, dh,
                     gated, has_clip, lo, hi, scale, edge_act, edge_alpha,
-                    Draws{seed_lo, seed_hi, mask_p, drop_p, keep}};
+                    Draws{seed_lo, seed_hi, mask_p, drop_p, keep}, inrange};
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return egt::launch_simt(p, dw, s);
-  if (dtype == 1) return egt::launch_bf16<__nv_bfloat16>(p, dw, s);
+  if (dtype == 0)
+    return inrange ? egt::launch_simt<true>(p, dw, s)
+                   : egt::launch_simt(p, dw, s);
+  if (dtype == 1 && !inrange)
+    return egt::launch_bf16<__nv_bfloat16>(p, dw, s);
   return (int)cudaErrorInvalidValue;
 }

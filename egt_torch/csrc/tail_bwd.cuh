@@ -1,6 +1,7 @@
 // The edge tail's backward over flattened pairs, the kernel of
-// fused_layer_bwd_tail.cu (K4), edge_block_bwd.cu (K9) and the first half
-// of fused_layer_bwd_merged.cu (K7, which takes de_mid and dhh in f32).
+// fused_layer_bwd_tail.cu (K4), edge_block_bwd.cu (K9), the first half of
+// fused_layer_bwd_merged.cu (K7) and the second launch of
+// fused_layer_bwd_mono.cu (K6); K7 and K6 take de_mid and dhh in f32.
 //
 // For every pair p, with e (.., ew), h_hat hh (.., h) and the cotangent g of
 // the output, all in the working type:
@@ -51,10 +52,8 @@
 // f32 body (tail_bwd_kernel) is the first port's, on the CUDA cores, exact
 // in f32: register-tiled shared-memory products with transposed weight
 // copies, or, where those do not fit (f32 at ew 80, hidden 160), the
-// weights as stored read by column. K7 also runs it in bf16 where the
-// tensor-core body cannot take a shape. (edge_tail.cuh has the f32-core
-// chain as functions on a tile, for K6, which runs it one query row at a
-// time.)
+// weights as stored read by column. K7 and K6 also run it in bf16 where
+// the tensor-core body cannot take a shape.
 #pragma once
 
 #include <type_traits>

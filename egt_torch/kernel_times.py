@@ -10,18 +10,21 @@ ZINC-500k shapes (b 128, l 40, ew 64, h 8, dh 64, hidden 128), in bf16 and
 f32: K3 (`fused_layer_fwd`, training mode with the draws and h_hat out,
 and inference), K4 (`fused_layer_bwd_tail`), K5 (`fused_layer_bwd_attn`,
 the draws live), K7 (`fused_layer_bwd_merged`, the draws live), K6
-(`fused_layer_bwd_mono`) and K9 (`edge_block_bwd`, h_hat head-major as
-path C hands it over); K5 and K7 also at h 32 gated (`h32`: K5's general
-body); CUDA events, median of 30 launches with L2 flushed before each.
-The host time of one K4, K5 and K7 call (the wrapper's checks and
-launches, mean of 100 calls while a spin kernel keeps the card busy, so
-the clock sees the host's work alone). A digest (sha256 of the output
-bytes) of K4's, K5's, K6's and K9's outputs, to show that two checkouts
-compute them bit for bit alike. Then, in bf16 as shipped, the median wall
-time of 24 training steps on path A (K3; K4, K5), on path C (K1, K8; K9,
-K2) and on A-merged (K3; K7), and of 24 serving requests on path A, 128
-graphs each, after a warm-up. Prints the card's name and power limit, then
-one JSON line. Needs a CUDA device.
+(`fused_layer_bwd_mono`, the draws live; `K6 head`: its head kernel
+alone, where the checkout has one) and K9 (`edge_block_bwd`, h_hat
+head-major as path C hands it over); K5 and K7 also at h 32 gated
+(`h32`: K5's general body); CUDA events, median of 30 launches with L2
+flushed before each. The host time of one K4, K5, K7 and K6 call (the
+wrapper's checks and launches, mean of 100 calls while a spin kernel
+keeps the card busy, so the clock sees the host's work alone). A digest
+(sha256 of the output bytes) of K3's (training), K4's, K5's, K7's, K6's
+and K9's outputs, to show that two checkouts compute them bit for bit
+alike. The bytes K7's and K6's launches move in bf16 and the floor they
+set. Then, in bf16 as shipped, the median wall time of 24 training steps
+on path A (K3; K4, K5), on path C (K1, K8; K9, K2), on A-merged (K3; K7)
+and on A-mono (K3; K6), and of 24 serving requests on path A, 128 graphs
+each, after a warm-up. Prints the card's name and power limit, then one
+JSON line. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -157,23 +160,30 @@ def main(argv=None) -> int:
             tspec, e, qkv, mask, None, w, hh, dhh, dm, gv, 77))
         margs = (tspec, e, qkv, mask, None, w, hh, g, gv, 77)
         res[f"K7 {name}"] = time_ms(lambda: fl._bwd_merged_cuda(*margs))
-        res[f"K6 {name}"] = time_ms(lambda: fl._bwd_mono_cuda(
-            tspec, e, qkv, mask, None, w, g, gv, 77))
+        oargs = (tspec, e, qkv, mask, None, w, g, gv, 77)
+        res[f"K6 {name}"] = time_ms(lambda: fl._bwd_mono_cuda(*oargs))
+        if hasattr(fl, "_mono_head_cuda"):
+            res[f"K6 head {name}"] = time_ms(
+                lambda: fl._mono_head_cuda(tspec, e, qkv, w))
         res[f"K4 host us {name}"] = host_us(
             lambda: fl._bwd_tail_cuda(spec, e, hh, g, w))
         res[f"K5 host us {name}"] = host_us(lambda: fl._bwd_attn_cuda(
             tspec, e, qkv, mask, None, w, hh, dhh, dm, gv, 77))
         res[f"K7 host us {name}"] = host_us(
             lambda: fl._bwd_merged_cuda(*margs))
+        res[f"K6 host us {name}"] = host_us(
+            lambda: fl._bwd_mono_cuda(*oargs))
         hm = randn(B, H, L, L, scale=2.0).to(dt).permute(0, 2, 3, 1)
         tw = {k: w[k] for k in fl.TAIL_KEYS}
         res[f"K9 {name}"] = time_ms(lambda: eb._edge_block_bwd_cuda(hm, e, g, tw))
-        res[f"digest K4 K5 K6 K9 {name}"] = " ".join(digest(x) for x in (
-            fl._bwd_tail_cuda(spec, e, hh, g, w),
-            fl._bwd_attn_cuda(tspec, e, qkv, mask, None, w, hh, dhh, dm, gv,
-                              77),
-            fl._bwd_mono_cuda(tspec, e, qkv, mask, None, w, g, gv, 77),
-            eb._edge_block_bwd_cuda(hm, e, g, tw)))
+        res[f"digest K3 K4 K5 K7 K6 K9 {name}"] = " ".join(
+            digest(x) for x in (
+                fl._fused_layer_cuda(tspec, e, qkv, mask, None, w, 77, True),
+                fl._bwd_tail_cuda(spec, e, hh, g, w),
+                fl._bwd_attn_cuda(tspec, e, qkv, mask, None, w, hh, dhh, dm,
+                                  gv, 77),
+                fl._bwd_merged_cuda(*margs), fl._bwd_mono_cuda(*oargs),
+                eb._edge_block_bwd_cuda(hm, e, g, tw)))
         # K5's general body (and K7 through it): h 32 gated, 2h past 16
         w32 = weights(dt, H32)
         spec32 = tspec._replace(h=H32, scale=float(DH // H32) ** -0.5)
@@ -202,6 +212,14 @@ def main(argv=None) -> int:
     res["K7 hand-off MB written + read"] = 2 * handoff / 1e6
     res["K7 composition MB"] = (tail + attn) / 1e6
     res["K7 composition floor ms at 3.35 TB/s"] = (tail + attn) / 3.35e9
+    # K6 adds its head kernel (e, q and k in; hh in f32, rnd(hh) and one
+    # flag byte a (pair, head) out), and its K5 body reads hh in f32 (2
+    # bytes more a value than K7's) and the flags
+    head = (pairs * EW + B * L * 2 * DH) * it + pairs * H * (4 + it + 1)
+    mono = tail + attn + head + pairs * H * (4 - it + 1)
+    res["K6 head MB"] = head / 1e6
+    res["K6 composition MB"] = mono / 1e6
+    res["K6 composition floor ms at 3.35 TB/s"] = mono / 3.35e9
 
     config = root / "configs" / "main" / "zinc" / "500k" / "egt.json"
     raw = json.loads(config.read_text())
@@ -212,7 +230,8 @@ def main(argv=None) -> int:
               "use_pallas_edge": True}
     for tag, over, impl in (("train A", {}, "split"),
                             ("train C", path_c, "split"),
-                            ("train A-merged", {}, "merged")):
+                            ("train A-merged", {}, "merged"),
+                            ("train A-mono", {}, "mono")):
         fl.BWD_IMPL = impl
         tr = load_trainer({**raw, **over}, flat)
         for bt in batches[:2]:

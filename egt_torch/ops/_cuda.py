@@ -77,13 +77,15 @@ def build(sources) -> dict[str, str]:
 
 
 class CudaKernel:
-    """One exported C entry point of a `csrc/*.cu` file.
+    """One exported C entry point of a `csrc/*.cu` file: `entry`, by default
+    the function named as the file.
 
     `launches` counts the launches made through `__call__` (and nowhere
     else), so a run can show that its main path went through the kernel."""
 
-    def __init__(self, source: str, argtypes: list):
+    def __init__(self, source: str, argtypes: list, entry: str | None = None):
         self.source = source
+        self.entry = entry or source
         self.argtypes = argtypes
         self.launches = 0
         self._lib = None
@@ -99,7 +101,7 @@ class CudaKernel:
 
     def _load(self):
         if self._fn is None:
-            fn = getattr(self._library(), self.source)
+            fn = getattr(self._library(), self.entry)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
             self._fn = fn
@@ -118,7 +120,7 @@ class CudaKernel:
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(*args, stream)
         if rc != 0:
-            raise RuntimeError(f"{self.source}: CUDA error {rc} at launch")
+            raise RuntimeError(f"{self.entry}: CUDA error {rc} at launch")
         self.launches += 1
 
 

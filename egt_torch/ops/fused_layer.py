@@ -30,8 +30,9 @@ raises):
   re-entered at h_hat, the edge head); "merged":
   `csrc/fused_layer_bwd_merged.cu` (K7), the same two bodies in one call
   with de_mid and dhh handed over in f32, as the TPU kernel does; "mono":
-  `csrc/fused_layer_bwd_mono.cu` (K6), nothing saved but the inputs, q.k
-  and h_hat recomputed.
+  `csrc/fused_layer_bwd_mono.cu` (K6), nothing saved but the inputs: a small
+  kernel recomputes h_hat from q.k and the edge head (`mono_head`), then
+  K7's two bodies run from it, the clip's test on the raw logit.
 
 `FusedLayerFn` is the `torch.autograd.Function` around them. The random
 mask and dropout draw from `ops/rng.py` (Philox; `csrc/philox.cuh`).
@@ -53,11 +54,15 @@ KERNEL = _cuda.CudaKernel("fused_layer_fwd", _cuda.argtypes(
 BWD_TAIL_KERNEL = _cuda.CudaKernel("fused_layer_bwd_tail", _cuda.argtypes(
     "i ppp pppp pppp pp pp i L iii if"))
 BWD_ATTN_KERNEL = _cuda.CudaKernel("fused_layer_bwd_attn", _cuda.argtypes(
-    "i pppp pppp pp pppp pppp pp iiiii ii fff if uu fff"))
+    "i pppp pppp pp pppp pppp ppp iiiii ii fff if uu fff"))
 BWD_MERGED_KERNEL = _cuda.CudaKernel("fused_layer_bwd_merged", _cuda.argtypes(
     "i pppp pppp pp pppp pppp ppp pp pppp pp i iiiiiiii fff ifif uu fff"))
 BWD_MONO_KERNEL = _cuda.CudaKernel("fused_layer_bwd_mono", _cuda.argtypes(
-    "i pppp pppp pp pppp pppp pp pppp pp iiiiii ii fff ifif uu fff"))
+    "i pppp pppp pp pppp pppp pp ppp pp pppp pp i iiiiiiii fff ifif uu fff"))
+# K6's first launch alone: h_hat recomputed, with the clip's in-range flags
+MONO_HEAD_KERNEL = _cuda.CudaKernel(
+    "fused_layer_bwd_mono", _cuda.argtypes("i pp pppp ppp iiiii i fff if"),
+    entry="fused_layer_bwd_mono_head")
 
 BWD_IMPLS = ("split", "merged", "mono")
 BWD_IMPL = os.environ.get("EGT_FUSED_BWD", "split")
@@ -459,21 +464,20 @@ def fused_layer_bwd_tail(spec: LayerSpec, e, hh, g_eout, w):
 
 
 def fused_layer_bwd_attn_plain(spec: LayerSpec, e, qkv, mask, amask, w, hh,
-                               dhh, de_mid, g_vatt, seed: int = 0, head=None,
-                               s_raw=None):
+                               dhh, de_mid, g_vatt, seed: int = 0,
+                               inrange=None):
     """Plain PyTorch version of K5 (`_bwd_attn_kernel`): recompute LN1, the
     gates and E; re-enter the softmax chain at the saved h_hat with the same
     draws; run the softmax / gate / dropout / clip backward and the edge-head
     backward; add de_mid. Returns (de, dq) in the working type, (dk, dv)
     (b, l, dh) f32, and the f32 weight gradients {wg, bg, wb, bb, g1, b1}
     (without wg, bg when ungated). The clip's in-range test is strict, on
-    hh - E. K6 and K7 share it: `hh`, `dhh` and `de_mid` may be f32,
-    `head` is the edge head's `_edge_head` when the caller has it, and K6
-    tests the clip on its raw logit `s_raw`."""
+    hh - E. K6 and K7 share it: `hh`, `dhh` and `de_mid` may be f32, and
+    K6's mono switch hands over `inrange` (b, l, l, h), the test taken on
+    the raw logit (`mono_head_plain`), in its place."""
     dt = e.dtype
     b, l = mask.shape
-    x1, rstd1, e_ln, G, P, E = head if head is not None else \
-        _edge_head(spec, e, w)
+    x1, rstd1, e_ln, G, P, E = _edge_head(spec, e, w)
     hhf = hh.float()
     a_sm, sg, kept, a_drop = _softmax_gate(spec, hhf, G, mask, amask, seed)
     q, k, v = _split_qkv(spec, qkv)
@@ -490,9 +494,10 @@ def fused_layer_bwd_attn_plain(spec: LayerSpec, e, qkv, mask, amask, w, hh,
     dH = a_sm * (da_sm - t) + dhh.float()
     ds = dH * spec.scale
     if spec.clip is not None:
-        # hh - E = clip(q.k scale): in range strictly
-        s_c = hhf - E if s_raw is None else s_raw
-        ds = torch.where((s_c > spec.clip[0]) & (s_c < spec.clip[1]), ds, 0.0)
+        if inrange is None:     # hh - E = clip(q.k scale): in range strictly
+            s_c = hhf - E
+            inrange = (s_c > spec.clip[0]) & (s_c < spec.clip[1])
+        ds = torch.where(inrange.bool(), ds, 0.0)
     ds_dt = ds.to(dt).float()
     dq = torch.einsum("bijh,bjdh->bidh", ds_dt, k.float()).to(dt)
     dk = torch.einsum("bijh,bidh->bjdh", ds_dt, q.float())
@@ -542,12 +547,12 @@ def bwd_attn_geometry(spec: LayerSpec,
                       f32_handoff: bool = False) -> dict | None:
     """How K5's bf16 body spreads one graph over the card, from the kernel's
     own layout, with de_mid and dhh handed over in bf16 (K5) or in f32
-    (`f32_handoff`, K7): `warps` a block (one query row a warp), `cluster`
-    blocks a graph, `rows_per_block`, `passes` (rows a warp), `general` (the
-    body for shapes past the register body's tiles), `smem` bytes a block
-    and `kv_global` (k, v, dk and dv in device memory, one block a graph,
-    where no layout with them in shared memory fits); None when no layout
-    fits 227 KB."""
+    (`f32_handoff`, K7, and K6 under its mono switch): `warps` a block (one
+    query row a warp), `cluster` blocks a graph, `rows_per_block`, `passes`
+    (rows a warp), `general` (the body for shapes past the register body's
+    tiles), `smem` bytes a block and `kv_global` (k, v, dk and dv in device
+    memory, one block a graph, where no layout with them in shared memory
+    fits); None when no layout fits 227 KB."""
     g = _attn_geometry(spec.l, spec.ew, spec.h, spec.dh, int(spec.gated),
                        int(f32_handoff))
     keys = ("warps", "cluster", "rows_per_block", "passes", "general", "smem",
@@ -580,10 +585,14 @@ def bwd_tail_geometry(spec: LayerSpec, dtype,
 
 
 def _bwd_attn_cuda(spec: LayerSpec, e, qkv, mask, amask, w, hh, dhh, de_mid,
-                   g_vatt, seed: int = 0):
+                   g_vatt, seed: int = 0, inrange=None):
     dt = e.dtype
     if dt not in _cuda.DTYPE_CODES:
         raise ValueError(f"fused_layer_bwd_attn: unsupported dtype {dt}")
+    if inrange is not None and dt != torch.float32:
+        raise ValueError("fused_layer_bwd_attn: the mono switch (inrange) "
+                         "is taken in f32 only; bf16 runs it inside "
+                         "fused_layer_bwd_mono")
     b, l = mask.shape
     ew, h, dh = spec.ew, spec.h, spec.dh
     for name, t, shape in (("e", e, (b, l, l, ew)), ("qkv", qkv, (b, l, 3 * dh)),
@@ -594,6 +603,8 @@ def _bwd_attn_cuda(spec: LayerSpec, e, qkv, mask, amask, w, hh, dhh, de_mid,
     _cuda.check_cuda("mask", mask, (b, l), torch.float32)
     if amask is not None:
         _cuda.check_cuda("amask", amask, (b, l, l), torch.float32)
+    if inrange is not None:
+        _cuda.check_cuda("inrange", inrange, (b, l, l, h), torch.bool)
     _check_weights(spec, w, dt, ("wg", "bg", "wb", "bb", "g1", "b1"))
     smem = bwd_attn_smem(spec, dt)
     if smem > _SMEM_MAX:
@@ -617,8 +628,9 @@ def _bwd_attn_cuda(spec: LayerSpec, e, qkv, mask, amask, w, hh, dhh, de_mid,
                     w["g1"].data_ptr(), w["b1"].data_ptr(), hh.data_ptr(),
                     dhh.data_ptr(), de_mid.data_ptr(), g_vatt.data_ptr(),
                     de.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                    dw.data_ptr(), partials.data_ptr(), b, l, ew, h, dh,
-                    int(spec.gated), int(spec.clip is not None),
+                    dw.data_ptr(), partials.data_ptr(), _cuda.ptr(inrange),
+                    b, l, ew, h, dh, int(spec.gated),
+                    int(spec.clip is not None),
                     float(clip[0]), float(clip[1]), spec.scale, ea, ea_alpha,
                     *draw_args(spec, seed))
     dwgb, dbgb, dg1, db1 = torch.split(dw, sizes)
@@ -631,9 +643,9 @@ def _bwd_attn_cuda(spec: LayerSpec, e, qkv, mask, amask, w, hh, dhh, de_mid,
 
 @_cuda.dispatch(fused_layer_bwd_attn_plain, _bwd_attn_cuda)
 def fused_layer_bwd_attn(spec: LayerSpec, e, qkv, mask, amask, w, hh, dhh,
-                         de_mid, g_vatt, seed: int = 0):
+                         de_mid, g_vatt, seed: int = 0, inrange=None):
     """(de, dq, dk, dv, dw): K5 on CUDA tensors, its plain version on CPU
-    tensors."""
+    tensors; with `inrange`, K5's body under K6's mono switch."""
 
 
 def fused_layer_bwd_merged_plain(spec: LayerSpec, e, qkv, mask, amask, w,
@@ -648,22 +660,73 @@ def fused_layer_bwd_merged_plain(spec: LayerSpec, e, qkv, mask, amask, w,
     return (*out, {**dw, **dw_head})
 
 
+def mono_head_plain(spec: LayerSpec, e, qkv, w):
+    """Plain PyTorch version of K6's head kernel: h_hat recomputed in f32 as
+    the forward computes it (the edge head, q.k scale, the clip, + E).
+    Returns (hh (b, l, l, h) f32, rnd(hh) in the working type, the clip's
+    in-range flags lo < q.k scale < hi on the raw logit, strict, as bool;
+    None without a clip)."""
+    E = _edge_head(spec, e, w)[5]
+    q, k, _ = _split_qkv(spec, qkv)
+    s = torch.einsum("bidh,bjdh->bijh", q.float(), k.float()) * spec.scale
+    inrange = None
+    if spec.clip is not None:
+        inrange = (s > spec.clip[0]) & (s < spec.clip[1])
+        s = torch.clamp(s, spec.clip[0], spec.clip[1])
+    hh = s + E
+    return hh, hh.to(e.dtype), inrange
+
+
+def _mono_head_outputs(spec: LayerSpec, e, b: int, l: int):
+    """hh (f32), rnd(hh) (bf16 only, else None) and the in-range flags
+    (with a clip, else None) of K6's head kernel."""
+    shape = (b, l, l, spec.h)
+    hh = torch.empty(shape, dtype=torch.float32, device=e.device)
+    hhw = (torch.empty(shape, dtype=e.dtype, device=e.device)
+           if e.dtype != torch.float32 else None)
+    inrange = (torch.empty(shape, dtype=torch.bool, device=e.device)
+               if spec.clip is not None else None)
+    return hh, hhw, inrange
+
+
+def _mono_head_cuda(spec: LayerSpec, e, qkv, w):
+    dt = e.dtype
+    if dt not in _cuda.DTYPE_CODES:
+        raise ValueError(f"fused_layer_bwd_mono_head: unsupported dtype {dt}")
+    b, l, _, ew = e.shape
+    _cuda.check_cuda("e", e, (b, l, l, ew), dt)
+    _cuda.check_cuda("qkv", qkv, (b, l, 3 * spec.dh), dt)
+    _check_weights(spec, w, dt, ("wb", "bb", "g1", "b1"))
+    hh, hhw, inrange = _mono_head_outputs(spec, e, b, l)
+    has_clip, lo, hi, scale, ea, ea_alpha, _, _ = _layer_args(spec, w)
+    MONO_HEAD_KERNEL(_cuda.DTYPE_CODES[dt], e.data_ptr(), qkv.data_ptr(),
+                     w["wb"].data_ptr(), w["bb"].data_ptr(),
+                     w["g1"].data_ptr(), w["b1"].data_ptr(), hh.data_ptr(),
+                     _cuda.ptr(hhw), _cuda.ptr(inrange), b, l, ew, spec.h,
+                     spec.dh, has_clip, lo, hi, scale, ea, ea_alpha)
+    return hh, hh if hhw is None else hhw, inrange
+
+
+@_cuda.dispatch(mono_head_plain, _mono_head_cuda)
+def mono_head(spec: LayerSpec, e, qkv, w):
+    """(hh f32, rnd(hh), in-range flags): K6's head kernel on CUDA tensors,
+    its plain version on CPU tensors."""
+
+
 def fused_layer_bwd_mono_plain(spec: LayerSpec, e, qkv, mask, amask, w,
                                g_eout, g_vatt, seed: int = 0):
     """Plain PyTorch version of K6 (`_bwd_kernel`, "mono"): no saved h_hat.
-    Recompute the edge head, q.k and h_hat in f32 as the forward does; the
-    tail backward from rnd(h_hat); the attention backward with the softmax
-    chain at the f32 h_hat and the clip's strict test on the raw logit;
+    K6's head (`mono_head_plain`: h_hat recomputed in f32 as the forward
+    does, the clip's in-range flags on the raw logit), then K7's math: the
+    tail backward from rnd(h_hat) and the attention backward with the
+    softmax chain at the f32 h_hat and the clip's test from the flags,
     de_mid and dhh in f32. Returns what `fused_layer_bwd_merged_plain`
     does."""
-    head = _edge_head(spec, e, w)
-    q, k, _ = _split_qkv(spec, qkv)
-    s = torch.einsum("bidh,bjdh->bijh", q.float(), k.float()) * spec.scale
-    hh = (torch.clamp(s, *spec.clip) if spec.clip is not None else s) + head[5]
+    hh, _, inrange = mono_head_plain(spec, e, qkv, w)
     de_mid, dhh, dw = tail_bwd(spec.act, e, hh, g_eout, w)
     *out, dw_head = fused_layer_bwd_attn_plain(
         spec, e, qkv, mask, amask, w, hh, dhh, de_mid, g_vatt, seed,
-        head=head, s_raw=s)
+        inrange=inrange)
     return (*out, {**dw, **dw_head})
 
 
@@ -745,23 +808,53 @@ def _weight_ptrs(w):
                                         "bb2")))
 
 
-def bwd_merged_check(spec: LayerSpec, dtype) -> None:
+def _check_bodies(name: str, spec: LayerSpec, dtype) -> None:
     """Raise a ValueError naming the limit when K4's or K5's bodies cannot
-    take a shape with de_mid and dhh handed over in f32 (K7)."""
+    take a shape with de_mid and dhh handed over in f32 (K7, K6)."""
     if bwd_tail_geometry(spec, dtype, f32_handoff=True) is None:
         raise ValueError(
-            f"fused_layer_bwd_merged: ew={spec.ew}, h={spec.h}, "
-            f"hidden={spec.hidden}: no body of the tail backward (K4) fits "
-            "227 KB of shared memory per block")
+            f"{name}: ew={spec.ew}, h={spec.h}, hidden={spec.hidden}: no "
+            "body of the tail backward (K4) fits 227 KB of shared memory "
+            "per block")
     if dtype == torch.bfloat16:
         fits = bwd_attn_geometry(spec, f32_handoff=True) is not None
     else:                  # the f32 body reads the working type: the split's
         fits = bwd_attn_smem(spec, dtype) <= _SMEM_MAX
     if not fits:
         raise ValueError(
-            f"fused_layer_bwd_merged: l={spec.l}, ew={spec.ew}, h={spec.h}, "
-            f"dh={spec.dh}: the attention backward (K5) needs more than "
-            "227 KB of shared memory per block")
+            f"{name}: l={spec.l}, ew={spec.ew}, h={spec.h}, dh={spec.dh}: "
+            "the attention backward (K5) needs more than 227 KB of shared "
+            "memory per block")
+
+
+def bwd_merged_check(spec: LayerSpec, dtype) -> None:
+    """Raise a ValueError naming the limit when K4's or K5's bodies cannot
+    take a shape with de_mid and dhh handed over in f32 (K7)."""
+    _check_bodies("fused_layer_bwd_merged", spec, dtype)
+
+
+def bwd_mono_check(spec: LayerSpec, dtype) -> None:
+    """Raise a ValueError naming the limit when K6's bodies cannot take a
+    shape: K4's and K5's as K7 runs them (K5's mono switch keeps K7's
+    layout). The head kernel takes every shape they take: its shared memory
+    is (32 + h) rows of ew + 4 floats, 166 KB at ew 256, h 128."""
+    _check_bodies("fused_layer_bwd_mono", spec, dtype)
+
+
+def _handoff(spec: LayerSpec, e, b: int, l: int):
+    """K7's and K6's f32 hand-off (de_mid, dhh), the row count of K4's
+    partial sums and the partial rows of both bodies' sums: K4's sum pass
+    reads its rows before K5's body, later on the same stream, writes its
+    own."""
+    de_mid = torch.empty((b, l, l, spec.ew), dtype=torch.float32,
+                         device=e.device)
+    dhh = torch.empty((b, l, l, spec.h), dtype=torch.float32, device=e.device)
+    max_grid = 2 * torch.cuda.get_device_properties(
+        e.device).multi_processor_count
+    partials = torch.empty(max(max_grid * _tail_len(spec),
+                               b * _head_len(spec)),
+                           dtype=torch.float32, device=e.device)
+    return de_mid, dhh, max_grid, partials
 
 
 def _bwd_merged_cuda(spec: LayerSpec, e, qkv, mask, amask, w, hh, g_eout,
@@ -774,13 +867,7 @@ def _bwd_merged_cuda(spec: LayerSpec, e, qkv, mask, amask, w, hh, g_eout,
     ew, h = spec.ew, spec.h
     de, dq, dk, dv, dw = _bwd_outputs(spec, e, b, l)
     # the hand-off: de_mid and dhh in f32, written by K4's body, read by K5's
-    de_mid = torch.empty((b, l, l, ew), dtype=torch.float32, device=e.device)
-    dhh = torch.empty((b, l, l, h), dtype=torch.float32, device=e.device)
-    max_grid = 2 * torch.cuda.get_device_properties(
-        e.device).multi_processor_count
-    partials = torch.empty(max(max_grid * _tail_len(spec),
-                               b * _head_len(spec)),
-                           dtype=torch.float32, device=e.device)
+    de_mid, dhh, max_grid, partials = _handoff(spec, e, b, l)
     BWD_MERGED_KERNEL(_cuda.DTYPE_CODES[dt], e.data_ptr(), qkv.data_ptr(),
                       mask.data_ptr(), _cuda.ptr(amask), *_weight_ptrs(w),
                       hh.data_ptr(), g_eout.data_ptr(), g_vatt.data_ptr(),
@@ -794,30 +881,24 @@ def _bwd_merged_cuda(spec: LayerSpec, e, qkv, mask, amask, w, hh, g_eout,
 
 def _bwd_mono_cuda(spec: LayerSpec, e, qkv, mask, amask, w, g_eout, g_vatt,
                    seed: int = 0):
-    kernel = BWD_MONO_KERNEL
-    _check_bwd_inputs(kernel.source, spec, e, qkv, mask, amask, w, g_eout,
-                      g_vatt)
+    _check_bwd_inputs("fused_layer_bwd_mono", spec, e, qkv, mask, amask, w,
+                      g_eout, g_vatt)
     dt = e.dtype
+    bwd_mono_check(spec, dt)
     b, l = mask.shape
-    ew, h, dh, hid = spec.ew, spec.h, spec.dh, spec.hidden
-    smem = kernel.query("fused_layer_bwd_row_smem", "iiiiiii",
-                        _cuda.DTYPE_CODES[dt], l, ew, h, dh, hid,
-                        int(spec.gated))
-    if smem > _SMEM_MAX:
-        raise ValueError(f"{kernel.source}: l={l}, ew={ew}, hidden={hid} "
-                         f"need {smem} bytes of shared memory per block "
-                         "(max 227 KB)")
     de, dq, dk, dv, dw = _bwd_outputs(spec, e, b, l)
-    partials = torch.empty((b, dw.numel()), dtype=torch.float32,
-                           device=e.device)
-    has_clip, lo, hi, scale, ea, ea_alpha, act, act_alpha = \
-        _layer_args(spec, w)
-    kernel(_cuda.DTYPE_CODES[dt], e.data_ptr(), qkv.data_ptr(),
-           mask.data_ptr(), _cuda.ptr(amask), *_weight_ptrs(w),
-           g_eout.data_ptr(), g_vatt.data_ptr(), de.data_ptr(), dq.data_ptr(),
-           dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), partials.data_ptr(),
-           b, l, ew, h, dh, hid, int(spec.gated), has_clip, lo, hi, scale,
-           ea, ea_alpha, act, act_alpha, *draw_args(spec, seed))
+    # the head kernel's h_hat and flags, then K7's f32 hand-off
+    hh, hhw, inrange = _mono_head_outputs(spec, e, b, l)
+    de_mid, dhh, max_grid, partials = _handoff(spec, e, b, l)
+    BWD_MONO_KERNEL(_cuda.DTYPE_CODES[dt], e.data_ptr(), qkv.data_ptr(),
+                    mask.data_ptr(), _cuda.ptr(amask), *_weight_ptrs(w),
+                    g_eout.data_ptr(), g_vatt.data_ptr(), hh.data_ptr(),
+                    _cuda.ptr(hhw), _cuda.ptr(inrange), de_mid.data_ptr(),
+                    dhh.data_ptr(), de.data_ptr(), dq.data_ptr(),
+                    dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
+                    partials.data_ptr(), max_grid, b, l, spec.ew, spec.h,
+                    spec.dh, spec.hidden, int(spec.gated),
+                    *_layer_args(spec, w), *draw_args(spec, seed))
     return de, dq, dk, dv, _split_dw(spec, dw)
 
 

@@ -1,7 +1,7 @@
-"""Which phase of the bf16 K3, K4 and K5 bodies takes their time, by
-ablation.
+"""Which phase of the bf16 K3, K4 and K5 bodies and of K6's head kernel
+takes their time, by ablation.
 
-    python3 -m egt_torch.phase_times [K3 K4 K5]
+    python3 -m egt_torch.phase_times [K3 K4 K5 K6]
 
 Copies `egt_torch/csrc` into `build/egt_torch/phases/`, and builds one
 library per variant in which one phase's loops run no iteration (the `all`
@@ -16,7 +16,10 @@ K5's phases: `head_mma` the three edge-head products, `chain` the softmax /
 gate / dropout / clip chain (its da dot product included), `per_head` the
 per-head products (da = gv . v, dq, dk and dv); with all three skipped, the
 loads, LayerNorm and its backward, the stores and the cluster's sum remain.
-Times the kernels named (all three by default). Prints the card's name and
+K6: its head kernel (`mono_head_kernel`) alone, phases `ln1` (LayerNorm of
+e), `p` (the edge-bias product), `qk` (q . k) and `wt` (staging Wb
+transposed); with all four skipped, the loads of e and the stores remain.
+Times the kernels named (all four by default). Prints the card's name and
 power limit, one line per variant, then one JSON line. Needs a CUDA device.
 """
 
@@ -68,6 +71,12 @@ PHASES = {
         "per_head": {"for (int dd = 0; dd < ndd; ++dd) {": 1,
                      "for (int f0 = 2 * lane; f0 < dh; f0 += 64) {": 1,
                      "for (int w = 0; w < nrows; ++w) {": 1},
+    }),
+    "K6": ("fused_layer_bwd_mono", "fused_layer_bwd_mono.cu", {
+        "ln1": {"for (int c = g; c < ew; c += 8)": 3},
+        "p": {"for (int c = 0; c < ew4 / 4; ++c) {": 1},
+        "qk": {"for (int f = hd; f < dh; f += h) sc": 1},
+        "wt": {"for (int t = tid; t < ew4 * h; t += HEAD_NT) {": 1},
     }),
 }
 
@@ -176,7 +185,9 @@ def main(argv=None) -> int:
             "K4": (fl.BWD_TAIL_KERNEL, lambda: fl._bwd_tail_cuda(
                 spec, e, hh, g, w)),
             "K5": (fl.BWD_ATTN_KERNEL, lambda: fl._bwd_attn_cuda(
-                spec, e, qkv, mask, None, w, hh, dhh, g, gv, 77))}
+                spec, e, qkv, mask, None, w, hh, dhh, g, gv, 77)),
+            "K6": (fl.MONO_HEAD_KERNEL, lambda: fl._mono_head_cuda(
+                spec, e, qkv, w))}
     res = {"device": smi}
     for kernel in kernels:
         kern, fn = runs[kernel]

@@ -147,12 +147,14 @@ def test_wrappers_reject_unsupported_dtype(dev):
 
 # (b, l, ew, h, dh): l 37 spans two key chunks; the ZINC-500k layer shape
 LAYER_SHAPES = {"awkward": (3, 37, 24, 4, 16), "flagship": (4, 40, 64, 8, 64)}
+# and for K6's head kernel an edge width of no whole 16-byte loads a row
+HEAD_SHAPES = {**LAYER_SHAPES, "ew10": (2, 9, 10, 2, 6)}
 
 
 def _layer_case(dev, dtype, constrained, gated, training=True,
                 shape="awkward"):
     g_ = _gen(dev)
-    b, l, ew, h, dh = LAYER_SHAPES[shape]
+    b, l, ew, h, dh = HEAD_SHAPES[shape]
 
     def rnd(*s, scale=1.0):
         return scale * torch.randn(s, generator=g_, device=dev)
@@ -418,7 +420,11 @@ def test_merged_kernel_at_the_edges_of_its_layouts(dev, shape):
     before = fl.BWD_MERGED_KERNEL.launches
     out = fl.fused_layer_bwd_merged(*args)
     assert fl.BWD_MERGED_KERNEL.launches == before + 1
-    ref = fl.fused_layer_bwd_merged_plain(*args)
+    _close_bwd_row_scaled(out, fl.fused_layer_bwd_merged_plain(*args), dtype)
+
+
+def _close_bwd_row_scaled(out, ref, dtype):
+    """K7's or K6's outputs against the plain version's."""
     # de with the absolute part scaled by each pair's largest |de|: de_mid
     # and dhh reach de and dH in f32, summed in another order by K4's
     # tensor cores than by the plain version, and where dH sits at a bf16
@@ -475,22 +481,54 @@ def test_merged_f32_equals_tail_then_attn(dev, constrained, gated, shape):
     assert _same_bwd(out, (*split[:4], {**dw, **split[4]}))
 
 
+def _row_smem(dtype, l, ew, h, dh, hid, gated):
+    """Shared memory in bytes a block of the one-block-a-graph row kernel
+    took (RowLayout of the deleted `fused_layer_bwd_row.cuh`, which ran the
+    first K6 and K7) at the largest tail tile that fitted 227 KB: a whole
+    row up to l 64, else 32, 16 or 8 pairs. Frozen from its source, and
+    checked equal to it at every shape of the sweep below before the header
+    went, so the sweep keeps the set of shapes that kernel took."""
+    it = 4 if dtype == torch.float32 else 2
+
+    def pad(n):                 # pad_stride: an odd number of 32-bit words
+        if it == 4:
+            return n | 1
+        n2 = (n + 1) & ~1
+        return n2 if (n2 // 2) % 2 else n2 + 2
+
+    nproj = 2 * h if gated else h
+
+    def smem(tp):
+        nf = (h * ew + 4 * ew + 2 * ew * hid + hid      # the tail's sums
+              + ew * nproj + nproj + 2 * ew              # the head's sums
+              + 4 * ew + hid + nproj + 2 * ew            # biases, LN vectors
+              + 3 * l * ew + 2 * l + 12 * l * h + h + 2 * dh   # row buffers
+              + tp * (3 * ew + hid + 1))                 # the tail's tile
+        nf = (nf + 3) & ~3
+        nt = ew * pad(nproj) + h * pad(ew) + ew * pad(hid) + hid * pad(ew)
+        return nf * 4 + nt * it
+
+    for tp in ((l,) if l <= 64 else ()) + (32, 16, 8):
+        if smem(tp) <= 227 * 1024:
+            return smem(tp)
+    return smem(8)
+
+
 @pytest.mark.parametrize("h", [1, 2, 4, 6, 8, 16, 32, 64, 128])
 def test_merged_takes_every_shape_the_row_kernel_took(dev, h):
     """Every shape whose shared memory fitted 227 KB in the old
-    one-block-a-graph K7 (`fused_layer_bwd_row_smem`, the layout K6 still
-    runs), at l 1-256, edge widths 8-256, FFN hidden 1x and 2x the edge
+    one-block-a-graph row kernel (`_row_smem`, the layout the first K7 and
+    K6 ran), at l 1-256, edge widths 8-256, FFN hidden 1x and 2x the edge
     width, f32 and bf16, gets a layout of K4's body and a geometry of K5's
-    body for the f32 hand-off, and passes K7's own check."""
-    for dt, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+    body for the f32 hand-off (K6's mono switch keeps K7's layout), and
+    passes K7's and K6's own checks."""
+    for dt in (torch.float32, torch.bfloat16):
         for dh in sorted({h, 2 * h, 7 * h, max(64, h) // h * h, 768 // h * h}):
             for ew in (8, 10, 48, 64, 80, 96, 128, 136, 256):
                 for hid in (ew, 2 * ew):
                     for gated in (True, False):
                         for l in range(1, 257):
-                            if fl.BWD_MONO_KERNEL.query(
-                                    "fused_layer_bwd_row_smem", "iiiiiii",
-                                    code, l, ew, h, dh, hid, int(gated)) > \
+                            if _row_smem(dt, l, ew, h, dh, hid, gated) > \
                                     227 * 1024:
                                 continue
                             spec = fl.LayerSpec(
@@ -514,6 +552,7 @@ def test_merged_takes_every_shape_the_row_kernel_took(dev, h):
                                 assert fl.bwd_attn_smem(spec, dt) <= \
                                     227 * 1024, where
                             fl.bwd_merged_check(spec, dt)
+                            fl.bwd_mono_check(spec, dt)
 
 
 def test_merged_refuses_a_shape_past_227_kb(dev):
@@ -541,6 +580,115 @@ def test_merged_refuses_a_shape_past_227_kb(dev):
                                   torch.ones(b, l, device=dev), None, w,
                                   z(b, l, l, h), z(b, l, l, ew), z(b, l, dh))
     assert fl.BWD_MERGED_KERNEL.launches == before
+
+
+def _mono_args(dev, dtype, shape, gated=True, constrained=True):
+    """K6's arguments: K7's without the saved h_hat."""
+    args = _merged_args(dev, dtype, shape, gated, constrained)
+    return args[:6] + args[7:]
+
+
+@pytest.mark.parametrize("shape", list(HEAD_SHAPES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("clip", [True, False], ids=["clip", "no_clip"])
+def test_mono_head_kernel_matches_plain(dev, dtype, shape, clip):
+    """K6's head kernel against `mono_head_plain`: the f32 h_hat within the
+    tolerance of its dtype (bf16: e_ln rounds to bf16 after LN1's sums in
+    another order), rnd(h_hat) likewise, and the clip's in-range flags
+    equal (random q and k put no raw logit within an ulp of an edge)."""
+    spec, e, qkv, mask, am, w, _ = _layer_case(dev, dtype, True, True,
+                                               shape=shape)
+    if not clip:
+        spec = spec._replace(clip=None)
+    before = fl.MONO_HEAD_KERNEL.launches
+    out = fl.mono_head(spec, e, qkv, w)
+    assert fl.MONO_HEAD_KERNEL.launches == before + 1
+    ref = fl.mono_head_plain(spec, e, qkv, w)
+    _close(out[0], ref[0], dtype)
+    _close(out[1], ref[1], dtype)
+    assert out[0].dtype == torch.float32 and out[1].dtype == dtype
+    if clip:
+        assert out[2].dtype == torch.bool and torch.equal(out[2], ref[2])
+        assert bool(ref[2].any()) and not bool(ref[2].all())
+    else:
+        assert out[2] is None and ref[2] is None
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    pytest.param(s, dt, id=f"{s}-{str(dt)[6:]}")
+    for s in LAYER_SHAPES for dt in (torch.float32, torch.bfloat16)] + [
+    pytest.param(s, MERGED_SHAPES[s][0], id=s)
+    for s in ("kv_global_bf16", "kv_global_f32")])
+def test_mono_outputs_bit_identical_across_launches(dev, dtype, shape):
+    """K6's three launches sum in a fixed order (partial rows, the
+    cluster's ranks in order, no float atomics): two calls agree to the
+    bit, one launch counted a call."""
+    args = _mono_args(dev, dtype, shape)
+    before = fl.BWD_MONO_KERNEL.launches
+    assert _same_bwd(fl.fused_layer_bwd_mono(*args),
+                     fl.fused_layer_bwd_mono(*args))
+    assert fl.BWD_MONO_KERNEL.launches == before + 2
+
+
+@pytest.mark.parametrize("shape", list(LAYER_SHAPES))
+@pytest.mark.parametrize("constrained,gated", [(False, True), (True, False)])
+def test_mono_f32_equals_head_then_tail_then_attn(dev, constrained, gated,
+                                                  shape):
+    """In f32, K6 is its three parts run in turn, bit for bit: the head
+    kernel, K4 from its h_hat, then K5 under the mono switch (the head's
+    f32 h_hat and flags, K4's de_mid and dhh)."""
+    spec, e, qkv, mask, am, w, ge, gv, seed = _mono_args(
+        dev, torch.float32, shape, gated, constrained)
+    out = fl.fused_layer_bwd_mono(spec, e, qkv, mask, am, w, ge, gv, seed)
+    hh, hh_w, inrange = fl.mono_head(spec, e, qkv, w)
+    assert hh_w is hh
+    de_mid, dhh, dw = fl.fused_layer_bwd_tail(spec, e, hh, ge, w)
+    split = fl.fused_layer_bwd_attn(spec, e, qkv, mask, am, w, hh, dhh,
+                                    de_mid, gv, seed, inrange=inrange)
+    assert _same_bwd(out, (*split[:4], {**dw, **split[4]}))
+
+
+@pytest.mark.parametrize("shape", list(MERGED_SHAPES))
+def test_mono_kernel_at_the_edges_of_its_layouts(dev, shape):
+    """K6 against its plain version where its bodies take their other
+    layouts (K5's kv_global under the mono switch; K4's CUDA-core body,
+    in bf16 too), with the draws live, edge activation elu."""
+    dtype = MERGED_SHAPES[shape][0]
+    args = _mono_args(dev, dtype, shape)
+    if shape.startswith("kv_global") and dtype == torch.bfloat16:
+        g = fl.bwd_attn_geometry(args[0], f32_handoff=True)
+        assert g["kv_global"] == 1 and g["cluster"] == 1
+    before = fl.BWD_MONO_KERNEL.launches
+    out = fl.fused_layer_bwd_mono(*args)
+    assert fl.BWD_MONO_KERNEL.launches == before + 1
+    _close_bwd_row_scaled(out, fl.fused_layer_bwd_mono_plain(*args), dtype)
+
+
+def test_mono_refuses_a_shape_past_227_kb(dev):
+    """A shape no layout of K5's body fits raises a ValueError that names
+    the limit, and launches nothing."""
+    spec = fl.LayerSpec(l=256, ew=64, h=64, dh=64, hidden=128, gated=True,
+                        constrained=False, clip=(-5.0, 5.0), edge_act=None,
+                        act="elu", scale=0.35, training=True)
+    assert fl.bwd_attn_geometry(spec, f32_handoff=True) is None
+    b, l, ew, h, dh = 1, spec.l, spec.ew, spec.h, spec.dh
+
+    def z(*s, dt=torch.bfloat16):
+        return torch.zeros(s, device=dev, dtype=dt)
+
+    w = dict(wg=z(ew, h), bg=z(h, dt=torch.float32), wb=z(ew, h),
+             bb=z(h, dt=torch.float32), g1=torch.ones(ew, device=dev),
+             b1=z(ew, dt=torch.float32), wr=z(h, ew),
+             br=z(ew, dt=torch.float32), g2=torch.ones(ew, device=dev),
+             b2=z(ew, dt=torch.float32), w1=z(ew, 128),
+             bb1=z(128, dt=torch.float32), w2=z(128, ew),
+             bb2=z(ew, dt=torch.float32))
+    before = fl.BWD_MONO_KERNEL.launches
+    with pytest.raises(ValueError, match="227 KB"):
+        fl.fused_layer_bwd_mono(spec, z(b, l, l, ew), z(b, l, 3 * dh),
+                                torch.ones(b, l, device=dev), None, w,
+                                z(b, l, l, ew), z(b, l, dh))
+    assert fl.BWD_MONO_KERNEL.launches == before
 
 
 # (b, l, ew, h): 4 * 7 * 7 pairs is not a multiple of the 32-pair tile
