@@ -9,8 +9,8 @@ final result line):
      `nvcc --version`;
   2. build the nine CUDA kernels from `egt_torch/csrc` (one nvcc each, in
      parallel); the HMMA (tensor-core) instruction count of K3's, K4's,
-     K5's, K7's and K6's libraries per kernel function from `cuobjdump
-     -sass` ("not available" without it): non-zero in the bf16
+     K5's, K7's, K6's and K8's libraries per kernel function from
+     `cuobjdump -sass` ("not available" without it): non-zero in the bf16
      tensor-core bodies, zero in the f32 ones;
   3. each kernel against its plain PyTorch version on the card, at the
      ZINC-500k shapes in f32 and bf16 with ragged node masks, plus one
@@ -23,8 +23,13 @@ final result line):
      across two launches, and in f32 equal to their parts run in turn bit
      for bit) and K2 with the same draws (awkward: l 37, ew 32, h 4, hard
      mask); the edge block's K8 and K9 with h_hat head-major, as
-     path C hands it over (awkward: ew 32, hidden 64, h 4, rows, a pair
-     count that is no multiple of the 32-pair tile); K3, K4 and K9 (and K5-
+     path C hands it over, and as rows (awkward: ew 32, hidden 64, h 4,
+     rows, a pair count that is no multiple of the 32-pair tile; ew 128,
+     hidden 256, h 16, l 11 head-major: K8's bf16 body at fewer warps a
+     block; ew 160, hidden 160: K8's CUDA-core body; both bf16 only and
+     without K9, whose bodies do not fit there),
+     each tagged with the body K8's geometry query names, K8's bf16 output
+     bit-identical across two launches; K3, K4 and K9 (and K5-
      K7) also at the other shipped edge widths, 8 (hidden 16) and 48
      (hidden 96), with 8 heads and 6845 pairs (no multiple of the bf16
      128-pair tile); K5 alone at the flagship batch with ragged l (9, 41:
@@ -180,13 +185,13 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {src}: {line.strip()}")
 
-    # tensor-core instructions in the SASS of K3's, K4's, K5's, K7's and
-    # K6's libraries, per kernel function: the bf16 bodies run mma.sync
+    # tensor-core instructions in the SASS of K3's, K4's, K5's, K7's, K6's
+    # and K8's libraries, per kernel function: the bf16 bodies run mma.sync
     # (HMMA), the f32 ones none (exact f32, no TF32)
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     for src in ("fused_layer_fwd", "fused_layer_bwd_tail",
                 "fused_layer_bwd_attn", "fused_layer_bwd_merged",
-                "fused_layer_bwd_mono"):
+                "fused_layer_bwd_mono", "edge_block_fwd"):
         if not Path(cuobjdump).exists():
             print(f"  {src}: HMMA count not available (no cuobjdump)")
             continue
@@ -553,8 +558,9 @@ def main() -> int:
         check_attn_rerun(tag, out, aargs)
 
     # ---- 3c. edge block (K8 forward, K9 backward)
-    def edge_case(b, l, ew, h, dtype, head_major, timing=True):
-        hid = 2 * ew
+    def edge_case(b, l, ew, h, dtype, head_major, timing=True, hid=None,
+                  bwd=True):
+        hid = hid or 2 * ew
         w = dict(wr=randn(h, ew, scale=0.3).to(dtype), br=randn(ew, scale=0.1),
                  g2=1 + randn(ew, scale=0.1), b2=randn(ew, scale=0.1),
                  w1=randn(ew, hid, scale=0.2).to(dtype),
@@ -571,16 +577,25 @@ def main() -> int:
         it = e.element_size()
         n = b * l * l
         wbytes = (h * ew + 2 * ew * hid) * it + (4 * ew + hid) * 4
+        geo = eb.fwd_geometry(dtype, ew, h, hid, head_major)
+        body = (f"{'tensor-core' if geo['tensor_cores'] else 'CUDA-core'} "
+                f"body, {geo['warps']} warps, {geo['smem']} B")
         out = eb._edge_block_fwd_cuda(hh, e, w)
         ref = eb.edge_block_fwd_plain(hh, e, w)
         torch.cuda.synchronize()
+        if geo["tensor_cores"]:
+            check(torch.equal(out, eb._edge_block_fwd_cuda(hh, e, w)),
+                  f"edge_block_fwd {shape} ({body}): output bit-identical "
+                  "across two launches")
         res = {"fwd": timed(
-            f"edge_block_fwd {shape}", [max_err(out, ref, dtype)],
+            f"edge_block_fwd {shape} ({body})", [max_err(out, ref, dtype)],
             lambda: eb._edge_block_fwd_cuda(hh, e, w),
             lambda: eb.edge_block_fwd_plain(hh, e, w),
             n * (h + 2 * ew) * it + wbytes,
             n * 2 * (h * ew + 2 * ew * hid), n * (12 * ew + 2 * hid), dtype,
             timing)}
+        if not bwd:
+            return res
         out = eb._edge_block_bwd_cuda(hh, e, g, w)
         ref = eb.edge_block_bwd_plain(hh, e, g, w)
         torch.cuda.synchronize()
@@ -612,7 +627,15 @@ def main() -> int:
                     GRAPHS, PAD, 64, 8, 64, dtype, training=training)
             results[("edge", dtype)] = edge_case(GRAPHS, PAD, 64, 8, dtype,
                                                  head_major=True)
+            edge_case(GRAPHS, PAD, 64, 8, dtype, head_major=False)
             edge_case(5, 7, 32, 4, dtype, head_major=False, timing=False)
+            if dtype == torch.bfloat16:
+                # the f32 CUDA-core body's weights pass 227 KB at these
+                # widths, as do K9's weight-gradient sums in bf16
+                edge_case(3, 11, 128, 16, dtype, head_major=True,
+                          timing=False, hid=256, bwd=False)
+                edge_case(2, 6, 160, 8, dtype, head_major=False,
+                          timing=False, hid=160, bwd=False)
             # the other shipped edge widths (ZINC-100k: 48, hidden 96;
             # PATTERN, CLUSTER, MNIST, CIFAR10, TSP: 8, hidden 16) with 8
             # heads, over 5 * 37 * 37 = 6845 pairs: no multiple of K4's and

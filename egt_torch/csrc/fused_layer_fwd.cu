@@ -52,6 +52,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "edge_tail_mma.cuh"
 #include "mma.cuh"
 #include "philox.cuh"
 
@@ -345,7 +346,8 @@ __global__ void __launch_bounds__(NT) fused_layer_fwd_kernel(Params p) {
 // as e_out depends only on the pre-mask h_hat, the tail at once:
 // rnd(h_hat) . Wr + br + e -> LN -> FFN (hid from the C fragments of the
 // first product straight into the A fragments of the second) + residual ->
-// e_out. Then the block takes the softmax per (row, head) and A.V.
+// e_out (edge_tail_mma.cuh's tail_fwd_mma, which K8's bf16 body runs too).
+// Then the block takes the softmax per (row, head) and A.V.
 // e is staged with cp.async one tile ahead (two buffers a warp) and read
 // from device memory once.
 // Shared memory: f32 vectors (the projection biases, g1 b1 br g2 b2 bb2
@@ -444,6 +446,8 @@ __global__ void __launch_bounds__(FWD_MMA_WARPS * 32, 2)
   stage_matrix(W1, su, (const bf*)p.w1, E, U);
   stage_matrix(W2, se, (const bf*)p.w2, U, E);
   __syncthreads();
+  const TailMmaW TW{Wr, W1, W2, vbr, vg2, vb2, vbb1, vbb2, E, U, EK, UK, HK,
+                    se, su};
 
   const bf* E_ = (const bf*)p.e;
   const bf* QKV = (const bf*)p.qkv;
@@ -582,108 +586,10 @@ __global__ void __launch_bounds__(FWD_MMA_WARPS * 32, 2)
       }
       __syncwarp();
 
-      // ---- e_mid = rnd(h_hat) . Wr + br + e
-      float em[NTE][4];
-#pragma unroll
-      for (int j = 0; j < NTE; ++j) {
-        if (j < EK / 8) {
-          const int c = 8 * j + 2 * tq;
-          const float2 e0 = ld_bf2(eC + gq * se + c);
-          const float2 e1 = ld_bf2(eC + (gq + 8) * se + c);
-          em[j][0] = e0.x + vbr[c]; em[j][1] = e0.y + vbr[c + 1];
-          em[j][2] = e1.x + vbr[c]; em[j][3] = e1.y + vbr[c + 1];
-        }
-      }
-      for (int k0 = 0; k0 < HK; k0 += 16) {
-        uint32_t a[4];
-        lda(a, hhW, sh, 0, k0);
-#pragma unroll
-        for (int jb = 0; jb < NKE; ++jb) {
-          if (jb < EK / 16) {
-            uint32_t b[4];
-            ldb_kn(b, Wr, se, k0, 16 * jb);
-            mma16816(em[2 * jb], a, b[0], b[1]);
-            mma16816(em[2 * jb + 1], a, b[2], b[3]);
-          }
-        }
-      }
-
-      // ---- LN(e_mid) -> xW (rounded)
-      {
-        float mu[2], rs[2];
-        ln_stats(em, E, mu, rs);
-        const float mu0 = mu[0], mu1 = mu[1], rs0 = rs[0], rs1 = rs[1];
-        __syncwarp();   // every lane is done with LN(e) in xW
-#pragma unroll
-        for (int j = 0; j < NTE; ++j) {
-          if (j < EK / 8) {
-            const int c = 8 * j + 2 * tq;
-            st_bf2(xW + gq * se + c, vg2[c] * ((em[j][0] - mu0) * rs0) + vb2[c],
-                   vg2[c + 1] * ((em[j][1] - mu0) * rs0) + vb2[c + 1]);
-            st_bf2(xW + (gq + 8) * se + c,
-                   vg2[c] * ((em[j][2] - mu1) * rs1) + vb2[c],
-                   vg2[c + 1] * ((em[j][3] - mu1) * rs1) + vb2[c + 1]);
-          }
-        }
-      }
-      __syncwarp();
-
-      // ---- e_out = rnd(act(xn . W1 + b1)) . W2 + b2 + e_mid, 16 hidden
-      // units at a time, summed onto e_mid + b2 in place
-      uint32_t axn[NKE][4];
-#pragma unroll
-      for (int ks = 0; ks < NKE; ++ks)
-        if (ks < EK / 16) lda(axn[ks], xW, se, 0, 16 * ks);
-#pragma unroll
-      for (int j = 0; j < NTE; ++j)
-        if (j < EK / 8) {
-#pragma unroll
-          for (int qq = 0; qq < 4; ++qq) em[j][qq] += vbb2[8 * j + 2 * tq + (qq & 1)];
-        }
-#pragma unroll 2
-      for (int u0 = 0; u0 < UK; u0 += 16) {
-        float pre[2][4] = {};
-#pragma unroll
-        for (int ks = 0; ks < NKE; ++ks) {
-          if (ks < EK / 16) {
-            uint32_t b[4];
-            ldb_kn(b, W1, su, 16 * ks, u0);
-            mma16816(pre[0], axn[ks], b[0], b[1]);
-            mma16816(pre[1], axn[ks], b[2], b[3]);
-          }
-        }
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj)
-#pragma unroll
-          for (int qq = 0; qq < 4; ++qq) {
-            const int u = u0 + 8 * jj + 2 * tq + (qq & 1);
-            pre[jj][qq] = u < U ? act_fn(p.act, p.act_alpha, pre[jj][qq] + vbb1[u])
-                                : 0.f;
-          }
-        const uint32_t a[4] = {pack_bf16(pre[0][0], pre[0][1]),
-                               pack_bf16(pre[0][2], pre[0][3]),
-                               pack_bf16(pre[1][0], pre[1][1]),
-                               pack_bf16(pre[1][2], pre[1][3])};
-#pragma unroll
-        for (int jb = 0; jb < NKE; ++jb) {
-          if (jb < EK / 16) {
-            uint32_t b[4];
-            ldb_kn(b, W2, se, u0, 16 * jb);
-            mma16816(em[2 * jb], a, b[0], b[1]);
-            mma16816(em[2 * jb + 1], a, b[2], b[3]);
-          }
-        }
-      }
-      // e is read: stage e_out in its buffer, then write the rows
-#pragma unroll
-      for (int j = 0; j < NTE; ++j) {
-        if (j < EK / 8) {
-          const int c = 8 * j + 2 * tq;
-          st_bf2(eC + gq * se + c, em[j][0], em[j][1]);
-          st_bf2(eC + (gq + 8) * se + c, em[j][2], em[j][3]);
-        }
-      }
-      __syncwarp();
+      // ---- the tail (edge_tail_mma.cuh): e_out staged in eC
+      tail_fwd_mma<NTE>(TW, eC, hhW, sh, xW, [&](float x) {
+        return act_fn(p.act, p.act_alpha, x);
+      });
       store_rows16(EO + P0 * E, eC, se, nv, E);
       __syncwarp();      // eC is free for the prefetch two tiles on
     }

@@ -11,20 +11,22 @@ f32: K3 (`fused_layer_fwd`, training mode with the draws and h_hat out,
 and inference), K4 (`fused_layer_bwd_tail`), K5 (`fused_layer_bwd_attn`,
 the draws live), K7 (`fused_layer_bwd_merged`, the draws live), K6
 (`fused_layer_bwd_mono`, the draws live; `K6 head`: its head kernel
-alone, where the checkout has one) and K9 (`edge_block_bwd`, h_hat
-head-major as path C hands it over); K5 and K7 also at h 32 gated
-(`h32`: K5's general body); CUDA events, median of 30 launches with L2
-flushed before each. The host time of one K4, K5, K7 and K6 call (the
+alone, where the checkout has one), K8 (`edge_block_fwd`, h_hat as rows
+and head-major) and K9 (`edge_block_bwd`, h_hat head-major as path C
+hands it over); K5 and K7 also at h 32 gated (`h32`: K5's general
+body); CUDA events, median of 30 launches with L2 flushed before each.
+The host time of one K4, K5, K7 and K6 call (the
 wrapper's checks and launches, mean of 100 calls while a spin kernel
 keeps the card busy, so the clock sees the host's work alone). A digest
 (sha256 of the output bytes) of K3's (training), K4's, K5's, K7's, K6's
-and K9's outputs, to show that two checkouts compute them bit for bit
-alike. The bytes K7's and K6's launches move in bf16 and the floor they
-set. Then, in bf16 as shipped, the median wall time of 24 training steps
-on path A (K3; K4, K5), on path C (K1, K8; K9, K2), on A-merged (K3; K7)
-and on A-mono (K3; K6), and of 24 serving requests on path A, 128 graphs
-each, after a warm-up. Prints the card's name and power limit, then one
-JSON line. Needs a CUDA device.
+and K9's outputs, and of K8's in both layouts, to show that two
+checkouts compute them bit for bit alike. The bytes K7's and K6's
+launches move in bf16 and the floor they set. Then, in bf16 as shipped,
+the median wall time of 24 training steps on path A (K3; K4, K5), on
+path C (K1, K8; K9, K2), on A-merged (K3; K7) and on A-mono (K3; K6), and
+of 24 serving requests on paths A and C, 128 graphs each, after a
+warm-up. Prints the card's name and power limit, then one JSON line.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -176,6 +178,13 @@ def main(argv=None) -> int:
         hm = randn(B, H, L, L, scale=2.0).to(dt).permute(0, 2, 3, 1)
         tw = {k: w[k] for k in fl.TAIL_KEYS}
         res[f"K9 {name}"] = time_ms(lambda: eb._edge_block_bwd_cuda(hm, e, g, tw))
+        rows = hm.contiguous()
+        res[f"K8 rows {name}"] = time_ms(
+            lambda: eb._edge_block_fwd_cuda(rows, e, tw))
+        res[f"K8 head-major {name}"] = time_ms(
+            lambda: eb._edge_block_fwd_cuda(hm, e, tw))
+        res[f"digest K8 rows, head-major {name}"] = " ".join(
+            digest(eb._edge_block_fwd_cuda(x, e, tw)) for x in (rows, hm))
         res[f"digest K3 K4 K5 K7 K6 K9 {name}"] = " ".join(
             digest(x) for x in (
                 fl._fused_layer_cuda(tspec, e, qkv, mask, None, w, 77, True),
@@ -243,14 +252,15 @@ def main(argv=None) -> int:
             times.append(time.perf_counter() - t)
         res[f"{tag} step ms"] = 1e3 * statistics.median(times)
     fl.BWD_IMPL = "split"
-    predict = serving.load_predictor(raw, flat)
-    predict(batches[0])
-    times = []
-    for bt in batches[2:]:
-        t = time.perf_counter()
-        predict(bt)                                     # returns host numpy
-        times.append(time.perf_counter() - t)
-    res["serve A request ms"] = 1e3 * statistics.median(times)
+    for tag, over in (("serve A", {}), ("serve C", path_c)):
+        predict = serving.load_predictor({**raw, **over}, flat)
+        predict(batches[0])
+        times = []
+        for bt in batches[2:]:
+            t = time.perf_counter()
+            predict(bt)                                 # returns host numpy
+            times.append(time.perf_counter() - t)
+        res[f"{tag} request ms"] = 1e3 * statistics.median(times)
     print(json.dumps(res), flush=True)
     return 0
 

@@ -15,7 +15,9 @@ kernel. Each op dispatches on the device of its inputs: a CPU tensor takes
 the plain PyTorch version, a CUDA tensor launches the kernel (or raises):
 `csrc/edge_block_fwd.cu` (K8) forward, `csrc/edge_block_bwd.cu` (K9) the
 backward by recomputation from the saved inputs. `EdgeBlockFn` is the
-`torch.autograd.Function` around them.
+`torch.autograd.Function` around them. K8 has two bodies: in bf16 up to
+edge width 128 the tensor-core body (K3's tail chain, `edge_tail_mma.cuh`),
+otherwise the CUDA-core body; `fwd_geometry` says which takes a shape.
 
 h_hat is (b, l, l, h) as in JAX. Where it is a view of the attention
 kernel's head-major (b, h, l, l) h_hat, both kernels read it, and K9 writes
@@ -23,6 +25,9 @@ its gradient, in that layout: no copy.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -34,6 +39,27 @@ KERNEL = _cuda.CudaKernel("edge_block_fwd", _cuda.argtypes(
     "i pp pppp pppp p L iiii"))
 BWD_KERNEL = _cuda.CudaKernel("edge_block_bwd", _cuda.argtypes(
     "i ppp pppp pppp pp pp i L iiii"))
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_geometry(code: int, ew: int, h: int, hid: int,
+                  head_major: int) -> tuple | None:
+    out = (ctypes.c_int * 3)()
+    if KERNEL.query("edge_block_fwd_geometry", "iiiiip", code, ew, h, hid,
+                    head_major, ctypes.addressof(out)):
+        return None
+    return tuple(out)
+
+
+def fwd_geometry(dtype, ew: int, h: int, hid: int,
+                 head_major: bool = False) -> dict | None:
+    """Which of K8's bodies takes a shape, from the kernel's own rule:
+    `tensor_cores` (1 the bf16 body, 0 the CUDA-core body), `warps` a block
+    and `smem` bytes a block; `head_major` for h_hat as a view of a
+    (b, h, l, l) tensor. None when no body fits 227 KB."""
+    g = _fwd_geometry(_cuda.DTYPE_CODES[dtype], ew, h, hid, int(head_major))
+    return None if g is None else dict(zip(("tensor_cores", "warps", "smem"),
+                                           g))
 
 
 def edge_block_fwd_plain(hh, e_res, w):

@@ -1,14 +1,16 @@
-"""Which phase of the bf16 K3, K4 and K5 bodies and of K6's head kernel
-takes their time, by ablation.
+"""Which phase of the bf16 K3, K4, K5 and K8 bodies and of K6's head
+kernel takes their time, by ablation.
 
-    python3 -m egt_torch.phase_times [K3 K4 K5 K6]
+    python3 -m egt_torch.phase_times [K3 K4 K5 K6 K8]
 
-Copies `egt_torch/csrc` into `build/egt_torch/phases/`, and builds one
-library per variant in which one phase's loops run no iteration (the `all`
-variant skips every phase listed), then times each variant's kernel at the
-flagship ZINC-500k shapes (b 128, l 40, ew 64, h 8, dh 64, hidden 128,
-bf16; K3 and K5 in training mode with the draws live) as `chip_smoke.py`
-does (CUDA events, median of 30 launches, L2 flushed before each). A
+Copies `egt_torch/csrc` into `build/egt_torch/phases/<kernel>/` for each
+kernel named, and builds one library per variant in which one phase's
+loops run no iteration (the `all` variant skips every phase listed), then
+times each variant's kernel at the flagship ZINC-500k shapes (b 128, l 40,
+ew 64, h 8, dh 64, hidden 128, bf16; K3 and K5 in training mode with the
+draws live; K8 with h_hat head-major, as path C hands it over) as
+`chip_smoke.py` does (CUDA events, median of 30 launches, L2 flushed
+before each). A
 skipped phase's outputs are wrong, so the variants are timed, never
 checked; the time a variant saves is what that phase costs beside the
 others (phases overlap, so the savings need not add up). K9 runs K4's body.
@@ -19,7 +21,12 @@ loads, LayerNorm and its backward, the stores and the cluster's sum remain.
 K6: its head kernel (`mono_head_kernel`) alone, phases `ln1` (LayerNorm of
 e), `p` (the edge-bias product), `qk` (q . k) and `wt` (staging Wb
 transposed); with all four skipped, the loads of e and the stores remain.
-Times the kernels named (all four by default). Prints the card's name and
+K8: `hh` (staging h_hat), `wr` (the rnd(h_hat) . Wr product), `ln` (the
+LayerNorm of e_mid: its statistics and the rounded store) and `ffn` (the
+W1 -> ELU -> W2 chain); with all four skipped, the staging of e, the
+residual sums and the stores of out remain. K3's `ffn` and K8's `wr`,
+`ln` and `ffn` lie in the tail chain the two share (`edge_tail_mma.cuh`).
+Times the kernels named (all five by default). Prints the card's name and
 power limit, one line per variant, then one JSON line. Needs a CUDA device.
 """
 
@@ -35,15 +42,16 @@ import sys
 import torch
 
 from .ops import _cuda
+from .ops import edge_block as eb
 from .ops import fused_layer as fl
 
 B, L, EW, H, DH, HID = 128, 40, 64, 8, 64, 128
 
-# kernel: (source, file patched, {phase: {loop header: how many times it
-# occurs}}); each header's bound becomes SKIP_<PHASE> ? 0 : bound at every
-# occurrence, and a count that differs stops the build
+# kernel: (source, files patched, {phase: {loop header: how many times it
+# occurs in those files}}); each header's bound becomes SKIP_<PHASE> ? 0 :
+# bound at every occurrence, and a count that differs stops the build
 PHASES = {
-    "K3": ("fused_layer_fwd", "fused_layer_fwd.cu", {
+    "K3": ("fused_layer_fwd", ("fused_layer_fwd.cu", "edge_tail_mma.cuh"), {
         "projection": {"for (int n0 = 0; n0 < NP; n0 += 16) {": 1},
         "pair": {"for (int it = lane; it < 16 * h; it += 32) {": 1},
         "ffn": {"for (int u0 = 0; u0 < UK; u0 += 16) {": 1},
@@ -53,7 +61,7 @@ PHASES = {
                "      const int rg = t / dh, f = t - rg * dh;\n"
                "      const int row = row0 + rg, b = row / l;": 1},
     }),
-    "K4": ("fused_layer_bwd_tail", "tail_bwd.cuh", {
+    "K4": ("fused_layer_bwd_tail", ("tail_bwd.cuh",), {
         "e_mid": {"for (int k0 = 0; k0 < HK; k0 += 16) {": 1},
         "ffn": {"for (int ub = 0; ub < ucw; ub += 16) {": 1},
         "wgrad_ffn": {"for (int bi = warp; bi < 2 * n2; bi += nw) {": 1},
@@ -63,7 +71,7 @@ PHASES = {
     }),
     # the register body's products (the flagship's); the chain's four key
     # loops, shared by both bodies
-    "K5": ("fused_layer_bwd_attn", "attn_bwd.cuh", {
+    "K5": ("fused_layer_bwd_attn", ("attn_bwd.cuh",), {
         "head_mma": {"for (int ke = 0; ke < NTE / 2; ++ke) {": 1,
                      "for (int kp = 0; kp < NPT / 2; ++kp) {": 1,
                      "for (int mb = 0; mb < NTE / 2; ++mb) {": 1},
@@ -72,19 +80,29 @@ PHASES = {
                      "for (int f0 = 2 * lane; f0 < dh; f0 += 64) {": 1,
                      "for (int w = 0; w < nrows; ++w) {": 1},
     }),
-    "K6": ("fused_layer_bwd_mono", "fused_layer_bwd_mono.cu", {
+    "K6": ("fused_layer_bwd_mono", ("fused_layer_bwd_mono.cu",), {
         "ln1": {"for (int c = g; c < ew; c += 8)": 3},
         "p": {"for (int c = 0; c < ew4 / 4; ++c) {": 1},
         "qk": {"for (int f = hd; f < dh; f += h) sc": 1},
         "wt": {"for (int t = tid; t < ew4 * h; t += HEAD_NT) {": 1},
     }),
+    # the head-major staging; the tail chain's loops and ln_stats's two
+    "K8": ("edge_block_fwd",
+           ("edge_block_fwd.cu", "edge_tail_mma.cuh", "mma.cuh"), {
+        "hh": {"for (int t = lane; t < 2 * h; t += 32) {": 1},
+        "wr": {"for (int k0 = 0; k0 < HK; k0 += 16) {": 1},
+        "ln": {"for (int jn = 0; jn < NTE; ++jn) {": 1,
+               "for (int j = 0; j < NT; ++j)": 2},
+        "ffn": {"for (int u0 = 0; u0 < UK; u0 += 16) {": 1},
+    }),
 }
 
 
-def _patch(text: str, phases: dict) -> str:
+def _patch(texts: dict, phases: dict) -> dict:
+    """texts {file: source} with every phase's loop headers rewritten."""
     for name, headers in phases.items():
         for header, count in headers.items():
-            found = text.count(header)
+            found = sum(t.count(header) for t in texts.values())
             if found != count:
                 raise RuntimeError(f"phase {name}: {header!r} occurs {found} "
                                    f"times, expected {count}")
@@ -94,17 +112,18 @@ def _patch(text: str, phases: dict) -> str:
             var, bound = cond.split(" < ", 1)
             new = (f"{init}; {var} < (SKIP_{name.upper()} ? 0 : {bound}); "
                    f"{step}")
-            text = text.replace(header, header.replace(first, new, 1))
-    return text
+            texts = {f: t.replace(header, header.replace(first, new, 1))
+                     for f, t in texts.items()}
+    return texts
 
 
 def _build(out_dir, kernel):
-    source, patched, phases = PHASES[kernel]
+    source, _, phases = PHASES[kernel]
     variants = {"base": set(), **{p: {p} for p in phases}, "all": set(phases)}
     jobs = {}
     for v, skip in variants.items():
         defs = [f"-DSKIP_{p.upper()}={int(p in skip)}" for p in phases]
-        so = out_dir / f"{kernel}_{v}.so"
+        so = out_dir / f"{v}.so"
         cmd = [_cuda._nvcc(), *_cuda.NVCC_FLAGS, *defs, "-o", str(so),
                str(out_dir / "csrc" / f"{source}.cu")]
         jobs[v] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -130,12 +149,14 @@ def main(argv=None) -> int:
     print(smi, flush=True)
     out_dir = _cuda.BUILD_DIR / "phases"
     shutil.rmtree(out_dir, ignore_errors=True)
-    shutil.copytree(_cuda._CSRC, out_dir / "csrc")
-    for k in kernels:
-        _, patched, phases = PHASES[k]
-        f = out_dir / "csrc" / patched
-        f.write_text(_patch(f.read_text(), phases))
-    libs = {k: _build(out_dir, k) for k in kernels}
+    for k in kernels:         # one copy a kernel: K3 and K8 share a header
+        _, files, phases = PHASES[k]
+        csrc = out_dir / k / "csrc"
+        shutil.copytree(_cuda._CSRC, csrc)
+        texts = _patch({f: (csrc / f).read_text() for f in files}, phases)
+        for f, text in texts.items():
+            (csrc / f).write_text(text)
+    libs = {k: _build(out_dir / k, k) for k in kernels}
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -180,6 +201,7 @@ def main(argv=None) -> int:
     hh = randn(B, L, L, H, scale=3.0).to(dt)
     g = randn(B, L, L, EW).to(dt)
     dhh, gv = randn(B, L, L, H).to(dt), randn(B, L, DH).to(dt)
+    hm = randn(B, H, L, L, scale=2.0).to(dt).permute(0, 2, 3, 1)
     runs = {"K3": (fl.KERNEL, lambda: fl._fused_layer_cuda(
                 spec, e, qkv, mask, None, w, 77, True)),
             "K4": (fl.BWD_TAIL_KERNEL, lambda: fl._bwd_tail_cuda(
@@ -187,7 +209,9 @@ def main(argv=None) -> int:
             "K5": (fl.BWD_ATTN_KERNEL, lambda: fl._bwd_attn_cuda(
                 spec, e, qkv, mask, None, w, hh, dhh, g, gv, 77)),
             "K6": (fl.MONO_HEAD_KERNEL, lambda: fl._mono_head_cuda(
-                spec, e, qkv, w))}
+                spec, e, qkv, w)),
+            "K8": (eb.KERNEL, lambda: eb._edge_block_fwd_cuda(
+                hm, e, {k: w[k] for k in fl.TAIL_KEYS}))}
     res = {"device": smi}
     for kernel in kernels:
         kern, fn = runs[kernel]

@@ -88,12 +88,12 @@ def test_plain_bwd_attn_matches_autograd(shape, draws):
 
 @pytest.mark.parametrize("kernel", list(pt.PHASES))
 def test_phase_ablation_patches_the_loops_it_names(kernel):
-    _, patched, phases = pt.PHASES[kernel]
-    text = (_cuda._CSRC / patched).read_text()
-    out = pt._patch(text, phases)
+    _, files, phases = pt.PHASES[kernel]
+    texts = {f: (_cuda._CSRC / f).read_text() for f in files}
+    out = pt._patch(texts, phases)
     for name, headers in phases.items():
-        assert out.count(f"(SKIP_{name.upper()} ? 0 : ") == \
-            sum(headers.values()), name
+        assert sum(t.count(f"(SKIP_{name.upper()} ? 0 : ")
+                   for t in out.values()) == sum(headers.values()), name
     header = next(iter(next(iter(phases.values()))))
     with pytest.raises(RuntimeError, match="occurs"):
-        pt._patch(text + header, phases)
+        pt._patch({**texts, files[0]: texts[files[0]] + header}, phases)

@@ -691,19 +691,27 @@ def test_mono_refuses_a_shape_past_227_kb(dev):
     assert fl.BWD_MONO_KERNEL.launches == before
 
 
-# (b, l, ew, h): 4 * 7 * 7 pairs is not a multiple of the 32-pair tile
-EDGE_SHAPES = {"awkward": (4, 7, 32, 4), "flagship": (8, 40, 64, 8)}
+# (b, l, ew, h, hidden): 4 * 7 * 7 pairs is not a multiple of the 32-pair
+# tile. The rest take each branch of K8's bf16 body in both h_hat layouts:
+# h 12 (no multiple of 8: element loads of rows) with l 6 (tiles straddle
+# graphs, head-major units at and off 16-byte boundaries), h 16 with l 12
+# (every head-major unit one 16-byte copy), ew 8, 48, 80 and 128 (8 and 16
+# n8 tiles a lane; 128: fewer warps a block), odd l and pair counts no
+# multiple of the 16-pair tile. ew 160 (hidden 160) takes the CUDA-core
+# body in bf16. In f32 the CUDA-core body's f32 weights pass 227 KB at ew
+# 128 with hidden 256 and at ew 160: no body fits and the launch is
+# refused.
+EDGE_SHAPES = {"awkward": (4, 7, 32, 4, 64), "flagship": (8, 40, 64, 8, 128),
+               "h12_ew48_l6": (3, 6, 48, 12, 96),
+               "h16_ew8_l12": (4, 12, 8, 16, 16),
+               "h4_ew80_l5": (5, 5, 80, 4, 160),
+               "h16_ew128_l11": (3, 11, 128, 16, 256),
+               "h8_ew160_l6": (2, 6, 160, 8, 160)}
 
 
-@pytest.mark.parametrize("shape", list(EDGE_SHAPES))
-@pytest.mark.parametrize("head_major", [False, True], ids=["rows", "head_major"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_edge_block_kernels_match_plain(dev, dtype, head_major, shape):
-    """K8 and K9 against their plain versions; h_hat as rows and as a view of
-    a head-major tensor (K9 writes dhh in the same layout)."""
+def _edge_case(dev, dtype, head_major, shape):
     g_ = _gen(dev)
-    b, l, ew, h = EDGE_SHAPES[shape]
-    hid = 2 * ew
+    b, l, ew, h, hid = EDGE_SHAPES[shape]
 
     def rnd(*s, scale=1.0):
         return scale * torch.randn(s, generator=g_, device=dev)
@@ -716,16 +724,70 @@ def test_edge_block_kernels_match_plain(dev, dtype, head_major, shape):
     hh = hh.permute(0, 2, 3, 1) if head_major else \
         hh.permute(0, 2, 3, 1).contiguous()
     e, g = rnd(b, l, l, ew).to(dtype), rnd(b, l, l, ew).to(dtype)
+    return hh, e, g, w
+
+
+def _edge_geometry(dtype, head_major, shape):
+    """K8's body for the shape from its geometry query, asserted: the
+    tensor cores in bf16 up to ew 128, else the CUDA cores; None (no body
+    fits 227 KB) only in f32 at ew 128 and past."""
+    _, _, ew, h, hid = EDGE_SHAPES[shape]
+    geo = eb.fwd_geometry(dtype, ew, h, hid, head_major)
+    if geo is None:
+        assert dtype == torch.float32 and ew >= 128
+        return None
+    assert geo["smem"] <= 227 * 1024
+    assert geo["tensor_cores"] == int(dtype == torch.bfloat16 and ew <= 128)
+    return geo
+
+
+@pytest.mark.parametrize("shape", list(EDGE_SHAPES))
+@pytest.mark.parametrize("head_major", [False, True], ids=["rows", "head_major"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_edge_block_kernels_match_plain(dev, dtype, head_major, shape):
+    """K8 and K9 against their plain versions; h_hat as rows and as a view of
+    a head-major tensor (K9 writes dhh in the same layout). K8's body is the
+    one its geometry query names; where none fits, the launch raises and
+    counts nothing. K9 runs where one of its bodies takes the shape (its
+    bf16 body stops at ew 128)."""
+    geo = _edge_geometry(dtype, head_major, shape)
+    hh, e, g, w = _edge_case(dev, dtype, head_major, shape)
+    b, l, ew, h, hid = EDGE_SHAPES[shape]
+    spec = fl.LayerSpec(l=l, ew=ew, h=h, dh=h, hidden=hid, gated=False,
+                        constrained=False, clip=None, edge_act=None,
+                        act="elu", scale=1.0)
+    k9 = fl.bwd_tail_geometry(spec, dtype) is not None
     counts = (eb.KERNEL.launches, eb.BWD_KERNEL.launches)
-    _close(eb.edge_block_fwd(hh, e, w), eb.edge_block_fwd_plain(hh, e, w), dtype)
-    out, ref = eb.edge_block_bwd(hh, e, g, w), eb.edge_block_bwd_plain(hh, e, g, w)
-    assert out[0].stride() == hh.stride()
-    for o, r in zip(out[:2], ref[:2]):                       # dhh, de_res
-        _close(o, r, dtype)
-    for k, r in ref[2].items():
-        _close(out[2][k], r, dtype, scaled=True)
+    if geo is None:
+        with pytest.raises(RuntimeError, match="edge_block_fwd"):
+            eb.edge_block_fwd(hh, e, w)
+    else:
+        _close(eb.edge_block_fwd(hh, e, w), eb.edge_block_fwd_plain(hh, e, w),
+               dtype)
+    if k9:
+        out = eb.edge_block_bwd(hh, e, g, w)
+        ref = eb.edge_block_bwd_plain(hh, e, g, w)
+        assert out[0].stride() == hh.stride()
+        for o, r in zip(out[:2], ref[:2]):                   # dhh, de_res
+            _close(o, r, dtype)
+        for k, r in ref[2].items():
+            _close(out[2][k], r, dtype, scaled=True)
     assert (eb.KERNEL.launches, eb.BWD_KERNEL.launches) == \
-        tuple(c + 1 for c in counts)
+        (counts[0] + (geo is not None), counts[1] + k9)
+
+
+@pytest.mark.parametrize("shape", ["awkward", "flagship", "h12_ew48_l6",
+                                   "h16_ew128_l11"])
+@pytest.mark.parametrize("head_major", [False, True], ids=["rows", "head_major"])
+def test_edge_block_fwd_bf16_bit_identical_across_launches(dev, head_major,
+                                                           shape):
+    """K8's bf16 body: two launches give the same bits (no sum depends on
+    the schedule)."""
+    dtype = torch.bfloat16
+    assert _edge_geometry(dtype, head_major, shape)["tensor_cores"] == 1
+    hh, e, _, w = _edge_case(dev, dtype, head_major, shape)
+    first = eb.edge_block_fwd(hh, e, w)
+    assert torch.equal(first, eb.edge_block_fwd(hh, e, w))
 
 
 @pytest.mark.parametrize("knobs,impl", [

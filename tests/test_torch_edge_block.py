@@ -3,7 +3,11 @@
 - The plain versions of K8 and K9 (`edge_block_apply` through `EdgeBlockFn`
   on CPU tensors) against `edge_block_pallas.edge_block_apply` and its VJP
   (the Pallas kernels in interpret mode), on the same numpy inputs: b 2,
-  l 7, h 4, ew 16, hidden 32 (98 pairs: not a multiple of any row block).
+  l 7, h 4, ew 16, hidden 32 (98 pairs: not a multiple of any row block),
+  and two shapes that K8's bf16 body on the card takes through other
+  branches: b 3, l 5, h 4, ew 16, hidden 40 (odd l, tiles across graphs, a
+  hidden width no multiple of 16) and b 2, l 6, h 16, ew 128, hidden 256
+  (16 n8 tiles a lane, fewer warps a block).
   f32 at 1e-5 (the same formulas); bf16 at 0.1, as the whole-layer forward
   test (`test_torch_fused_layer.py`). h_hat is given as rows (b, l, l, h)
   and as a view of a head-major (b, h, l, l) tensor, the attention kernel's
@@ -35,14 +39,20 @@ from tests.test_torch_fused_layer import tree
 from tests.test_torch_model import jax_params, port_model
 from tests.test_torch_training import _zinc_loss_port
 
-B, L, H, EW, HID = 2, 7, 4, 16, 32
+# name: (b, l, h, ew, hidden)
+BLOCK_SHAPES = {"base": (2, 7, 4, 16, 32), "l5_h4_ew16": (3, 5, 4, 16, 40),
+                "ew128_h16": (2, 6, 16, 128, 256)}
 
 
-def _block_case(seed=0):
+def _block_case(seed=0, shape="base"):
+    B, L, H, EW, HID = BLOCK_SHAPES[shape]
     rng = np.random.default_rng(seed)
 
     def dense(i, o):
-        return {"kernel": rng.uniform(-0.5, 0.5, (i, o)).astype(np.float32),
+        # uniform in +-0.5, narrowed past 32 inputs so that the activations
+        # of a wide layer keep the narrow ones' scale
+        lim = 0.5 * min(1.0, (32 / i) ** 0.5)
+        return {"kernel": rng.uniform(-lim, lim, (i, o)).astype(np.float32),
                 "bias": (0.1 * rng.normal(size=o)).astype(np.float32)}
 
     p = {"dense_edge_r": dense(H, EW),
@@ -74,12 +84,15 @@ def _flat(g, prefix=""):
     return out
 
 
-@pytest.mark.parametrize("head_major", [False, True], ids=["rows", "head_major"])
+@pytest.mark.parametrize(
+    "shape,head_major", [(s, hm) for s in BLOCK_SHAPES for hm in (False, True)],
+    ids=[("" if s == "base" else f"{s}-") + ("head_major" if hm else "rows")
+         for s in BLOCK_SHAPES for hm in (False, True)])
 @pytest.mark.parametrize("dt,tol", [(torch.float32, 1e-5),
                                     (torch.bfloat16, 0.1)],
                          ids=["f32", "bf16"])
-def test_edge_block_matches_jax(dt, tol, head_major):
-    p, hh, e, g = _block_case()
+def test_edge_block_matches_jax(dt, tol, shape, head_major):
+    p, hh, e, g = _block_case(shape=shape)
     jdt = jnp.bfloat16 if dt == torch.bfloat16 else jnp.float32
 
     def jfn(p_, hh_, e_):
