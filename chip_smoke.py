@@ -8,8 +8,8 @@ final result line):
   1. host record: `nvidia-smi` name and power limit, torch and CUDA versions,
      `nvcc --version`;
   2. build the nine CUDA kernels from `egt_torch/csrc` (one nvcc each, in
-     parallel); the HMMA (tensor-core) instruction count of K3's, K4's,
-     K5's, K7's, K6's and K8's libraries per kernel function from
+     parallel); the HMMA (tensor-core) instruction count of K1's, K2's,
+     K3's, K4's, K5's, K7's, K6's and K8's libraries per kernel function from
      `cuobjdump -sass` ("not available" without it): non-zero in the bf16
      tensor-core bodies, zero in the f32 ones;
   3. each kernel against its plain PyTorch version on the card, at the
@@ -22,7 +22,9 @@ final result line):
      alone against its plain version, flags equal; K7 and K6 bit-identical
      across two launches, and in f32 equal to their parts run in turn bit
      for bit) and K2 with the same draws (awkward: l 37, ew 32, h 4, hard
-     mask); the edge block's K8 and K9 with h_hat head-major, as
+     mask; K1 and K2 tagged with the body their geometry queries name, q
+     and k scaled by 2 on a 1/8 grid so that the clip binds on a share of
+     pairs and q.k is exact in any summation order); the edge block's K8 and K9 with h_hat head-major, as
      path C hands it over, and as rows (awkward: ew 32, hidden 64, h 4,
      rows, a pair count that is no multiple of the 32-pair tile; ew 128,
      hidden 256, h 16, l 11 head-major: K8's bf16 body at fewer warps a
@@ -185,11 +187,12 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {src}: {line.strip()}")
 
-    # tensor-core instructions in the SASS of K3's, K4's, K5's, K7's, K6's
-    # and K8's libraries, per kernel function: the bf16 bodies run mma.sync
-    # (HMMA), the f32 ones none (exact f32, no TF32)
+    # tensor-core instructions in the SASS of K1's, K2's, K3's, K4's, K5's,
+    # K7's, K6's and K8's libraries, per kernel function: the bf16 bodies
+    # run mma.sync (HMMA), the f32 ones none (exact f32, no TF32)
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    for src in ("fused_layer_fwd", "fused_layer_bwd_tail",
+    for src in ("egt_attention_fwd", "egt_attention_bwd",
+                "fused_layer_fwd", "fused_layer_bwd_tail",
                 "fused_layer_bwd_attn", "fused_layer_bwd_merged",
                 "fused_layer_bwd_mono", "edge_block_fwd"):
         if not Path(cuobjdump).exists():
@@ -288,8 +291,14 @@ def main() -> int:
 
     # ---- 3a. attention kernels (K1 forward, K2 backward)
     def attention_case(b, h, l, d, dtype, gated=True, hard=False,
-                       training=False, timing=True):
-        q, k, v = (randn(b, h, l, d).to(dtype) for _ in range(3))
+                       training=False, timing=True, qk_scale=2.0):
+        # q and k scaled so that the clip binds on a share of pairs, on a
+        # 1/8 grid: q.k is then exact in f32 in any summation order, and
+        # K2's inclusive clip test on the recomputed raw logit falls alike
+        # in kernel and plain version at the clip's edges
+        q, k = (torch.round(randn(b, h, l, d, scale=8 * qk_scale)) / 8
+                for _ in range(2))
+        q, k, v = q.to(dtype), k.to(dtype), randn(b, h, l, d).to(dtype)
         e = randn(b, h, l, l).to(dtype)
         g = randn(b, h, l, l).to(dtype) if gated else None
         madd = (ragged_mask(b, l, lo=min(9, l), hi=min(38, l)) - 1.0) * 1e9
@@ -302,15 +311,23 @@ def main() -> int:
         torch.cuda.synchronize()
         errs = [max_err(o, r, dtype) for o, r in zip(out, ref)
                 if r is not None]
+        raw = torch.einsum("bhid,bhjd->bhij", q.float(), k.float()) * d ** -0.5
+        binds = float((raw.abs() > 5.0).float().mean())
         shape = (f"b{b} h{h} l{l} d{d} {str(dtype)[6:]}" +
-                 (" hard-mask" if hard else "") + ("" if gated else " ungated"))
+                 (" hard-mask" if hard else "") + ("" if gated else " ungated")
+                 + f" clip binds {binds:.2f}")
+
+        def body(geo):
+            return " [tensor cores]" if geo["tensor_cores"] else \
+                " [CUDA cores]"
         it = q.element_size()
         pairs = b * h * l * l
         nbytes = (3 * b * h * l * d + (2 if gated else 1) * pairs
                   + b * h * l * d + pairs) * it + b * l * 4 + \
             (b * h * l * 4 if gated else 0) + (b * l * l * 4 if hard else 0)
         res = {"fwd": timed(
-            f"attention_fwd{' training' if training else ''} {shape}", errs,
+            f"attention_fwd{' training' if training else ''} {shape}"
+            + body(att.fwd_geometry(dtype, l, l, d)), errs,
             lambda: att._egt_core_fwd_cuda(*args),
             lambda: att.egt_core_fwd_plain(*args), nbytes, 4 * pairs * d,
             15 * pairs, dtype, timing)}
@@ -334,7 +351,8 @@ def main() -> int:
                   + 2 * b * h * l * d + (2 if gated else 1) * pairs) * it + \
             2 * b * h * l * d * 4 + b * l * 4 + \
             (b * h * l * 4 if gated else 0) + (b * l * l * 4 if hard else 0)
-        res["bwd"] = timed(f"attention_bwd {shape}", errs,
+        res["bwd"] = timed(f"attention_bwd {shape}"
+                           + body(att.bwd_geometry(dtype, l, l, d)), errs,
                            lambda: att._egt_core_bwd_cuda(*bargs),
                            lambda: att.egt_core_bwd_plain(*bargs), nbytes,
                            10 * pairs * d, 30 * pairs, dtype, timing)

@@ -1,4 +1,4 @@
-// Tensor-core building blocks for the bf16 kernels (K3 to K9): mma.sync
+// Tensor-core building blocks for the bf16 kernels (K1 to K9): mma.sync
 // m16n8k16 with f32 sums, ldmatrix fragment loads, cp.async copies, and
 // the staging of working-type rows in shared memory.
 //

@@ -1,4 +1,4 @@
-"""Times of the whole-layer kernels and of the paths that run them, for
+"""Times of the port's kernels and of the paths that run them, for
 comparing two checkouts of the port on one card.
 
     python3 egt_torch/kernel_times.py [--root DIR]
@@ -7,7 +7,10 @@ Imports `egt_torch` from DIR (default: the checkout that holds this file),
 so the same script times an older checkout unpacked elsewhere; run it once
 per checkout, in turns, in one session on the card. At the flagship
 ZINC-500k shapes (b 128, l 40, ew 64, h 8, dh 64, hidden 128), in bf16 and
-f32: K3 (`fused_layer_fwd`, training mode with the draws and h_hat out,
+f32: K1 (`egt_attention_fwd`, training mode with the draws live, and
+inference) and K2 (`egt_attention_bwd`, the draws live, a degree
+cotangent), q and k scaled by 2 so that the clip binds on a share of
+pairs; K3 (`fused_layer_fwd`, training mode with the draws and h_hat out,
 and inference), K4 (`fused_layer_bwd_tail`), K5 (`fused_layer_bwd_attn`,
 the draws live), K7 (`fused_layer_bwd_merged`, the draws live), K6
 (`fused_layer_bwd_mono`, the draws live; `K6 head`: its head kernel
@@ -18,14 +21,15 @@ body); CUDA events, median of 30 launches with L2 flushed before each.
 The host time of one K4, K5, K7 and K6 call (the
 wrapper's checks and launches, mean of 100 calls while a spin kernel
 keeps the card busy, so the clock sees the host's work alone). A digest
-(sha256 of the output bytes) of K3's (training), K4's, K5's, K7's, K6's
-and K9's outputs, and of K8's in both layouts, to show that two
-checkouts compute them bit for bit alike. The bytes K7's and K6's
+(sha256 of the output bytes) of K1's (training and inference), K2's,
+K3's (training), K4's, K5's, K7's, K6's and K9's outputs, and of K8's in
+both layouts, to show that two checkouts compute them bit for bit alike
+(K2 from the plain version's h_hat, the same in both). The bytes K7's and K6's
 launches move in bf16 and the floor they set. Then, in bf16 as shipped,
 the median wall time of 24 training steps on path A (K3; K4, K5), on
-path C (K1, K8; K9, K2), on A-merged (K3; K7) and on A-mono (K3; K6), and
-of 24 serving requests on paths A and C, 128 graphs each, after a
-warm-up. Prints the card's name and power limit, then one JSON line.
+path B (K1; K2), on path C (K1, K8; K9, K2), on A-merged (K3; K7) and on
+A-mono (K3; K6), and of 24 serving requests on paths A, B and C, 128
+graphs each, after a warm-up. Prints the card's name and power limit, then one JSON line.
 Needs a CUDA device.
 """
 
@@ -60,6 +64,7 @@ def main(argv=None) -> int:
     from egt_torch import schemes, serving, synthetic
     from egt_torch.ops import _cuda
     from egt_torch.ops import edge_block as eb
+    from egt_torch.ops import egt_attention as att
     from egt_torch.ops import fused_layer as fl
     from egt_torch.training.steps import load_trainer
 
@@ -145,6 +150,23 @@ def main(argv=None) -> int:
         mask = (torch.arange(L, device=dev)[None] < n[:, None]).float()
         hh = randn(B, L, L, H, scale=3.0).to(dt)
         g = randn(B, L, L, EW).to(dt)
+        # K1 and K2, head-major, per-head width dh / h
+        d = DH // H
+        qa, ka, va = (randn(B, H, L, d, scale=2.0).to(dt) for _ in range(3))
+        ea, ga = randn(B, H, L, L).to(dt), randn(B, H, L, L).to(dt)
+        fa = (qa, ka, va, ea, ga, (mask - 1.0) * 1e9, None, (-5.0, 5.0))
+        draws = att.Draws(123, 0.1, 0.1)
+        res[f"K1 train {name}"] = time_ms(
+            lambda: att._egt_core_fwd_cuda(*fa, draws))
+        res[f"K1 infer {name}"] = time_ms(lambda: att._egt_core_fwd_cuda(*fa))
+        ba = (qa, ka, va, ga, fa[5], None,
+              att.egt_core_fwd_plain(*fa, draws)[1], randn(B, H, L, d).to(dt),
+              randn(B, H, L, L).to(dt), randn(B, H, L), fa[7], draws)
+        res[f"K2 {name}"] = time_ms(lambda: att._egt_core_bwd_cuda(*ba))
+        res[f"digest K1 train, infer, K2 {name}"] = " ".join(
+            digest(x) for x in (att._egt_core_fwd_cuda(*fa, draws),
+                                att._egt_core_fwd_cuda(*fa),
+                                att._egt_core_bwd_cuda(*ba)))
         for training in (True, False):
             spec = fl.LayerSpec(l=L, ew=EW, h=H, dh=DH, hidden=HID, gated=True,
                                 constrained=False, clip=(-5.0, 5.0),
@@ -235,9 +257,10 @@ def main(argv=None) -> int:
     flat = synthetic.random_flat_params(schemes.model_config_from_config(raw))
     rng = np.random.default_rng(1)
     batches = [synthetic.zinc_batch(rng, B, L) for _ in range(STEPS + 2)]
-    path_c = {"use_pallas": True, "use_pallas_layer": False,
-              "use_pallas_edge": True}
+    path_b = {"use_pallas": True, "use_pallas_layer": False}
+    path_c = {**path_b, "use_pallas_edge": True}
     for tag, over, impl in (("train A", {}, "split"),
+                            ("train B", path_b, "split"),
                             ("train C", path_c, "split"),
                             ("train A-merged", {}, "merged"),
                             ("train A-mono", {}, "mono")):
@@ -252,7 +275,8 @@ def main(argv=None) -> int:
             times.append(time.perf_counter() - t)
         res[f"{tag} step ms"] = 1e3 * statistics.median(times)
     fl.BWD_IMPL = "split"
-    for tag, over in (("serve A", {}), ("serve C", path_c)):
+    for tag, over in (("serve A", {}), ("serve B", path_b),
+                      ("serve C", path_c)):
         predict = serving.load_predictor({**raw, **over}, flat)
         predict(batches[0])
         times = []

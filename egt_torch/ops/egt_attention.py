@@ -11,11 +11,16 @@ PyTorch version, a CUDA tensor launches the kernel (or raises):
 backward, which re-enters the softmax chain at the saved h_hat and
 regenerates the training draws (`ops/rng.py`, draw 0 the random mask, draw 1
 dropout). `EGTCoreFn` is the `torch.autograd.Function` around them. The
-degree scaler stays in the wrapper, as in JAX.
+degree scaler stays in the wrapper, as in JAX. Each kernel has two bodies:
+in bf16 with d <= 16 and lq, lk <= 64 the tensor-core body
+(`csrc/attn_core_mma.cuh`, one warp a tile of 16 query rows), otherwise the
+CUDA-core body; `fwd_geometry` and `bwd_geometry` say which takes a shape.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -27,7 +32,34 @@ KERNEL = _cuda.CudaKernel("egt_attention_fwd", _cuda.argtypes(
     "i ppppp pp ppp iiiii i fff uu fff"))
 BWD_KERNEL = _cuda.CudaKernel("egt_attention_bwd", _cuda.argtypes(
     "i pppp pp ppp p ppppp iiiii i fff uu fff"))
-_SMEM_MAX = 227 * 1024      # shared memory a block may use on an H100
+
+
+@functools.lru_cache(maxsize=None)
+def _geometry(bwd: bool, code: int, lq: int, lk: int, d: int) -> tuple | None:
+    kern, name = ((BWD_KERNEL, "egt_attention_bwd_geometry") if bwd else
+                  (KERNEL, "egt_attention_fwd_geometry"))
+    out = (ctypes.c_int * 3)()
+    if kern.query(name, "iiiip", code, lq, lk, d, ctypes.addressof(out)):
+        return None
+    return tuple(out)
+
+
+def _geometry_dict(bwd, dtype, lq, lk, d) -> dict | None:
+    g = _geometry(bwd, _cuda.DTYPE_CODES[dtype], lq, lk, d)
+    return None if g is None else dict(zip(("tensor_cores", "warps", "smem"),
+                                           g))
+
+
+def fwd_geometry(dtype, lq: int, lk: int, d: int) -> dict | None:
+    """Which of K1's bodies takes a shape, from the kernel's own rule:
+    `tensor_cores` (1 the bf16 body, 0 the CUDA-core body), `warps` a block
+    and `smem` bytes a block. None when the body does not fit 227 KB."""
+    return _geometry_dict(False, dtype, lq, lk, d)
+
+
+def bwd_geometry(dtype, lq: int, lk: int, d: int) -> dict | None:
+    """The same for K2."""
+    return _geometry_dict(True, dtype, lq, lk, d)
 
 
 class FusedAttentionOutput(NamedTuple):
@@ -98,10 +130,9 @@ def _egt_core_fwd_cuda(q, k, v, e, g, madd, maddf, clip, draws: Draws = OFF):
     _cuda.check_cuda("madd", madd, (b, lk), torch.float32)
     if maddf is not None:
         _cuda.check_cuda("maddf", maddf, (b, lq, lk), torch.float32)
-    smem = 4 * (2 * lk + d + 32) * 4
-    if smem > _SMEM_MAX:
-        raise ValueError(f"egt_attention_fwd: lk={lk} needs {smem} bytes of "
-                         "shared memory per block (max 227 KB)")
+    if fwd_geometry(dt, lq, lk, d) is None:
+        raise ValueError(f"egt_attention_fwd: lk={lk}, d={d} need more than "
+                         "227 KB of shared memory per block")
     v_att = torch.empty((b, h, lq, d), dtype=dt, device=q.device)
     h_hat = torch.empty((b, h, lq, lk), dtype=dt, device=q.device)
     deg = (torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
@@ -162,11 +193,6 @@ def egt_core_bwd_plain(q, k, v, g, madd, maddf, h_hat, gv, gh, gdeg, clip,
     return dq, dk, dv, dH.to(dt), dg
 
 
-def bwd_smem(lk: int, d: int) -> int:
-    """Shared memory K2 needs for one block (one graph and head), bytes."""
-    return BWD_KERNEL.query("egt_attention_bwd_smem", "ii", lk, d)
-
-
 def _egt_core_bwd_cuda(q, k, v, g, madd, maddf, h_hat, gv, gh, gdeg, clip,
                        draws: Draws = OFF):
     b, h, lq, d = q.shape
@@ -186,10 +212,9 @@ def _egt_core_bwd_cuda(q, k, v, g, madd, maddf, h_hat, gv, gh, gdeg, clip,
     _cuda.check_cuda("madd", madd, (b, lk), torch.float32)
     if maddf is not None:
         _cuda.check_cuda("maddf", maddf, (b, lq, lk), torch.float32)
-    smem = bwd_smem(lk, d)
-    if smem > _SMEM_MAX:
-        raise ValueError(f"egt_attention_bwd: lk={lk}, d={d} need {smem} "
-                         "bytes of shared memory per block (max 227 KB)")
+    if bwd_geometry(dt, lq, lk, d) is None:
+        raise ValueError(f"egt_attention_bwd: lk={lk}, d={d} need more than "
+                         "227 KB of shared memory per block")
     dq = torch.empty_like(q)
     dk = torch.empty((b, h, lk, d), dtype=torch.float32, device=q.device)
     dv = torch.empty_like(dk)

@@ -1,14 +1,15 @@
-"""Which phase of the bf16 K3, K4, K5 and K8 bodies and of K6's head
+"""Which phase of the bf16 K2, K3, K4, K5 and K8 bodies and of K6's head
 kernel takes their time, by ablation.
 
-    python3 -m egt_torch.phase_times [K3 K4 K5 K6 K8]
+    python3 -m egt_torch.phase_times [K2 K3 K4 K5 K6 K8]
 
 Copies `egt_torch/csrc` into `build/egt_torch/phases/<kernel>/` for each
 kernel named, and builds one library per variant in which one phase's
 loops run no iteration (the `all` variant skips every phase listed), then
 times each variant's kernel at the flagship ZINC-500k shapes (b 128, l 40,
 ew 64, h 8, dh 64, hidden 128, bf16; K3 and K5 in training mode with the
-draws live; K8 with h_hat head-major, as path C hands it over) as
+draws live; K8 with h_hat head-major, as path C hands it over; K2 at the
+per-head width 8 with the draws live and the clip binding) as
 `chip_smoke.py` does (CUDA events, median of 30 launches, L2 flushed
 before each). A
 skipped phase's outputs are wrong, so the variants are timed, never
@@ -26,7 +27,13 @@ LayerNorm of e_mid: its statistics and the rounded store) and `ffn` (the
 W1 -> ELU -> W2 chain); with all four skipped, the staging of e, the
 residual sums and the stores of out remain. K3's `ffn` and K8's `wr`,
 `ln` and `ffn` lie in the tail chain the two share (`edge_tail_mma.cuh`).
-Times the kernels named (all five by default). Prints the card's name and
+K2's tensor-core body: `chain` (the softmax chain with the draws, the
+clip's flags, the gate / softmax / dropout backward: every loop over a
+tile's key columns, the Philox words included), `products` (q.k^T, gv.v^T and rnd(dr).K, and the
+packing of rnd(dr) into A fragments) and `sums` (the dk- and dv-shaped
+products, the warps' partial sums and the block's fixed-order sum); with
+all three skipped, the staging and the stores of de, dg and dq remain.
+Times the kernels named (all six by default). Prints the card's name and
 power limit, one line per variant, then one JSON line. Needs a CUDA device.
 """
 
@@ -43,6 +50,7 @@ import torch
 
 from .ops import _cuda
 from .ops import edge_block as eb
+from .ops import egt_attention as att
 from .ops import fused_layer as fl
 
 B, L, EW, H, DH, HID = 128, 40, 64, 8, 64, 128
@@ -51,6 +59,15 @@ B, L, EW, H, DH, HID = 128, 40, 64, 8, 64, 128
 # occurs in those files}}); each header's bound becomes SKIP_<PHASE> ? 0 :
 # bound at every occurrence, and a count that differs stops the build
 PHASES = {
+    # the chain's loops over key columns, in the shared header and the body
+    "K2": ("egt_attention_bwd", ("egt_attention_bwd.cu", "attn_core_mma.cuh"), {
+        "chain": {"for (int jc = 0; jc < NT; ++jc)": 7,
+                  "for (int jd = 0; jd < NT; ++jd) {": 1},
+        "products": {"for (int kb = 0; kb < NKT; ++kb) {": 3},
+        "sums": {"for (int mt = 0; mt < NKT; ++mt)": 2,
+                 "for (int t = threadIdx.x; t < lk * d; "
+                 "t += blockDim.x) {": 1},
+    }),
     "K3": ("fused_layer_fwd", ("fused_layer_fwd.cu", "edge_tail_mma.cuh"), {
         "projection": {"for (int n0 = 0; n0 < NP; n0 += 16) {": 1},
         "pair": {"for (int it = lane; it < 16 * h; it += 32) {": 1},
@@ -202,7 +219,16 @@ def main(argv=None) -> int:
     g = randn(B, L, L, EW).to(dt)
     dhh, gv = randn(B, L, L, H).to(dt), randn(B, L, DH).to(dt)
     hm = randn(B, H, L, L, scale=2.0).to(dt).permute(0, 2, 3, 1)
-    runs = {"K3": (fl.KERNEL, lambda: fl._fused_layer_cuda(
+    d = DH // H
+    qa, ka = (randn(B, H, L, d, scale=2.0).to(dt) for _ in range(2))
+    va, gva = (randn(B, H, L, d).to(dt) for _ in range(2))
+    ga, gha = randn(B, H, L, L).to(dt), randn(B, H, L, L).to(dt)
+    draws = att.Draws(123, 0.1, 0.1)
+    k2 = (qa, ka, va, ga, (mask - 1.0) * 1e9, None,
+          randn(B, H, L, L, scale=2.0).to(dt), gva, gha, randn(B, H, L),
+          (-5.0, 5.0), draws)
+    runs = {"K2": (att.BWD_KERNEL, lambda: att._egt_core_bwd_cuda(*k2)),
+            "K3": (fl.KERNEL, lambda: fl._fused_layer_cuda(
                 spec, e, qkv, mask, None, w, 77, True)),
             "K4": (fl.BWD_TAIL_KERNEL, lambda: fl._bwd_tail_cuda(
                 spec, e, hh, g, w)),

@@ -29,6 +29,11 @@ CASES = {
     "degree_linear": dict(scale_degree=True, scaler="linear"),
     "rect_rows": dict(lq=5, hard=True),
     "no_clip": dict(clip=None),
+    # the shapes the tensor-core bodies of K1 and K2 take apart: the
+    # flagship tile (d 8, 40 keys, 8 heads), and d 10 with odd lengths and
+    # a row block (lq < lk)
+    "flagship_tile": dict(b=2, h=8, lk=40, d=8),
+    "d10_rows": dict(d=10, lk=37, lq=21),
 }
 
 
@@ -54,9 +59,14 @@ def _kw(case):
         num_virtual_nodes=case.get("vn", 0))
 
 
+def shape_kw(case):
+    """make_inputs' shape arguments of a case."""
+    return {k: case[k] for k in ("b", "h", "lk", "d", "lq") if k in case}
+
+
 def _inputs(case):
-    return make_inputs(7, lq=case.get("lq"), gated=case.get("gated", True),
-                       hard=case.get("hard", False))
+    return make_inputs(7, gated=case.get("gated", True),
+                       hard=case.get("hard", False), **shape_kw(case))
 
 
 def _t(x):

@@ -6,7 +6,8 @@ training mode with the random draws off.
 Same numpy inputs and output cotangents on both sides (the cotangents of
 v_att and of h_hat, as dense_edge_r gives them). Cases: gated with the
 degree scaler (so the degree cotangent is live), ungated with a hard mask,
-and a rectangular row block (lq < lk). Inputs are scaled so that the logit
+a rectangular row block (lq < lk), the flagship tile (d 8, 40 keys, 8
+heads) and d 10 with odd lengths and a row block. Inputs are scaled so that the logit
 clip is active on some pairs. f32, atol = rtol = 1e-4. The explicit plain
 backward is also held against torch autograd of the plain forward, with and
 without the draws (f32 1e-5).
@@ -20,20 +21,24 @@ import torch
 
 from egt_torch.ops import egt_attention as tatt
 from egt_tpu.ops import egt_pallas as jpl
-from tests.test_torch_attention import _j, _t, make_inputs
+from tests.test_torch_attention import _j, _t, make_inputs, shape_kw
 
 CASES = {
     "gated_degree": dict(scale_degree=True),
     "ungated_hard_mask": dict(gated=False, hard=True),
     "rect_rows": dict(lq=5, hard=True),
+    # the shapes the tensor-core bodies of K1 and K2 take apart (as in
+    # test_torch_attention.py)
+    "flagship_tile": dict(b=2, h=8, lk=40, d=8, scale_degree=True),
+    "d10_rows": dict(d=10, lk=37, lq=21, hard=True),
 }
 QK_SCALE = 3.0           # |q.k| * d^-1/2 beyond the clip of 5 on some pairs
 
 
 def _inputs(case):
     q, k, v, e, g, mask, am = make_inputs(
-        9, lq=case.get("lq"), gated=case.get("gated", True),
-        hard=case.get("hard", False))
+        9, gated=case.get("gated", True), hard=case.get("hard", False),
+        **shape_kw(case))
     rng = np.random.default_rng(13)
     gvo = rng.normal(size=(q.shape[0], q.shape[2], q.shape[1] * q.shape[3])
                      ).astype(np.float32)

@@ -49,23 +49,69 @@ def _gen(dev):
     return torch.Generator(device=dev).manual_seed(0)
 
 
+# K1's and K2's shapes (b, h, lq, lk, d, clip): the flagship tile; the other
+# shipped per-head widths (48/8 and 80/8) and the widest the tensor-core
+# body takes; odd lengths (element loads); a row block (lq < lk); 4 and 16
+# heads; 64 keys, the body's limit; no clip; past d 16 and past 64 keys the
+# CUDA-core body
+ATT_SHAPES = {
+    "flagship": (4, 8, 40, 40, 8, (-5.0, 5.0)),
+    "d6": (3, 4, 21, 21, 6, (-5.0, 5.0)),
+    "d10": (3, 4, 21, 21, 10, (-5.0, 5.0)),
+    "d16": (3, 4, 24, 24, 16, (-5.0, 5.0)),
+    "l13": (3, 4, 13, 13, 8, (-5.0, 5.0)),
+    "l37": (2, 4, 37, 37, 8, (-5.0, 5.0)),
+    "rows": (3, 4, 9, 13, 6, (-5.0, 5.0)),
+    "h16": (2, 16, 20, 20, 8, (-5.0, 5.0)),
+    "lk64": (2, 4, 64, 64, 8, (-5.0, 5.0)),
+    "no_clip": (3, 8, 40, 40, 8, None),
+    "d24": (2, 4, 20, 20, 24, (-5.0, 5.0)),
+    "lk80": (2, 4, 30, 80, 8, (-5.0, 5.0)),
+}
+
+
+def _att_case(dev, dtype, shape, gated, hard, qk_scale=1.0):
+    """Inputs of K1 and K2 at ATT_SHAPES[shape], and the body the geometry
+    queries name, asserted: the tensor cores in bf16 with d <= 16 and lq,
+    lk <= 64, else the CUDA cores. q and k lie on a 1/8 grid: q.k is then
+    exact in f32 in any summation order, so K2's inclusive clip test on the
+    recomputed raw logit falls alike in kernel and plain version even at
+    the clip's edges."""
+    g_ = _gen(dev)
+    b, h, lq, lk, d, clip = ATT_SHAPES[shape]
+    body = int(dtype == torch.bfloat16 and d <= 16 and max(lq, lk) <= 64)
+    for geo in (att.fwd_geometry(dtype, lq, lk, d),
+                att.bwd_geometry(dtype, lq, lk, d)):
+        assert geo["tensor_cores"] == body and geo["smem"] <= 227 * 1024
+        assert geo["warps"] == ((lq + 15) // 16 if body else 4)
+
+    def rnd(*s, scale=1.0):
+        return (scale * torch.randn(s, generator=g_, device=dev)).to(dtype)
+
+    def grid(*s):
+        return (torch.round(qk_scale * 8 * torch.randn(s, generator=g_,
+                                                       device=dev)) / 8
+                ).to(dtype)
+
+    q, k, v = grid(b, h, lq, d), grid(b, h, lk, d), rnd(b, h, lk, d)
+    e, g = rnd(b, h, lq, lk), rnd(b, h, lq, lk) if gated else None
+    n = torch.randint(min(3, lk), lk + 1, (b,), generator=g_, device=dev)
+    n[0] = lk
+    madd = (torch.arange(lk, device=dev)[None] < n[:, None]).float() \
+        .sub(1).mul(1e9)
+    maddf = ((torch.rand((b, lq, lk), generator=g_, device=dev) < 0.5)
+             .float() - 1) * 1e9 if hard else None
+    return q, k, v, e, g, madd, maddf, clip
+
+
+@pytest.mark.parametrize("shape", list(ATT_SHAPES))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("gated,hard", [(True, False), (False, True),
                                         (True, True)])
-def test_attention_kernel_matches_plain(dev, dtype, gated, hard):
-    g_ = _gen(dev)
-    b, h, lq, lk, d = 3, 4, 9, 13, 6
-
-    def rnd(*s):
-        return torch.randn(s, generator=g_, device=dev).to(dtype)
-
-    q, k, v = rnd(b, h, lq, d), rnd(b, h, lk, d), rnd(b, h, lk, d)
-    e, g = rnd(b, h, lq, lk), rnd(b, h, lq, lk) if gated else None
-    madd = (torch.arange(lk, device=dev)[None] < torch.tensor(
-        [[5], [13], [9]], device=dev)).float().sub(1).mul(1e9)
-    maddf = ((torch.rand((b, lq, lk), generator=g_, device=dev) < 0.5)
-             .float() - 1) * 1e9 if hard else None
-    args = (q, k, v, e, g, madd, maddf, (-5.0, 5.0))
+def test_attention_kernel_matches_plain(dev, dtype, gated, hard, shape):
+    """K1 at inference against its plain version, through the body its
+    geometry query names."""
+    args = _att_case(dev, dtype, shape, gated, hard)
     before = att.KERNEL.launches
     out = att.egt_core_fwd(*args)
     assert att.KERNEL.launches == before + 1
@@ -224,44 +270,60 @@ def test_fused_layer_training_kernels_match_plain(dev, dtype, constrained,
             fl.BWD_ATTN_KERNEL.launches) == tuple(c + 1 for c in counts)
 
 
+def _att_training(dev, dtype, shape, gated, hard):
+    """K2's inputs: K1's with q and k scaled by 3, so that the clip binds on
+    many pairs, the draws live, and the cotangents of v_att, h_hat and (when
+    gated) the degrees; h_hat from K1's plain version."""
+    q, k, v, e, g, madd, maddf, clip = _att_case(dev, dtype, shape, gated,
+                                                 hard, qk_scale=3.0)
+    g_ = torch.Generator(device=dev).manual_seed(1)
+    gv = torch.randn(q.shape, generator=g_, device=dev).to(dtype)
+    gh = torch.randn(e.shape, generator=g_, device=dev).to(dtype)
+    gdeg = torch.randn(q.shape[:3], generator=g_, device=dev) if gated \
+        else None
+    draws = att.Draws(11, 0.1, 0.1)
+    fargs = (q, k, v, e, g, madd, maddf, clip, draws)
+    h_hat = att.egt_core_fwd_plain(*fargs)[1]
+    return fargs, (q, k, v, g, madd, maddf, h_hat, gv, gh, gdeg, clip, draws)
+
+
+@pytest.mark.parametrize("shape", list(ATT_SHAPES))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("gated,hard", [(True, False), (False, True)])
-def test_attention_training_kernels_match_plain(dev, dtype, gated, hard):
+def test_attention_training_kernels_match_plain(dev, dtype, gated, hard,
+                                                shape):
     """K1 with the draws and K2 (with a degree cotangent when gated) against
-    their plain versions."""
-    g_ = _gen(dev)
-    b, h, lq, lk, d = 3, 4, 9, 13, 6
-
-    def rnd(*s, scale=1.0):
-        return (scale * torch.randn(s, generator=g_, device=dev)).to(dtype)
-
-    q, k, v = rnd(b, h, lq, d, scale=3), rnd(b, h, lk, d, scale=3), rnd(b, h, lk, d)
-    e, g = rnd(b, h, lq, lk), rnd(b, h, lq, lk) if gated else None
-    madd = (torch.arange(lk, device=dev)[None] < torch.tensor(
-        [[5], [13], [9]], device=dev)).float().sub(1).mul(1e9)
-    maddf = ((torch.rand((b, lq, lk), generator=g_, device=dev) < 0.5)
-             .float() - 1) * 1e9 if hard else None
-    draws = att.Draws(11, 0.1, 0.1)
-    clip = (-5.0, 5.0)
-    fwd = att.egt_core_fwd(q, k, v, e, g, madd, maddf, clip, draws)
-    fwd_ref = att.egt_core_fwd_plain(q, k, v, e, g, madd, maddf, clip, draws)
+    their plain versions, through the bodies their geometry queries name."""
+    fargs, bargs = _att_training(dev, dtype, shape, gated, hard)
+    fwd = att.egt_core_fwd(*fargs)
+    fwd_ref = att.egt_core_fwd_plain(*fargs)
     for o, r in zip(fwd, fwd_ref):
         assert (o is None) == (r is None)
         if r is not None:
             _close(o, r, dtype)
-    gv, gh = rnd(b, h, lq, d), rnd(b, h, lq, lk)
-    gdeg = torch.randn((b, h, lq), generator=g_, device=dev) if gated else None
-    h_hat = fwd_ref[1]
     before = att.BWD_KERNEL.launches
-    bwd = att.egt_core_bwd(q, k, v, g, madd, maddf, h_hat, gv, gh, gdeg, clip,
-                           draws)
+    bwd = att.egt_core_bwd(*bargs)
     assert att.BWD_KERNEL.launches == before + 1
-    bwd_ref = att.egt_core_bwd_plain(q, k, v, g, madd, maddf, h_hat, gv, gh,
-                                     gdeg, clip, draws)
+    bwd_ref = att.egt_core_bwd_plain(*bargs)
     for i, (o, r) in enumerate(zip(bwd, bwd_ref)):   # dq dk dv de dg
         assert (o is None) == (r is None)
         if r is not None:
             _close(o, r, dtype, scaled=i in (1, 2))
+
+
+@pytest.mark.parametrize("shape", ["flagship", "d10", "l37", "rows"])
+@pytest.mark.parametrize("gated,hard", [(True, False), (False, True)])
+def test_attention_bwd_bf16_bit_identical_across_launches(dev, gated, hard,
+                                                          shape):
+    """K2's bf16 body: two launches give the same bits, dk and dv (sums over
+    the query rows, added in warp order) included."""
+    _, bargs = _att_training(dev, torch.bfloat16, shape, gated, hard)
+    first = att.egt_core_bwd(*bargs)
+    again = att.egt_core_bwd(*bargs)
+    for o, r in zip(first, again):
+        assert (o is None) == (r is None)
+        if r is not None:
+            assert torch.equal(o, r)
 
 
 @pytest.mark.parametrize("knobs", [dict(fused_layer=True),
