@@ -70,11 +70,14 @@ outside a checkout of the repository.
 
 from __future__ import annotations
 
+import importlib.util
 import json
+import math
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -157,6 +160,7 @@ def main() -> int:
     from egt_torch.ops import edge_block as eb
     from egt_torch.ops import egt_attention as att
     from egt_torch.ops import fused_layer as fl
+    from egt_torch.training import metrics as M
     from egt_torch.training.steps import load_trainer
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -172,6 +176,10 @@ def main() -> int:
     nvcc = run([_cuda._nvcc(), "--version"]).splitlines()
     print("nvcc: " + " | ".join(x for x in nvcc if "release" in x or
                                 "Build" in x))
+    print("host packages: " + ", ".join(
+        f"{m} {'present' if importlib.util.find_spec(m) else 'absent'}"
+        for m in ("h5py", "scipy")) + " (the engine phase starts from the "
+        "reader's cache either way)")
     name = torch.cuda.get_device_name(0)
     mem_bw, peak_bf16, peak_f32 = card_peaks(name)
     print(f"device {name}: bound rates {mem_bw / 1e12} TB/s, "
@@ -291,13 +299,20 @@ def main() -> int:
 
     # ---- 3a. attention kernels (K1 forward, K2 backward)
     def attention_case(b, h, l, d, dtype, gated=True, hard=False,
-                       training=False, timing=True, qk_scale=2.0):
-        # q and k scaled so that the clip binds on a share of pairs, on a
-        # 1/8 grid: q.k is then exact in f32 in any summation order, and
-        # K2's inclusive clip test on the recomputed raw logit falls alike
-        # in kernel and plain version at the clip's edges
-        q, k = (torch.round(randn(b, h, l, d, scale=8 * qk_scale)) / 8
-                for _ in range(2))
+                       training=False, timing=True, qk_scale=2.0, grid=True):
+        # q and k scaled so that the clip binds on a share of pairs; with
+        # `grid`, on a 1/8 grid: q.k is then exact in f32 in any summation
+        # order, and K2's inclusive clip test on the recomputed raw logit
+        # falls alike in kernel and plain version at the clip's edges.
+        # Without it, general values: K2's test may fall otherwise on a
+        # pair whose raw logit lies within a few ulps of an edge, and such
+        # pairs are left out of K2's comparison with their rows' dq and
+        # their columns' dk
+        if grid:
+            q, k = (torch.round(randn(b, h, l, d, scale=8 * qk_scale)) / 8
+                    for _ in range(2))
+        else:
+            q, k = (randn(b, h, l, d, scale=qk_scale) for _ in range(2))
         q, k, v = q.to(dtype), k.to(dtype), randn(b, h, l, d).to(dtype)
         e = randn(b, h, l, l).to(dtype)
         g = randn(b, h, l, l).to(dtype) if gated else None
@@ -315,6 +330,7 @@ def main() -> int:
         binds = float((raw.abs() > 5.0).float().mean())
         shape = (f"b{b} h{h} l{l} d{d} {str(dtype)[6:]}" +
                  (" hard-mask" if hard else "") + ("" if gated else " ungated")
+                 + ("" if grid else " general q, k")
                  + f" clip binds {binds:.2f}")
 
         def body(geo):
@@ -343,6 +359,19 @@ def main() -> int:
         out = att._egt_core_bwd_cuda(*bargs)
         ref = att.egt_core_bwd_plain(*bargs)
         torch.cuda.synchronize()
+        if not grid:
+            # the pairs within 16 f32 ulps of a clip edge: their row's dq
+            # and their column's dk take the plain version's values
+            ulp = 16 * float(np.spacing(np.float32(5.0)))
+            near = ((raw - 5.0).abs() <= ulp) | ((raw + 5.0).abs() <= ulp)
+            rows, cols = near.any(-1, keepdim=True), near.any(-2)[..., None]
+            out = (torch.where(rows, ref[0], out[0]),
+                   torch.where(cols, ref[1], out[1]), *out[2:])
+            n_near = int(near.sum())
+            check(n_near <= 1e-4 * near.numel(),
+                  f"attention_bwd {shape}: {n_near} of {near.numel()} pairs "
+                  f"within 16 ulps of a clip edge left out ({int(rows.sum())} "
+                  f"dq rows, {int(cols.sum())} dk rows)")
         # dk, dv (indices 1, 2) are sums over query rows: scaled absolute
         # part; dq, de and dg are per-element values
         errs = [max_err(o, r, dtype, scaled=i in (1, 2))
@@ -680,6 +709,12 @@ def main() -> int:
                     (16, 11, 10, 1, 7, False, False),
                     (16, 4, 96, 64, 64, True, True)):
                 attn_bwd_case(b, l, ew, h, dh, dtype, gated, constrained)
+            if dtype == torch.bfloat16:
+                # K1 and K2 on general-valued q and k, through each body:
+                # the tensor cores (d 8) and the CUDA cores (d 24)
+                for d in (8, 24):
+                    attention_case(16, 4, PAD, d, dtype, training=True,
+                                   timing=False, grid=False)
             for training in (False, True):
                 attention_case(16, 4, 37, 8, dtype, gated=False, hard=True,
                                training=training, timing=False)
@@ -882,7 +917,142 @@ def main() -> int:
             traceback.print_exc()
             check(False, f"phase 5: {tag}")
 
-    # ---- 6. kernels line: the training-mode cases at the flagship shape,
+    # ---- 6. the engine: the CLI triple on synthetic ZINC at the ZINC-12k
+    # split sizes, the flagship config as shipped (path A: K3; K4, K5)
+    from egt_torch import do_evaluations, end_training, native, run_training
+    from egt_torch.data import datasets as D
+    from egt_torch.data.dataset import GraphDataset
+
+    def engine(tmp: Path):
+        sizes = {"training": 10_000, "validation": 1_000, "test": 1_000}
+        erng = np.random.default_rng(2)
+        cache = tmp / "cache"
+        t = time.perf_counter()
+        ds = GraphDataset(D.ZINC, str(tmp / "ZINC.h5"), str(cache),
+                          splits=list(sizes))
+        # no HDF5 file: the reader starts from its cache, written from
+        # records (h5py need not be on the host)
+        for split, n in sizes.items():
+            ds.write_cache(split, synthetic.zinc_records(erng, n))
+        print(f"  engine: wrote the cache of {sum(sizes.values())} synthetic "
+              f"ZINC graphs in {time.perf_counter() - t:.1f} s", flush=True)
+
+        # the native batch builder loaded, and its batch equals numpy's
+        check(native.available(), "engine: the native batch builder loaded")
+        first = next(ds.batches("training", raw["batch_size"], shuffle=True))
+        swap, native.available = native.available, lambda: False
+        try:
+            ref = next(ds.batches("training", raw["batch_size"], shuffle=True))
+        finally:
+            native.available = swap
+        check(sorted(first) == sorted(ref) and all(
+            first[k].dtype == ref[k].dtype and np.array_equal(first[k], ref[k])
+            for k in ref), "engine: the native batch equals the numpy batch")
+
+        cfg = {**raw, "dataset_path": str(tmp / "ZINC.h5"),
+               "cache_dir": str(cache), "save_path": str(tmp / "run"),
+               "num_epochs": 2, "log_tensorboard": True}
+        path = tmp / "config.json"
+
+        def cli(main, **over):
+            path.write_text(json.dumps({**cfg, **over}))
+            return main([str(path)])
+
+        bs = raw["batch_size"]
+        steps = math.ceil(sizes["training"] / bs)
+        val = math.ceil(sizes["validation"] / bs)
+        evals = sum(math.ceil(n / (2 * bs)) for n in sizes.values())
+        s1, _ = counted(lambda: cli(run_training.main),
+                        dict(K3=20 * (steps + val), K4=20 * steps,
+                             K5=20 * steps),
+                        f"engine run_training, 2 epochs of {steps} steps and "
+                        f"{val} validation batches")
+        s2, _ = counted(lambda: cli(run_training.main, num_epochs=3),
+                        dict(K3=10 * (steps + val), K4=10 * steps,
+                             K5=10 * steps), "engine run_training, resumed "
+                        "to epoch 3")
+        s3, _ = counted(lambda: cli(do_evaluations.main, num_epochs=3,
+                                    weight_file=""), dict(K3=10 * evals),
+                        f"engine do_evaluations, {evals} batches")
+        s4, _ = counted(lambda: cli(end_training.main, num_epochs=3), {},
+                        "engine end_training")
+
+        run_dir = tmp / "run"
+        name = raw["model_name"]
+        for rel in ("config/config.json", "config/config_input.json",
+                    "summary.txt", f"saved/{name}.npz", "logs/metrics.jsonl",
+                    "checkpoint/ckpt_3.pt", "checkpoint/train_state_3.json"):
+            check((run_dir / rel).is_file(), f"engine: run dir holds {rel}")
+        check(bool(list((run_dir / "logs").glob("events.out.tfevents.*"))),
+              "engine: TensorBoard events written")
+        check(s2.state["current_epoch"] == 3 and
+              s2.state["global_step"] == 3 * steps and
+              s2.state["save_best_value"] < float("inf"),
+              f"engine: resumed to epoch 3 ({s2.state})")
+        recs = [json.loads(x) for x in
+                (run_dir / "logs" / "metrics.jsonl").read_text().splitlines()]
+        check(len(recs) == 3 and recs[2]["mae"] < recs[0]["mae"],
+              "engine: training MAE by epoch "
+              f"{[round(r['mae'], 5) for r in recs]}, val MAE "
+              f"{[round(r['val_mae'], 5) for r in recs]}")
+        for r in recs:
+            check(all(np.isfinite(r[k]) for k in
+                      ("loss", "mae", "val_loss", "val_mae")),
+                  f"engine: epoch {r['epoch']} metrics finite")
+        for split in ("trainset", "valset", "testset"):
+            text = (run_dir / "predictions" / f"{split}_evals.txt").read_text()
+            check("MAE = " in text, f"engine: {split}_evals.txt: "
+                  f"{text.strip()}")
+
+        # the saved weights serve, and predict what the trainer's model does
+        predict = serving.load_predictor(str(path),
+                                         str(run_dir / "saved" / f"{name}.npz"))
+        batch = next(ds.batches("test", bs))
+        served = predict(batch)
+        with torch.inference_mode():
+            own = s4.model({k: batch[k] for k in (
+                "node_features", "feature_matrix", "graph_matrix")})
+        diff = float(np.abs(served - own.float().cpu().numpy()).max())
+        check(served.shape == (bs, 1) and np.isfinite(served).all()
+              and diff <= MODEL_TOL["bfloat16"],
+              f"engine: load_predictor on the saved npz against the "
+              f"trainer's model, max diff {diff:.3g} (tol "
+              f"{MODEL_TOL['bfloat16']})")
+
+        # a step of the engine reads nothing back from the card
+        tr = s4.trainer
+        dbatch = s4._to_device(first)
+        acc = M.DeviceAccumulator()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(3):
+                tr.train_into(acc, [dbatch])
+            tr.eval_into(acc, dbatch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        check(np.isfinite(acc.result()["loss"]),
+              "engine: train_into and eval_into ran with CUDA synchronization "
+              "as an error")
+
+        for st in s1.epoch_stats + s2.epoch_stats:
+            print(f"  engine epoch {st['epoch']}: {st['seconds']:.3f} s "
+                  f"({st['train_seconds']:.3f} s training, {st['steps']} steps,"
+                  f" {1e3 * st['train_seconds'] / st['steps']:.2f} ms a step),"
+                  f" {st['graphs_per_s']:.1f} graphs/s, "
+                  f"{st['wait_share']:.4f} of the training time waiting for "
+                  f"the next batch [{smi}]", flush=True)
+
+    try:
+        (REPO / "build").mkdir(exist_ok=True)
+        with tempfile.TemporaryDirectory(prefix="engine-",
+                                         dir=REPO / "build") as tmp:
+            engine(Path(tmp))
+    except Exception:                               # noqa: BLE001 - report
+        traceback.print_exc()
+        check(False, "phase 6: engine")
+
+    # ---- 7. kernels line: the training-mode cases at the flagship shape,
     # bf16, each kernel's launches on its training path
     rows = []
     for key, case, part, source, replaces in (

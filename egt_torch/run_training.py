@@ -1,0 +1,21 @@
+"""Train CLI of the port: python -m egt_torch.run_training <config.json>
+[--device cpu]
+
+The counterpart of the root `run_training.py`: trains the config's scheme,
+resuming from its checkpoint if one exists, and saves the final weights.
+Runs on the GPU unless `--device` names another device.
+"""
+
+import sys
+
+from .training.schemes import scheme_from_args
+
+
+def main(argv=None):
+    scheme = scheme_from_args(argv, __doc__)
+    scheme.execute_training()
+    return scheme
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -7,7 +7,8 @@ the scheme defaults and `model_config_kwargs` of `schemes/base.py`, the ZINC
 binding of `schemes/zinc.py`, and the dispatch-knob copy of
 `TrainingBase.load_model`. The default tables carry the whole key surface of
 the trainer and the scheme, so the strict unknown-key check accepts every key
-a ZINC config may hold, including those serving ignores.
+a ZINC config may hold, including those serving ignores. They are the one
+copy: the engine's scheme classes (`training/schemes/`) read them from here.
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ ZINC_MAX_LENGTH = 40     # the ZINC dataset's declared pad length
 SCHEMES = ("zinc.svd", "zinc.eig")
 
 
-def _trainer_defaults() -> HParams:
+def trainer_defaults() -> HParams:
+    """`TrainingBase.get_default_config`."""
     return HParams(
         scheme=None,
         model_name="unnamed_model",
@@ -78,9 +80,9 @@ def _trainer_defaults() -> HParams:
     )
 
 
-def _scheme_defaults(pe: str) -> HParams:
-    """BaseDC -> BaseAdj -> BaseSVD | BaseEig -> the ZINC mixin."""
-    c = _trainer_defaults()
+def scheme_defaults(pe: str) -> HParams:
+    """BaseDC -> BaseAdj -> BaseSVD (`pe` "svd") | BaseEig ("eig")."""
+    c = trainer_defaults()
     c.update(
         model_name="dc",
         dataset_name="dataset",
@@ -139,12 +141,21 @@ def _scheme_defaults(pe: str) -> HParams:
             sel_eig_features=8,
             use_eig=True,
         )
-    c.update(
-        dataset_name="zinc",
-        num_virtual_nodes=0,
-        rlr_monitor="val_mae",
-        save_best_monitor="val_mae",
-    )
+    return c
+
+
+# the ZINC mixin's defaults (`egt_tpu/training/schemes/zinc.py:26-34`)
+ZINC_DEFAULTS = dict(
+    dataset_name="zinc",
+    num_virtual_nodes=0,
+    rlr_monitor="val_mae",
+    save_best_monitor="val_mae",
+)
+
+
+def zinc_defaults(pe: str) -> HParams:
+    c = scheme_defaults(pe)
+    c.update(ZINC_DEFAULTS)
     return c
 
 
@@ -191,7 +202,7 @@ def resolve_config(config: dict | str) -> HParams:
     if scheme not in SCHEMES:
         raise NotImplementedError(f"scheme {scheme!r} is not ported yet "
                                   f"(ported: {', '.join(SCHEMES)})")
-    return _scheme_defaults(scheme.partition(".")[2]).strict_update(config)
+    return zinc_defaults(scheme.partition(".")[2]).strict_update(config)
 
 
 def model_config_from_config(config: dict | str) -> GraphModelConfig:

@@ -87,3 +87,34 @@ class MetricAccumulator:
     def reset(self):
         self._sums.clear()
         self._counts.clear()
+
+
+class DeviceAccumulator:
+    """(sum, count) pairs of a run of steps, summed where they are computed
+    and read once: the counterpart of the JAX engine's on-device accumulator
+    (`egt_tpu/training/trainer.py:417-422`), so that a step reads no value
+    back from the card. The sums are kept in f64."""
+
+    def __init__(self):
+        self._names: tuple | None = None
+        self._acc = None
+
+    def add(self, pairs: dict) -> None:
+        """pairs: {name: (sum, count)} of 0-d tensors on one device."""
+        names = tuple(pairs)
+        v = torch.stack([torch.stack((s.detach(), c.detach()))
+                         for s, c in pairs.values()]).to(torch.float64)
+        if self._acc is None:
+            self._names, self._acc = names, v
+        elif names != self._names:
+            raise ValueError(f"metric names changed: {names} vs {self._names}")
+        else:
+            self._acc += v
+
+    def result(self) -> dict:
+        """{name: sum / count}; the one read of the device values."""
+        if self._acc is None:
+            return {}
+        acc = MetricAccumulator()
+        acc.update(dict(zip(self._names, self._acc.cpu().tolist())))
+        return acc.result()

@@ -1,14 +1,20 @@
 """The training step of a run config.
 
-Port of `egt_tpu/training/trainer.py::_compute_loss`, `train_step` and
-`eval_step` (`grad_accum_steps` 1): the model's forward in training mode
-with one seed per layer and step, the scheme's loss (`schemes.py`), the
-`l2_reg` penalty on every `kernel` and `table`, backward, and one optimizer
-update. The run engine around it (epochs, schedules, checkpoints, the data
-reader) is not ported yet.
+Port of `egt_tpu/training/trainer.py::_compute_loss`,
+`_grads_over_microbatches`, `train_step` and `eval_step`: the model's
+forward in training mode with one seed per layer and step, the scheme's loss
+(`schemes.py`), the `l2_reg` penalty on every `kernel` and `table`, backward
+over one or more microbatches with their gradients averaged uniformly, and
+one optimizer update. The run engine around it (epochs, schedules,
+checkpoints, the data reader) is `training/trainer.py`.
 
     trainer = load_trainer("configs/main/zinc/500k/egt.json", weights)
     trainer.train_step(batch)    # {"loss": ..., "mae": ...}
+
+`train_step` and `eval_step` read their batch's loss and metrics back to
+the host. The engine's `train_into` and `eval_into` instead add the (sum,
+count) pairs into a `metrics.DeviceAccumulator` and read nothing, as the
+JAX engine keeps its sums on the device until the end of an epoch.
 
 On a CUDA device the layers' forward and backward run through the
 hand-written kernels (see `models/layers.py`).
@@ -22,7 +28,7 @@ import torch
 from .. import schemes
 from ..models.graph_model import EGTGraphModel
 from ..ops.rng import fold_seed
-from ..weights import flat_names, load_flat_params, load_npz
+from ..weights import flat_arrays, load_flat_params, load_npz
 from . import optim
 
 L2_KEYS = ("kernel", "table")
@@ -33,8 +39,6 @@ class Trainer:
 
     def __init__(self, config, weights=None, device=None):
         c = schemes.resolve_config(config)
-        if int(c.grad_accum_steps) != 1:
-            raise NotImplementedError("grad_accum_steps > 1 is not ported yet")
         cfg = schemes.model_config_from_config(config)
         self.model = EGTGraphModel(
             cfg, device=device,
@@ -49,6 +53,7 @@ class Trainer:
             c.gradient_clipval)
         self._l2 = [p for name, p in named if name.rsplit(".", 1)[-1] in L2_KEYS]
         self.l2_reg = float(cfg.l2_reg)
+        self.grad_accum_steps = max(1, int(c.grad_accum_steps))
         # the JAX trainer's base key is PRNGKey(seed + 1), folded per step
         self.base_seed = fold_seed(int(c.seed) + 1)
         self.step = 0
@@ -57,9 +62,12 @@ class Trainer:
     def device(self) -> torch.device:
         return self.model.device
 
-    def layer_seeds(self, step: int) -> list[int]:
-        """One seed per layer for a step (`fold_rng(rng, 1000 + i)`)."""
-        return [fold_seed(self.base_seed, step, 1000 + i)
+    def layer_seeds(self, step: int, micro: int | None = None) -> list[int]:
+        """One seed per layer for a step (`fold_rng(rng, 1000 + i)`), and
+        for microbatch `micro` of it under gradient accumulation (the JAX
+        step folds the microbatch index in first)."""
+        tags = (step,) if micro is None else (step, micro)
+        return [fold_seed(self.base_seed, *tags, 1000 + i)
                 for i in range(self.model.cfg.model_height)]
 
     def compute_loss(self, batch: dict, training: bool, seeds=None):
@@ -85,29 +93,66 @@ class Trainer:
             res[name] = s.detach().item() / max(c.detach().item(), 1.0)
         return res
 
+    @staticmethod
+    def _with_loss(loss, pairs) -> dict:
+        """The pairs a step adds up: (loss, 1) first, as in JAX."""
+        loss = loss.detach()
+        return {"loss": (loss, torch.ones_like(loss)), **pairs}
+
+    def _update(self, microbatches: list, acc=None):
+        """One optimizer update: the gradients of the microbatches' losses
+        summed, then divided by their number (`trainer.py:381-408`: uniform
+        averaging, the big batch's gradient for graph-level targets). Each
+        microbatch's pairs go into `acc` if given. Returns the last
+        microbatch's (loss, pairs)."""
+        self.optimizer.zero_grad()
+        accum = self.grad_accum_steps > 1
+        for i, mb in enumerate(microbatches):
+            loss, pairs = self.compute_loss(
+                mb, True, self.layer_seeds(self.step, i if accum else None))
+            loss.backward()
+            if acc is not None:
+                acc.add(self._with_loss(loss, pairs))
+        if len(microbatches) > 1:
+            with torch.no_grad():
+                for group in self.optimizer.inner.param_groups:
+                    for p in group["params"]:
+                        if p.grad is not None:
+                            p.grad.div_(len(microbatches))
+        self.optimizer.step()
+        self.step += 1
+        return loss, pairs
+
     def train_step(self, batch: dict) -> dict:
         """One update on a batch (numpy arrays or tensors, with `target`).
         Returns the batch's loss and metrics before the update."""
-        self.optimizer.zero_grad()
-        loss, pairs = self.compute_loss(batch, True,
-                                        self.layer_seeds(self.step))
-        loss.backward()
-        self.optimizer.step()
-        self.step += 1
+        loss, pairs = self._update([batch])
         return self._report(loss.detach(), pairs)
+
+    def train_into(self, acc, microbatches: list) -> None:
+        """One update over `microbatches` (1 to `grad_accum_steps` batches of
+        one shape), adding each one's (loss, 1) and metric pairs into `acc`
+        (a `metrics.DeviceAccumulator`); reads no device value."""
+        self._update(microbatches, acc)
 
     def eval_step(self, batch: dict) -> dict:
         with torch.no_grad():
             loss, pairs = self.compute_loss(batch, False)
         return self._report(loss, pairs)
 
+    def eval_into(self, acc, batch: dict) -> None:
+        """Add a batch's (loss, 1) and metric pairs, at inference, into
+        `acc`; reads no device value."""
+        with torch.no_grad():
+            loss, pairs = self.compute_loss(batch, False)
+        acc.add(self._with_loss(loss, pairs))
+
     def set_learning_rate(self, lr: float) -> None:
         optim.set_learning_rate(self.optimizer, lr)
 
     def flat_params(self) -> dict[str, np.ndarray]:
         """{JAX flat name: array} of the current parameters."""
-        return {k: p.detach().float().cpu().numpy()
-                for k, p in flat_names(self.model).items()}
+        return flat_arrays(self.model)
 
 
 def load_trainer(config, weights=None, device=None) -> Trainer:

@@ -18,6 +18,12 @@ def flat_names(model: nn.Module) -> dict[str, torch.nn.Parameter]:
     return {name.replace(".", "/"): p for name, p in model.named_parameters()}
 
 
+def flat_arrays(model: nn.Module) -> dict[str, np.ndarray]:
+    """{JAX flat name: f32 array} of the model's current parameters."""
+    return {k: p.detach().float().cpu().numpy()
+            for k, p in flat_names(model).items()}
+
+
 def load_flat_params(model: nn.Module, flat: dict) -> nn.Module:
     """Copy `flat` ({JAX flat name: array}) into `model`. Every name and
     shape must match, both ways."""
