@@ -42,14 +42,27 @@ final result line):
      block; two launches of K4, K5 and K9 give bit-identical weight
      gradients (and K5's dk, dv); errors, kernel / plain
      times (CUDA events, median of 30 launches with L2 flushed before each)
-     and the reckoned bound;
+     and the reckoned bound; then (3d) the SBM shapes of the PATTERN /
+     CLUSTER 500k configs: K3 (inference and training), K4 and K5 at 128
+     graphs, l 128 and 192, ew 8, hidden 16, 8 heads, width 64, f32 and
+     bf16, each bucket's graphs of its node range (44-128, 129-188), with
+     K5's layout printed; K1 and K2 at the SBM tile (h 8, lq = lk = 192,
+     d 8, their CUDA-core bodies), each timed beside its bound;
   4. serving paths: `load_predictor` on configs/main/zinc/500k/egt.json with
      seeded weights under the JAX names answers 4 requests of 128 synthetic
      ZINC-shaped graphs, checked against the model's plain path (bf16 and
      f32): path A through the whole-layer kernel K3 (10 launches a request);
      path B (use_pallas true, use_pallas_layer false) through the attention
      kernel K1; path C (also use_pallas_edge true) through K1 and the edge
-     block K8 (10 launches each a request);
+     block K8 (10 launches each a request); then (4b) `load_predictor` on
+     configs/main/pattern/500k/egt.json with seeded weights answers 2
+     requests of 128 synthetic PATTERN graphs in each length bucket (l
+     128: 44-128 nodes, l 192: 129-188) through K3 (16 launches a
+     request), its (b, l, 2) node logits checked on the valid nodes
+     against the model's plain path (bf16: each logit within 5e-2 + 2e-2
+     |plain|, the kernels' bf16 tolerance, as a logit a node is no mean
+     over a graph; f32: 5e-4), and both paths' bf16 distance from the f32
+     plain path printed;
   5. training paths: `load_trainer` on the same config and weights takes a
      warm-up step, then 4 timed steps on 128-graph batches (bf16, random
      mask 0.1 live); each path's launches a step are checked, its
@@ -59,10 +72,30 @@ final result line):
      and K5), path B (K1; K2), path C (K1, K8; K9, K2: 9 K9 launches a step,
      as the last layer's edge output feeds no loss and autograd never runs
      its backward), A-merged (K3; K7) and A-mono (K3; K6), the last two with
-     `fused_layer.BWD_IMPL` set as `EGT_FUSED_BWD` would set it;
-  6. one JSON line listing every kernel with its launches on its training
-     path, its times and its bound;
-  7. last line: {"ok": true, "device": {...}}.
+     `fused_layer.BWD_IMPL` set as `EGT_FUSED_BWD` would set it; then
+     (5b) `load_trainer` on the PATTERN config takes a warm-up step and 4
+     timed steps at l 192, and 1 + 2 at l 128 (bf16, random mask 0.1
+     live), K3 / K4 / K5 16 launches each a step; its 3 losses and
+     step-1 gradients agree with the plain path's (f32 and bf16) on 32
+     graphs a batch (the plain path's autograd at 128 graphs and l 192
+     would not fit the card), and 20 steps on one batch of 128 lower the
+     loss; the same step checks for CLUSTER at l 192;
+  6. the engine: the CLI triple on the flagship ZINC config over 10,000 /
+     1,000 / 1,000 synthetic ZINC graphs (2 epochs, a resume to 3,
+     evaluation, final weights; launches counted, the saved weights
+     served, steps under `set_sync_debug_mode("error")`); then (6b) on the
+     PATTERN config over 1,280 / 256 / 256 synthetic PATTERN graphs (the
+     published splits are 10,000 / 2,000 / 2,000; 1 epoch of the shipped
+     200), only `dataset_path`, `cache_dir`, `save_path`, `num_epochs` and
+     `log_tensorboard` overridden: both length buckets in every split
+     (the larger cut to the split's largest graph, rounded up to 8, as the
+     reader does), K3 / K4 / K5 launches = 16 x steps (K3 also 16 x
+     evaluation batches), the SBM evaluation lines of all three splits,
+     the weights written, each epoch's seconds, graphs/s and wait share;
+  7. one JSON line listing every kernel with its launches on its training
+     path, its times and its bound, and K3, K4 and K5 again at the SBM
+     shapes (bf16, training) with PATTERN's launches in each bucket;
+  8. last line: {"ok": true, "device": {...}}.
 TF32 is off for matrix products and convolutions (full f32 references).
 Exits non-zero without a result when no CUDA device is present or when run
 outside a checkout of the repository.
@@ -86,6 +119,17 @@ REPO = Path(__file__).resolve().parent
 CONFIG = REPO / "configs" / "main" / "zinc" / "500k" / "egt.json"
 N_REQUESTS, GRAPHS, PAD = 4, 128, 40
 N_STEPS, N_FALL = 4, 20          # timed training steps; the loss-falls run
+# the SBM node-classification configs (PATTERN, CLUSTER 500k: 16 layers,
+# width 64, edge width 8, 8 heads) and their length buckets with the node
+# counts each takes (the data: 44-188 nodes for PATTERN, 40-190 CLUSTER)
+SBM_CONFIGS = {kind: REPO / "configs" / "main" / kind / "500k" / "egt.json"
+               for kind in ("pattern", "cluster")}
+SBM_BUCKETS = {128: (44, 128), 192: (129, 188)}
+N_SBM_STEPS = {192: 4, 128: 2}    # timed SBM training steps a bucket
+# graphs a batch in the SBM agreement with the plain path: the plain path's
+# autograd keeps some 3-4 GB of pair tensors a layer at 128 graphs and
+# l 192, 16 layers of which would not fit the card's memory
+SBM_AGREE = 32
 SOURCES = ("fused_layer_fwd", "egt_attention_fwd", "fused_layer_bwd_tail",
            "fused_layer_bwd_attn", "egt_attention_bwd", "fused_layer_bwd_merged",
            "fused_layer_bwd_mono", "edge_block_fwd", "edge_block_bwd")
@@ -299,7 +343,8 @@ def main() -> int:
 
     # ---- 3a. attention kernels (K1 forward, K2 backward)
     def attention_case(b, h, l, d, dtype, gated=True, hard=False,
-                       training=False, timing=True, qk_scale=2.0, grid=True):
+                       training=False, timing=True, qk_scale=2.0, grid=True,
+                       nodes=(9, 38)):
         # q and k scaled so that the clip binds on a share of pairs; with
         # `grid`, on a 1/8 grid: q.k is then exact in f32 in any summation
         # order, and K2's inclusive clip test on the recomputed raw logit
@@ -316,7 +361,8 @@ def main() -> int:
         q, k, v = q.to(dtype), k.to(dtype), randn(b, h, l, d).to(dtype)
         e = randn(b, h, l, l).to(dtype)
         g = randn(b, h, l, l).to(dtype) if gated else None
-        madd = (ragged_mask(b, l, lo=min(9, l), hi=min(38, l)) - 1.0) * 1e9
+        madd = (ragged_mask(b, l, lo=min(nodes[0], l), hi=min(nodes[1], l))
+                - 1.0) * 1e9
         maddf = ((torch.rand((b, l, l), generator=gen, device=dev) < 0.6)
                  .float() - 1.0) * 1e9 if hard else None
         draws = att.Draws(123, 0.1, 0.1) if training else att.OFF
@@ -389,7 +435,10 @@ def main() -> int:
 
     # ---- 3b. whole-layer kernels (K3 forward, K4 and K5 backward)
     def layer_case(b, l, ew, h, dh, dtype, constrained=False, training=False,
-                   timing=True):
+                   timing=True, nodes=(9, 38), alternatives=True):
+        """K3 (and in training K4, K5 and, with `alternatives`, K6's head,
+        K7 and K6) against their plain versions; graphs of nodes[0] to
+        nodes[1] nodes."""
         hid = 2 * ew
         spec = fl.LayerSpec(l=l, ew=ew, h=h, dh=dh, hidden=hid, gated=True,
                             constrained=constrained, clip=(-5.0, 5.0),
@@ -413,7 +462,7 @@ def main() -> int:
         w = fl.layer_weights(p, dtype)
         e = randn(b, l, l, ew).to(dtype)
         qkv = randn(b, l, 3 * dh).to(dtype)
-        mask = ragged_mask(b, l, lo=min(9, l), hi=min(38, l))
+        mask = ragged_mask(b, l, lo=min(nodes[0], l), hi=min(nodes[1], l))
         am = ((torch.rand((b, l, l), generator=gen, device=dev) < 0.3)
               .float() if constrained else None)
         args = (spec, e, qkv, mask, am, w, 77, training)
@@ -477,6 +526,13 @@ def main() -> int:
         errs += [max_err(out[4][k], r, dtype, scaled=True)
                  for k, r in aref[4].items()]
         check_attn_rerun(f"fused_layer_bwd_attn {shape}", out, aargs)
+        if dtype == torch.bfloat16:
+            g = fl.bwd_attn_geometry(spec)
+            print(f"  fused_layer_bwd_attn {shape}: "
+                  f"{'general' if g['general'] else 'register'} body, "
+                  f"{g['warps']} warps x {g['cluster']} blocks a graph, "
+                  f"{g['rows_per_block']} rows a block, {g['smem']} B, "
+                  f"kv_global {g['kv_global']}", flush=True)
         nproj = 2 * h
         nbytes = (3 * pairs * ew + 2 * pairs * h + b * l * 3 * dh
                   + 2 * b * l * dh + 2 * ew * h) * it + \
@@ -488,6 +544,8 @@ def main() -> int:
                             lambda: fl.fused_layer_bwd_attn_plain(*aargs),
                             nbytes, mm, pairs * (20 * ew + 40 * h), dtype,
                             timing)
+        if not alternatives:
+            return res
         # K6's head kernel alone: h_hat recomputed, the clip's flags equal
         # to the plain version's (random q, k: no raw logit within an ulp
         # of the clip)
@@ -726,6 +784,25 @@ def main() -> int:
         traceback.print_exc()
         check(False, "phase 3: kernels against their plain versions")
 
+    # ---- 3d. the SBM shapes: K3, K4 and K5 at the full batch in both
+    # length buckets (ew 8, hidden 16, 8 heads, width 64; each bucket's
+    # graphs of its node range), and K1 and K2 at the SBM tile (h 8, lq =
+    # lk = 192, d 8: path B's kernels at the shape the SBM schemes bring,
+    # through the bodies their geometry queries name)
+    try:
+        for dtype in (torch.float32, torch.bfloat16):
+            for l, nodes in SBM_BUCKETS.items():
+                for training in (False, True):
+                    results[("layer_sbm", l, dtype, training)] = layer_case(
+                        GRAPHS, l, 8, 8, 64, dtype, training=training,
+                        nodes=nodes, alternatives=False)
+            results[("attention_sbm", dtype)] = attention_case(
+                GRAPHS, 8, 192, 8, dtype, training=True,
+                nodes=SBM_BUCKETS[192])
+    except Exception:                               # noqa: BLE001 - report
+        traceback.print_exc()
+        check(False, "phase 3d: the kernels at the SBM shapes")
+
     # ---- 4. the serving paths
     raw = json.loads(CONFIG.read_text())
     # seeded weights under the JAX flat names: loading them exercises the
@@ -806,18 +883,107 @@ def main() -> int:
         traceback.print_exc()
         check(False, "phase 4: serving paths")
 
+    # ---- 4b. SBM serving: PATTERN's node readout through K3 in both length
+    # buckets, against the model's plain path on the valid nodes
+    sbm_raw = {k: json.loads(p.read_text()) for k, p in SBM_CONFIGS.items()}
+    sbm_flat = {k: synthetic.random_flat_params(
+        schemes.model_config_from_config(r), seed=1)
+        for k, r in sbm_raw.items()}
+
+    def sbm_requests(kind, l, n, seed):
+        lo = SBM_BUCKETS[l][0]
+        srng = np.random.default_rng(seed)
+        return [synthetic.sbm_batch(srng, GRAPHS, l, kind, above=lo - 1)
+                for _ in range(n)]
+
+    def node_diff(outs, refs, reqs, rtol=0.0):
+        """max over the valid nodes of the requests of |a - b| - rtol |b|."""
+        return max(float((np.abs(o - r) - rtol * np.abs(r))[
+            q["node_features"] >= 0].max()) for o, r, q in zip(outs, refs,
+                                                               reqs))
+
+    def serve_sbm(kind):
+        raw_k, flat_k = sbm_raw[kind], sbm_flat[kind]
+        layers, classes = raw_k["model_height"], \
+            schemes.model_config_from_config(raw_k).num_targets
+        plain_k = {**raw_k, "use_pallas": False, "use_pallas_layer": False}
+        predict = serving.load_predictor(raw_k, flat_k)
+        plain = serving.load_predictor(plain_k, flat_k)
+        f32 = serving.load_predictor({**raw_k, "compute_dtype": "float32"},
+                                     flat_k)
+        pf32 = serving.load_predictor({**plain_k, "compute_dtype": "float32"},
+                                      flat_k)
+        for l in SBM_BUCKETS:
+            reqs = sbm_requests(kind, l, 2, seed=l)
+            predict(reqs[0])                       # warm-up
+            torch.cuda.synchronize()
+
+            def run():
+                lat, outs = [], []
+                for r in reqs:
+                    t = time.perf_counter()
+                    outs.append(predict(r))
+                    lat.append(time.perf_counter() - t)
+                return lat, outs
+
+            tag = f"{kind} serving path A, l {l}"
+            (lat, outs), _ = counted(run, {"K3": layers * len(reqs)},
+                                     f"{tag}, {len(reqs)} requests")
+            check(all(o.shape == (GRAPHS, l, classes) and np.isfinite(o).all()
+                      for o in outs),
+                  f"{tag}: outputs finite, shape ({GRAPHS}, {l}, {classes})")
+            refs = [plain(r) for r in reqs]
+            # a logit a node, not a mean over a graph's nodes as ZINC's
+            # prediction, through 16 layers: bf16 is held element by element
+            # to the kernels' bf16 tolerance, atol + rtol |plain| (the plain
+            # path rounds the gates, the edge bias and h_hat to bf16 where
+            # the kernels keep f32); f32 as ZINC's predictions
+            atol, rtol = TOL["bfloat16"]
+            diff = node_diff(outs, refs, reqs)
+            excess = node_diff(outs, refs, reqs, rtol)
+            big = max(float(np.abs(r).max()) for r in refs)
+            check(excess <= atol,
+                  f"{tag}: bf16 max |kernel path - plain path| on the valid "
+                  f"nodes {diff:.4g}, every logit within {atol} + {rtol} "
+                  f"|plain| (|plain| max {big:.3g})")
+            ref32 = pf32(reqs[1])
+            d32 = node_diff([f32(reqs[1])], [ref32], reqs[1:])
+            check(d32 <= MODEL_TOL["float32"],
+                  f"{tag}: f32 max |kernel path - plain path| on the valid "
+                  f"nodes {d32:.4g} (tol {MODEL_TOL['float32']})")
+            print(f"  {tag}: bf16 distance from the f32 plain path on the "
+                  f"valid nodes: kernel path "
+                  f"{node_diff([outs[1]], [ref32], reqs[1:]):.4g}, plain path "
+                  f"{node_diff([refs[1]], [ref32], reqs[1:]):.4g}", flush=True)
+            med = statistics.median(lat)
+            print(f"  {tag}: request latency ms "
+                  f"{[round(x * 1e3, 3) for x in lat]}, median "
+                  f"{med * 1e3:.3f} ms, {GRAPHS / med:.1f} graphs/s (batch "
+                  f"{GRAPHS}, {layers} layers, bf16) [{smi}]", flush=True)
+
+    try:
+        serve_sbm("pattern")
+    except Exception:                               # noqa: BLE001 - report
+        traceback.print_exc()
+        check(False, "phase 4b: SBM serving")
+
     # ---- 5. the training paths
     trng = np.random.default_rng(1)
     train_batches = [synthetic.zinc_batch(trng, GRAPHS, PAD)
                      for _ in range(N_STEPS + 1)]
 
-    def run_steps(overrides, dtype, n=3):
-        """Losses of n steps on train_batches and the first step's
-        gradients, from the seeded weights."""
-        tr = load_trainer({**raw, **overrides, "compute_dtype": dtype}, flat)
+    def run_steps(overrides, dtype, n=3, base=None, weights=None,
+                  batches=None):
+        """Losses of n steps on `batches` (train_batches) and the first
+        step's gradients, from the seeded weights (`weights` of `base`: the
+        ZINC config's by default)."""
+        base = raw if base is None else base
+        batches = train_batches if batches is None else batches
+        tr = load_trainer({**base, **overrides, "compute_dtype": dtype},
+                          flat if weights is None else weights)
         losses, grads = [], None
         for i in range(n):
-            losses.append(tr.train_step(train_batches[i])["loss"])
+            losses.append(tr.train_step(batches[i])["loss"])
             if i == 0:
                 grads = {k: (None if p.grad is None else p.grad.clone())
                          for k, p in tr.model.named_parameters()}
@@ -825,10 +991,16 @@ def main() -> int:
 
     plain_ref = {}
 
-    def agreement(tag, overrides, dtype):
-        if dtype not in plain_ref:
-            plain_ref[dtype] = run_steps(plain_cfg, dtype)
-        (lp, gp), (lk, gk) = plain_ref[dtype], run_steps(overrides, dtype)
+    def agreement(tag, overrides, dtype, kind="zinc", **ctx):
+        """The kernel path's 3 losses and step-1 gradients against the
+        plain path's; `ctx` (base, weights, batches) names another config
+        than ZINC's, `kind` its key."""
+        if (kind, dtype) not in plain_ref:
+            plain_ref[(kind, dtype)] = run_steps(
+                {"use_pallas": False, "use_pallas_layer": False}, dtype,
+                **ctx)
+        (lp, gp), (lk, gk) = plain_ref[(kind, dtype)], \
+            run_steps(overrides, dtype, **ctx)
         ltol, gtol = TRAIN_TOL[dtype]
         dl = max(abs(a - b) / max(abs(b), 1e-6) for a, b in zip(lk, lp))
         check(dl <= ltol and np.all(np.isfinite(lk)),
@@ -916,6 +1088,68 @@ def main() -> int:
         except Exception:                           # noqa: BLE001 - report
             traceback.print_exc()
             check(False, f"phase 5: {tag}")
+
+    # ---- 5b. SBM training: PATTERN in both buckets (warm-up, then timed
+    # steps: 4 at l 192, 2 at l 128), CLUSTER at l 192; each step's K3 / K4
+    # / K5 launches (one each a layer: the last layer's edge output feeds
+    # no loss, but its backward still runs K4 for the node stream's v_att),
+    # agreement with the plain path on SBM_AGREE graphs a batch, and a
+    # falling loss over 20 steps on one batch of 128 at l 192
+    sbm_launches = {}
+
+    def train_sbm(kind, lengths):
+        raw_k, flat_k = sbm_raw[kind], sbm_flat[kind]
+        layers = raw_k["model_height"]
+        batches = {l: sbm_requests(kind, l, 1 + n, seed=10 + l)
+                   for l, n in lengths.items()}
+        tr = load_trainer(raw_k, flat_k)           # bf16, as shipped
+        for l, bs in batches.items():
+            tag = f"{kind} training path A, l {l}"
+            tr.train_step(bs[0])                   # warm-up at this shape
+            torch.cuda.synchronize()
+
+            def run():
+                times, losses = [], []
+                for bt in bs[1:]:
+                    t = time.perf_counter()
+                    losses.append(tr.train_step(bt)["loss"])
+                    times.append(time.perf_counter() - t)
+                return times, losses
+
+            n = len(bs) - 1
+            (times, losses), launches = counted(
+                run, {k: layers * n for k in ("K3", "K4", "K5")},
+                f"{tag}, {n} steps")
+            sbm_launches.setdefault(kind, {})[l] = launches
+            check(bool(np.all(np.isfinite(losses))),
+                  f"{tag}: losses finite {[round(x, 5) for x in losses]}")
+            med = statistics.median(times)
+            print(f"  {tag}: step ms {[round(x * 1e3, 3) for x in times]}, "
+                  f"median {med * 1e3:.3f} ms, {GRAPHS / med:.1f} graphs/s "
+                  f"(batch {GRAPHS}, {layers} layers, bf16) [{smi}]",
+                  flush=True)
+        l = max(lengths)
+        small = [{k: v[:SBM_AGREE] for k, v in bt.items()}
+                 for bt in batches[l]]
+        for dtype in ("float32", "bfloat16"):
+            agreement(f"{kind} training path A, l {l}, {SBM_AGREE} graphs",
+                      {}, dtype, kind=kind, base=raw_k, weights=flat_k,
+                      batches=small)
+        fall = load_trainer(raw_k, flat_k)
+        fl_losses = [fall.train_step(batches[l][0])["loss"]
+                     for _ in range(N_FALL)]
+        first, last = np.mean(fl_losses[:5]), np.mean(fl_losses[-5:])
+        check(last < first, f"{kind} training path A, l {l}: {N_FALL} steps "
+              f"on one batch, mean loss of the first 5 {first:.5f} -> last 5 "
+              f"{last:.5f}")
+
+    for kind, lengths in (("pattern", N_SBM_STEPS),
+                          ("cluster", {192: N_SBM_STEPS[192]})):
+        try:
+            train_sbm(kind, lengths)
+        except Exception:                           # noqa: BLE001 - report
+            traceback.print_exc()
+            check(False, f"phase 5b: {kind} training")
 
     # ---- 6. the engine: the CLI triple on synthetic ZINC at the ZINC-12k
     # split sizes, the flagship config as shipped (path A: K3; K4, K5)
@@ -1052,6 +1286,90 @@ def main() -> int:
         traceback.print_exc()
         check(False, "phase 6: engine")
 
+    # ---- 6b. the engine on PATTERN: the CLI triple over synthetic PATTERN
+    # graphs, cut from the published 10,000 / 2,000 / 2,000 to 1,280 / 256
+    # / 256 and from 200 epochs to 1; both length buckets in every split
+    # (the largest is cut to the split's largest graph, rounded up to 8)
+    def engine_sbm(tmp: Path):
+        kind, raw_k = "pattern", sbm_raw["pattern"]
+        sizes = {"training": 1280, "validation": 256, "test": 256}
+        erng = np.random.default_rng(6)
+        cache = tmp / "cache"
+        ds = GraphDataset(D.SBM_PATTERN, str(tmp / "SBM_PATTERN.h5"),
+                          str(cache), splits=list(sizes))
+        t = time.perf_counter()
+        for split, n in sizes.items():
+            ds.write_cache(split, synthetic.sbm_records(erng, n, kind))
+        print(f"  engine (PATTERN): wrote the cache of "
+              f"{sum(sizes.values())} synthetic PATTERN graphs in "
+              f"{time.perf_counter() - t:.1f} s", flush=True)
+        bs = raw_k["batch_size"]
+        buckets = schemes.resolve_config(raw_k).length_buckets
+
+        def pads(split, size):
+            return [b["node_features"].shape[1] for b in
+                    ds.batches(split, size, buckets=buckets)]
+
+        for split in sizes:
+            got = sorted(set(pads(split, bs)))
+            check(len(got) == 2 and got[0] == min(buckets),
+                  f"engine (PATTERN): {split} batches in both length "
+                  f"buckets, pads {got}")
+        steps, val = len(pads("training", bs)), len(pads("validation", bs))
+        evals = sum(len(pads(split, 2 * bs)) for split in sizes)
+        cfg = {**raw_k, "dataset_path": str(tmp / "SBM_PATTERN.h5"),
+               "cache_dir": str(cache), "save_path": str(tmp / "run"),
+               "num_epochs": 1, "log_tensorboard": False}
+        path = tmp / "config.json"
+        path.write_text(json.dumps(cfg))
+        layers = raw_k["model_height"]
+        s1, _ = counted(lambda: run_training.main([str(path)]),
+                        dict(K3=layers * (steps + val), K4=layers * steps,
+                             K5=layers * steps),
+                        f"engine (PATTERN) run_training, 1 epoch of {steps} "
+                        f"steps and {val} validation batches")
+        path.write_text(json.dumps({**cfg, "weight_file": ""}))
+        counted(lambda: do_evaluations.main([str(path)]),
+                dict(K3=layers * evals),
+                f"engine (PATTERN) do_evaluations, {evals} batches")
+        counted(lambda: end_training.main([str(path)]), {},
+                "engine (PATTERN) end_training")
+        run_dir = tmp / "run"
+        for rel in (f"saved/{raw_k['model_name']}.npz", "logs/metrics.jsonl",
+                    "checkpoint/ckpt_1.pt"):
+            check((run_dir / rel).is_file(),
+                  f"engine (PATTERN): run dir holds {rel}")
+        rec = json.loads((run_dir / "logs" / "metrics.jsonl").read_text())
+        check(all(np.isfinite(rec[k]) for k in ("loss", "xent", "acc",
+                                                 "val_loss", "val_xent",
+                                                 "val_acc")),
+              "engine (PATTERN): epoch 1 " + ", ".join(
+                  f"{k} {rec[k]:.5f}" for k in ("loss", "acc", "val_xent",
+                                                 "val_acc")))
+        heads = ["Accuracy", "Micro Recall", "Macro Recall",
+                 "Weighted Accuracy", "Log loss"]
+        for split in ("trainset", "valset", "testset"):
+            text = (run_dir / "predictions" / f"{split}_evals.txt").read_text()
+            got = [ln.split(" =")[0].split(":")[0] for ln in text.splitlines()]
+            check(got == heads, f"engine (PATTERN): {split}_evals.txt: "
+                  + " | ".join(text.strip().splitlines()))
+        for st in s1.epoch_stats:
+            print(f"  engine (PATTERN) epoch {st['epoch']}: "
+                  f"{st['seconds']:.3f} s ({st['train_seconds']:.3f} s "
+                  f"training, {st['steps']} steps, "
+                  f"{1e3 * st['train_seconds'] / st['steps']:.2f} ms a step),"
+                  f" {st['graphs_per_s']:.1f} graphs/s, "
+                  f"{st['wait_share']:.4f} of the training time waiting for "
+                  f"the next batch [{smi}]", flush=True)
+
+    try:
+        with tempfile.TemporaryDirectory(prefix="engine-sbm-",
+                                         dir=REPO / "build") as tmp:
+            engine_sbm(Path(tmp))
+    except Exception:                               # noqa: BLE001 - report
+        traceback.print_exc()
+        check(False, "phase 6b: engine on PATTERN")
+
     # ---- 7. kernels line: the training-mode cases at the flagship shape,
     # bf16, each kernel's launches on its training path
     rows = []
@@ -1084,6 +1402,25 @@ def main() -> int:
                      "source": source, "replaces": replaces,
                      "launches": train_launches[key], **r,
                      "library_ms": None})
+    # K3, K4 and K5 at the SBM shapes: the bf16 training-mode cases of
+    # phase 3d, with PATTERN's launches in that bucket (phase 5b)
+    for l in SBM_BUCKETS:
+        for key, part, source, replaces in (
+                ("K3", "fwd", "egt_torch/csrc/fused_layer_fwd.cu",
+                 "egt_tpu/ops/fused_layer_pallas.py:373"),
+                ("K4", "tail", "egt_torch/csrc/fused_layer_bwd_tail.cu",
+                 "egt_tpu/ops/fused_layer_pallas.py:789"),
+                ("K5", "attn", "egt_torch/csrc/fused_layer_bwd_attn.cu",
+                 "egt_tpu/ops/fused_layer_pallas.py:868")):
+            r = results.get(("layer_sbm", l, torch.bfloat16, True),
+                            {}).get(part)
+            n = sbm_launches.get("pattern", {}).get(l, {}).get(key)
+            if r is None or n is None:
+                continue
+            rows.append({"name": f"{Path(source).stem} (PATTERN, l {l})",
+                         "route": "cuda", "source": source,
+                         "replaces": replaces, "launches": n, **r,
+                         "library_ms": None})
     print(json.dumps({"kernels": rows}))
 
     if failures:

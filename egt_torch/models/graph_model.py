@@ -1,9 +1,11 @@
 """EGTGraphModel: config + `nn.Module` with the forward pass.
 
-Port of `egt_tpu/models/graph_model.py` for the ZINC path: token node and
-edge embeddings plus the adjacency-hop embedding, the layer stack (with the
-training draws and dropout when `training`), the final norms and the masked
-mean-pool graph readout. `GraphModelConfig` is
+Port of `egt_tpu/models/graph_model.py` for the ZINC and SBM paths: token
+node embeddings, the edge channel from token edge embeddings plus the
+adjacency-hop embedding (or, with `edge_input_kind="none"`, from the hop
+embedding alone), the layer stack (with the training draws and dropout when
+`training`), the final node norm, and the masked mean-pool graph readout or
+the per-node readout. `GraphModelConfig` is
 redeclared with the JAX fields, defaults and checks (the JAX module imports
 jax). Parameters carry the JAX params-tree names, so a state-dict key such
 as `stack.layers.0.dense_qkv.kernel` is the flat npz key
@@ -128,11 +130,15 @@ def unsupported(cfg: GraphModelConfig) -> list[str]:
         out.append("virtual nodes")
     if cfg.use_svd or cfg.use_eig:
         out.append("SVD / eigenvector positional encodings")
-    if cfg.node_input_kind != "tokens" or cfg.edge_input_kind != "tokens" \
+    if cfg.node_input_kind != "tokens" \
+            or cfg.edge_input_kind not in ("tokens", "none") \
             or cfg.node_vocab_sizes is not None \
             or cfg.edge_vocab_sizes is not None:
         out.append("inputs other than single-column tokens")
-    if cfg.readout_kind != "graph" or cfg.readout_edges:
+    if cfg.edge_input_kind == "none" and not (cfg.use_adj
+                                              and cfg.upto_hop >= 1):
+        out.append("an edge channel with neither edge inputs nor hops")
+    if cfg.readout_kind not in ("graph", "node") or cfg.readout_edges:
         out.append(f"readout {cfg.readout_kind!r} (edges={cfg.readout_edges})")
     if cfg.distance_loss > 0:
         out.append("the distance head")
@@ -157,7 +163,7 @@ def resolve_device(device=None) -> torch.device:
 
 
 class EGTGraphModel(nn.Module):
-    """The EGT graph-regression model, inference forward.
+    """The EGT model: graph regression (ZINC) or node classification (SBM).
 
     Parameters are initialised from `generator` (a CPU `torch.Generator`;
     seeded 0 if None) and placed on `device` (see `resolve_device`)."""
@@ -167,7 +173,8 @@ class EGTGraphModel(nn.Module):
         super().__init__()
         missing = unsupported(cfg)
         if missing:
-            raise NotImplementedError("not ported yet: " + ", ".join(missing))
+            raise NotImplementedError("not ported yet: " + ", ".join(missing)
+                                      + " (ROADMAP §A item 5)")
         self.cfg = cfg
         dev = resolve_device(device)
         if generator is None:
@@ -175,8 +182,9 @@ class EGTGraphModel(nn.Module):
         w, ew = cfg.model_width, cfg.edge_width
         self.node_emb = F.embedding_params(cfg.num_node_features + 1, w,
                                            generator)
-        self.fm_emb = F.embedding_params(cfg.num_edge_features + 1, ew,
-                                         generator)
+        if cfg.edge_input_kind == "tokens":
+            self.fm_emb = F.embedding_params(cfg.num_edge_features + 1, ew,
+                                             generator)
         if cfg.use_adj and cfg.upto_hop >= 1:
             self.adj_emb = F.dense_params(cfg.upto_hop, ew, generator)
         stack = {"layers": nn.ModuleList(
@@ -203,6 +211,13 @@ class EGTGraphModel(nn.Module):
         return (torch.bfloat16 if self.cfg.compute_dtype == "bfloat16"
                 else torch.float32)
 
+    @property
+    def input_keys(self) -> tuple:
+        """The batch keys the forward reads."""
+        if self.cfg.edge_input_kind == "tokens":
+            return ("node_features", "feature_matrix", "graph_matrix")
+        return ("node_features", "graph_matrix")
+
     def output_mask(self, batch):
         """The mask Keras would feed into compiled losses and metrics: none
         for a graph readout, token validity for a node or edge readout."""
@@ -214,9 +229,11 @@ class EGTGraphModel(nn.Module):
 
     def forward(self, batch: dict, training: bool = False,
                 seeds=None) -> torch.Tensor:
-        """batch: node_features (b, l) int, feature_matrix (b, l, l) int and
-        graph_matrix (b, l, l) (any numeric dtype), as tensors or numpy
-        arrays. Returns the (b, num_targets) f32 predictions. `seeds` holds
+        """batch: node_features (b, l) int, feature_matrix (b, l, l) int
+        (token edge inputs only) and graph_matrix (b, l, l) (any numeric
+        dtype), as tensors or numpy arrays. Returns the f32 predictions:
+        (b, num_targets) for a graph readout, (b, l, num_targets) for a node
+        readout. `seeds` holds
         one seed per layer for this step (`fold_rng(rng, 1000 + i)` in JAX);
         training draws and dropout need it."""
         cfg = self.cfg
@@ -225,16 +242,19 @@ class EGTGraphModel(nn.Module):
             raise ValueError(f"need {cfg.model_height} layer seeds, got "
                              f"{len(seeds)}")
         nf = torch.as_tensor(batch["node_features"], device=dev)
-        fm = torch.as_tensor(batch["feature_matrix"], device=dev)
         # the dataset ships the adjacency in a narrow integer dtype
         adj = torch.as_tensor(batch["graph_matrix"], device=dev).float()
 
         node_mask = nf >= 0
         h = F.token_embed(self.node_emb, nf)
-        e = F.token_embed(self.fm_emb, fm)
+        parts = []
+        if cfg.edge_input_kind == "tokens":
+            fm = torch.as_tensor(batch["feature_matrix"], device=dev)
+            parts.append(F.token_embed(self.fm_emb, fm))
         if cfg.use_adj and cfg.upto_hop >= 1:
             hops = F.stack_hops(adj, cfg.upto_hop, cfg.clip_hops)
-            e = e + F.dense(self.adj_emb, hops)
+            parts.append(F.dense(self.adj_emb, hops))
+        e = parts[0] if len(parts) == 1 else parts[0] + parts[1]
         edge_mask = adj if cfg.edge_channel_type == "constrained" else None
 
         dtype = self.compute_dtype
@@ -244,8 +264,8 @@ class EGTGraphModel(nn.Module):
             h, e = layer(h, e, node_mask, edge_mask, training,
                          None if seeds is None else seeds[i])
         if (not cfg.add_n_norm) and cfg.do_final_norm:
-            # the graph readout reads no edges, so `edge_norm_final` (kept for
-            # the weight names) is not applied
+            # the graph and node readouts read no edges, so
+            # `edge_norm_final` (kept for the weight names) is not applied
             h = L.layer_norm(self.stack["node_norm_final"], h)
         return self._readout(h, node_mask).float()
 
@@ -256,7 +276,11 @@ class EGTGraphModel(nn.Module):
         return F.dense(self.target, x)
 
     def _readout(self, h, node_mask):
-        """Masked mean-pool over valid nodes -> MLP -> target, in f32."""
+        """Graph: masked mean-pool over valid nodes -> MLP -> target. Node:
+        the MLP on every node (padding included; the loss masks it). In
+        f32."""
+        if self.cfg.readout_kind == "node":
+            return self._mlp_out(h)
         m = node_mask.float()[..., None]
         s = torch.sum(h.float() * m, dim=1)
         c = torch.sum(m, dim=1)

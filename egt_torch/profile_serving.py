@@ -1,9 +1,12 @@
 """Where a serving request's time goes on the card.
 
     python -m egt_torch.profile_serving [--path A|B|C] [--requests N]
+        [--scheme zinc|pattern|cluster] [--pad L]
 
-Serves the flagship ZINC-500k config (seeded weights, synthetic 128-graph
-requests; see `egt_torch.synthetic`) under `torch.profiler` and prints the
+Serves the 500k config of a scheme (the flagship ZINC by default; seeded
+weights, synthetic 128-graph requests, see `egt_torch.synthetic`: ZINC
+padded to 40, PATTERN / CLUSTER graphs of one length bucket, `--pad` 192 by
+default, 128 the other) under `torch.profiler` and prints the
 wall time per request, the device-busy time per request and the device's
 idle share, then the operators ranked by device time. Path A is the config as
 shipped (whole-layer kernel); path B sets use_pallas true and
@@ -23,8 +26,9 @@ import torch
 
 from . import schemes, serving, synthetic
 
-CONFIG = Path(__file__).resolve().parents[1] / "configs" / "main" / "zinc" \
-    / "500k" / "egt.json"
+CONFIGS = {kind: Path(__file__).resolve().parents[1] / "configs" / "main"
+           / kind / "500k" / "egt.json" for kind in ("zinc", "pattern",
+                                                     "cluster")}
 PATHS = {"A": {}, "B": {"use_pallas": True, "use_pallas_layer": False},
          "C": {"use_pallas": True, "use_pallas_layer": False,
                "use_pallas_edge": True}}
@@ -44,21 +48,43 @@ def device_kernels(prof) -> dict[str, tuple[float, int]]:
     return out
 
 
+def workload(scheme: str, path: str, pad: int | None):
+    """(run config, fn(rng, n, graphs) -> batches) of a scheme's 500k config
+    on a path: ZINC padded to `pad` (40), or PATTERN / CLUSTER graphs of the
+    length bucket `pad` (192), more nodes than the next smaller bucket."""
+    raw = {**json.loads(CONFIGS[scheme].read_text()), **PATHS[path]}
+    if scheme == "zinc":
+        return raw, lambda rng, n, graphs: [
+            synthetic.zinc_batch(rng, graphs, pad or 40) for _ in range(n)]
+    pad = pad or 192
+    buckets = schemes.resolve_config(raw).length_buckets
+    above = max([b for b in buckets if b < pad], default=0)
+    return raw, lambda rng, n, graphs: [
+        synthetic.sbm_batch(rng, graphs, pad, scheme, above)
+        for _ in range(n)]
+
+
+def add_workload_args(ap) -> None:
+    ap.add_argument("--path", choices=sorted(PATHS), default="A")
+    ap.add_argument("--scheme", choices=sorted(CONFIGS), default="zinc")
+    ap.add_argument("--pad", type=int, default=None,
+                    help="pad length (zinc 40; pattern, cluster: the length "
+                         "bucket, 192 or 128)")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--path", choices=sorted(PATHS), default="A")
+    add_workload_args(ap)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--graphs", type=int, default=128)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving needs a CUDA device")
 
-    raw = {**json.loads(CONFIG.read_text()), **PATHS[args.path]}
+    raw, make = workload(args.scheme, args.path, args.pad)
     flat = synthetic.random_flat_params(schemes.model_config_from_config(raw))
     predict = serving.load_predictor(raw, flat)
-    rng = np.random.default_rng(1)
-    reqs = [synthetic.zinc_batch(rng, args.graphs)
-            for _ in range(args.requests)]
+    reqs = make(np.random.default_rng(1), args.requests, args.graphs)
     for r in reqs[:2]:
         predict(r)                                   # warm-up
     torch.cuda.synchronize()
@@ -72,8 +98,9 @@ def main(argv=None) -> int:
         wall = (time.perf_counter() - t0) / args.requests
     kernels = device_kernels(prof)
     busy = sum(us for us, _ in kernels.values()) / 1e6 / args.requests
-    print(f"path {args.path}: {args.requests} requests x {args.graphs} "
-          f"graphs, wall {wall * 1e3:.3f} ms/request, device busy "
+    print(f"{args.scheme} path {args.path}, pad "
+          f"{reqs[0]['graph_matrix'].shape[1]}: {args.requests} requests x "
+          f"{args.graphs} graphs, wall {wall * 1e3:.3f} ms/request, device busy "
           f"{busy * 1e3:.3f} ms/request, device idle share "
           f"{max(0.0, 1 - busy / wall):.3f}")
     print(f"{'device ms/req':>14} {'share':>6} {'calls/req':>9}  kernel")

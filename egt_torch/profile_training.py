@@ -1,10 +1,13 @@
 """Where a training step's time goes on the card.
 
     python -m egt_torch.profile_training [--path A|B|C]
+        [--scheme zinc|pattern|cluster] [--pad L]
 
-Trains the flagship ZINC-500k config (seeded weights, STEPS synthetic batches
-of GRAPHS graphs, the config's batch size; see `egt_torch.synthetic`) and
-prints the wall time per step
+Trains the 500k config of a scheme (the flagship ZINC by default; seeded
+weights, STEPS synthetic batches of GRAPHS graphs, the config's batch size:
+ZINC padded to 40, PATTERN / CLUSTER graphs of one length bucket, `--pad`
+192 by default; see `egt_torch.synthetic` and `profile_serving.workload`)
+and prints the wall time per step
 (without the profiler, which slows the host), the device-busy time per step
 under `torch.profiler` and the device's idle share (1 - busy / wall), then
 the operators ranked by device time. Path A is the config as
@@ -18,7 +21,6 @@ K9 then K2 backward). Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
-import json
 import time
 
 import numpy as np
@@ -26,7 +28,7 @@ import torch
 
 from . import schemes, synthetic
 from .ops import fused_layer
-from .profile_serving import CONFIG, PATHS, device_kernels
+from .profile_serving import add_workload_args, device_kernels, workload
 from .training.steps import load_trainer
 
 STEPS, GRAPHS = 6, 128
@@ -34,16 +36,15 @@ STEPS, GRAPHS = 6, 128
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--path", choices=sorted(PATHS), default="A")
+    add_workload_args(ap)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_training needs a CUDA device")
 
-    raw = {**json.loads(CONFIG.read_text()), **PATHS[args.path]}
+    raw, make = workload(args.scheme, args.path, args.pad)
     flat = synthetic.random_flat_params(schemes.model_config_from_config(raw))
     trainer = load_trainer(raw, flat)
-    rng = np.random.default_rng(1)
-    batches = [synthetic.zinc_batch(rng, GRAPHS) for _ in range(STEPS)]
+    batches = make(np.random.default_rng(1), STEPS, GRAPHS)
     for b in batches[:2]:
         trainer.train_step(b)                        # warm-up
     torch.cuda.synchronize()
@@ -61,7 +62,8 @@ def main(argv=None) -> int:
         wall_prof = run()
     kernels = device_kernels(prof)
     busy = sum(us for us, _ in kernels.values()) / 1e6 / STEPS
-    print(f"path {args.path} (whole-layer backward "
+    print(f"{args.scheme} path {args.path}, pad "
+          f"{batches[0]['graph_matrix'].shape[1]} (whole-layer backward "
           f"{fused_layer.BWD_IMPL}): {STEPS} steps x {GRAPHS} graphs, "
           f"wall {wall * 1e3:.3f} ms/step ({wall_prof * 1e3:.3f} under the "
           f"profiler), device busy {busy * 1e3:.3f} ms/step, device idle "

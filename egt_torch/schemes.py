@@ -1,26 +1,28 @@
 """Config resolution: a run config (the JSON files under `configs/`) ->
-`GraphModelConfig`, and the ZINC loss binding.
+`GraphModelConfig`, and the loss of its scheme.
 
 Port of the serving side of the JAX package's config chain: the trainer
 defaults (`egt_tpu/training/trainer.py::TrainingBase.get_default_config`),
-the scheme defaults and `model_config_kwargs` of `schemes/base.py`, the ZINC
-binding of `schemes/zinc.py`, and the dispatch-knob copy of
-`TrainingBase.load_model`. The default tables carry the whole key surface of
-the trainer and the scheme, so the strict unknown-key check accepts every key
-a ZINC config may hold, including those serving ignores. They are the one
-copy: the engine's scheme classes (`training/schemes/`) read them from here.
+the scheme defaults and `model_config_kwargs` of `schemes/base.py`, the
+dataset bindings of `schemes/zinc.py`, `pattern.py` and `cluster.py`
+(`DATASETS`: their defaults, model inputs and readout, and loss), and the
+dispatch-knob copy of `TrainingBase.load_model`. The default tables carry the
+whole key surface of the trainer and the scheme, so the strict unknown-key
+check accepts every key a config of a ported scheme may hold, including those
+serving ignores. They are the one copy: the engine's scheme classes
+(`training/schemes/`) read them from here.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
 
 import torch
 
 from .models.graph_model import GraphModelConfig
 from .training import metrics as M
 from .utils.hparams import Derived, HParams, join_path, read_config_from_file
-
-ZINC_MAX_LENGTH = 40     # the ZINC dataset's declared pad length
-SCHEMES = ("zinc.svd", "zinc.eig")
 
 
 def trainer_defaults() -> HParams:
@@ -144,18 +146,75 @@ def scheme_defaults(pe: str) -> HParams:
     return c
 
 
-# the ZINC mixin's defaults (`egt_tpu/training/schemes/zinc.py:26-34`)
-ZINC_DEFAULTS = dict(
-    dataset_name="zinc",
-    num_virtual_nodes=0,
-    rlr_monitor="val_mae",
-    save_best_monitor="val_mae",
-)
+def loss_and_metrics(pred, target, mask, sample_mask):
+    """The ZINC schemes' loss (`egt_tpu/training/schemes/zinc.py:46-49`):
+    the MAE of the graph target, with its (sum, count) pair as `mae`."""
+    s, c = M.mae_loss(pred, target, mask, sample_mask)
+    return s / torch.clamp(c, min=1.0), {"mae": (s, c)}
 
 
-def zinc_defaults(pe: str) -> HParams:
+def sbm_loss(c: HParams) -> Callable:
+    """The PATTERN / CLUSTER loss (`egt_tpu/training/schemes/pattern.py:44-50`):
+    sparse cross-entropy over the valid nodes, each weighted by its class's
+    weight from `class_sizes`, as `xent`, and the accuracy as `acc`."""
+    cw = M.class_weights_from_sizes(c.class_sizes)
+
+    def loss_and_metrics(pred, target, mask, sample_mask):
+        s, n = M.sparse_xent_loss(pred, target, mask, sample_mask,
+                                  class_weights=cw)
+        sa, na = M.accuracy(pred, target, mask, sample_mask)
+        return s / torch.clamp(n, min=1.0), {"xent": (s, n), "acc": (sa, na)}
+    return loss_and_metrics
+
+
+@dataclass(frozen=True)
+class DatasetBinding:
+    """What a dataset's scheme mixin binds: its config defaults over the PE
+    chain, the model's inputs and readout (`get_model_config`), the pad
+    length the model is built for (None: the batch's), and its loss: a
+    function of the resolved config giving `fn(pred, target, mask,
+    sample_mask) -> (loss, {metric: (sum, count)})`."""
+    defaults: dict
+    model: dict
+    max_length: int | None
+    loss: Callable[[HParams], Callable]
+
+
+# `egt_tpu/training/schemes/pattern.py:22-33` (SBM graphs have ~40-190
+# nodes: two static bucket shapes instead of one pad to the global max)
+_SBM_DEFAULTS = dict(length_buckets=[128, 192], rlr_monitor="val_xent",
+                     save_best_monitor="val_xent")
+
+DATASETS = {
+    # `schemes/zinc.py:26-41`; ZINC's declared pad length is 40
+    "zinc": DatasetBinding(
+        defaults=dict(dataset_name="zinc", num_virtual_nodes=0,
+                      rlr_monitor="val_mae", save_best_monitor="val_mae"),
+        model=dict(edge_input_kind="tokens", num_node_features=28,
+                   num_edge_features=4, num_targets=1, readout_kind="graph"),
+        max_length=40, loss=lambda c: loss_and_metrics),
+    # `schemes/pattern.py:17-42`
+    "pattern": DatasetBinding(
+        defaults=dict(_SBM_DEFAULTS, dataset_name="sbm_pattern",
+                      class_sizes=[979220, 209900]),
+        model=dict(edge_input_kind="none", num_node_features=3,
+                   num_targets=2, readout_kind="node"),
+        max_length=None, loss=sbm_loss),
+    # `schemes/cluster.py:13-28`
+    "cluster": DatasetBinding(
+        defaults=dict(_SBM_DEFAULTS, dataset_name="sbm_cluster",
+                      class_sizes=[19695, 19222, 19559, 19417, 19801, 20139]),
+        model=dict(edge_input_kind="none", num_node_features=7,
+                   num_targets=6, readout_kind="node"),
+        max_length=None, loss=sbm_loss),
+}
+SCHEMES = tuple(f"{ds}.{pe}" for ds in DATASETS for pe in ("svd", "eig"))
+
+
+def dataset_defaults(ds: str, pe: str) -> HParams:
+    """The defaults of scheme `<ds>.<pe>`."""
     c = scheme_defaults(pe)
-    c.update(ZINC_DEFAULTS)
+    c.update(DATASETS[ds].defaults)
     return c
 
 
@@ -200,24 +259,26 @@ def resolve_config(config: dict | str) -> HParams:
         config = read_config_from_file(config)
     scheme = config.get("scheme")
     if scheme not in SCHEMES:
-        raise NotImplementedError(f"scheme {scheme!r} is not ported yet "
-                                  f"(ported: {', '.join(SCHEMES)})")
-    return zinc_defaults(scheme.partition(".")[2]).strict_update(config)
+        raise NotImplementedError(
+            f"scheme {scheme!r} is not ported yet (ported: "
+            f"{', '.join(SCHEMES)}; ROADMAP §A item 6)")
+    ds, _, pe = scheme.partition(".")
+    return dataset_defaults(ds, pe).strict_update(config)
 
 
 def model_config_from_config(config: dict | str) -> GraphModelConfig:
-    """GraphModelConfig of a `zinc.svd` / `zinc.eig` run config, with the
+    """GraphModelConfig of a run config of a ported scheme, with the
     dispatch knobs copied in as the JAX trainer copies them."""
     c = resolve_config(config)
-    pe = c.scheme.partition(".")[2]
+    ds, _, pe = c.scheme.partition(".")
+    binding = DATASETS[ds]
     cfg = GraphModelConfig(
-        **_model_config_kwargs(c, pe),
-        node_input_kind="tokens", edge_input_kind="tokens",
-        num_node_features=28, num_edge_features=4,
-        num_targets=1, readout_kind="graph", readout_edges=False,
-        num_virtual_nodes=c.num_virtual_nodes,
+        **_model_config_kwargs(c, pe), **binding.model,
+        node_input_kind="tokens", readout_edges=False,
+        # a key of the ZINC mixin only (the SBM schemes refuse it)
+        num_virtual_nodes=c.get("num_virtual_nodes", 0),
     )
-    cfg.max_length = ZINC_MAX_LENGTH
+    cfg.max_length = binding.max_length
     up = c.use_pallas
     cfg.fused_attention = "auto" if up == "auto" else bool(up)
     cfg.fused_edge_block = bool(c.use_pallas_edge)
@@ -232,8 +293,8 @@ def model_config_from_config(config: dict | str) -> GraphModelConfig:
     return cfg
 
 
-def loss_and_metrics(pred, target, mask, sample_mask):
-    """The ZINC schemes' loss (`egt_tpu/training/schemes/zinc.py:46-49`):
-    the MAE of the graph target, with its (sum, count) pair as `mae`."""
-    s, c = M.mae_loss(pred, target, mask, sample_mask)
-    return s / torch.clamp(c, min=1.0), {"mae": (s, c)}
+def loss_fn(config: dict | str | HParams) -> Callable:
+    """`fn(pred, target, mask, sample_mask) -> (loss, {metric: (sum,
+    count)})` of a run config's scheme."""
+    c = config if isinstance(config, HParams) else resolve_config(config)
+    return DATASETS[c.scheme.partition(".")[0]].loss(c)

@@ -2,9 +2,11 @@
 
 Port of `egt_tpu/serving.py::load_serving` for the eager PyTorch model. The
 batch is the JAX model's batch dict: `node_features (b, l)`,
-`feature_matrix (b, l, l)` and `graph_matrix (b, l, l)` numpy arrays (ints,
--1 padding; the adjacency may be a narrow integer type). On a CUDA device the
-layers run through the hand-written kernels (see `models/layers.py`). An
+`feature_matrix (b, l, l)` (token edge inputs: ZINC; the SBM schemes have
+none) and `graph_matrix (b, l, l)` numpy arrays (ints, -1 padding; the
+adjacency may be a narrow integer type), at any pad length l. On a CUDA
+device the layers run through the hand-written kernels (see
+`models/layers.py`). An
 exported, self-contained artifact (the JAX StableHLO export) has no
 counterpart yet.
 """
@@ -33,14 +35,15 @@ def load_model(config, weights, device=None) -> EGTGraphModel:
 
 
 def load_predictor(config, weights, device=None):
-    """Returns `fn(batch) -> np.ndarray` of (b, num_targets) f32 predictions."""
+    """Returns `fn(batch) -> np.ndarray` of f32 predictions: (b,
+    num_targets) for a graph readout (ZINC), (b, l, num_targets) for a node
+    readout (PATTERN, CLUSTER). Only the keys the model reads are taken from
+    the batch."""
     model = load_model(config, weights, device)
 
     def predict(batch: dict) -> np.ndarray:
         with torch.inference_mode():
-            out = model({k: batch[k] for k in ("node_features",
-                                               "feature_matrix",
-                                               "graph_matrix")})
+            out = model({k: batch[k] for k in model.input_keys})
         return out.cpu().numpy()
 
     return predict

@@ -1,8 +1,9 @@
 """Scheme registry: resolve '<dataset>.<pe>' names to scheme classes.
 
 Port of `egt_tpu/training/schemes/__init__.py` (the reference's
-`lib/training/importer.py:4-12`) for the schemes ported so far: zinc.svd and
-zinc.eig. The others raise NotImplementedError (ROADMAP §A item 6).
+`lib/training/importer.py:4-12`) for the schemes ported so far: zinc,
+pattern and cluster, each .svd and .eig. The others raise
+NotImplementedError (ROADMAP §A item 6).
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ from ...utils.hparams import read_config_from_file
 
 _MODULES = {
     "zinc": ".zinc",
+    "pattern": ".pattern",
+    "cluster": ".cluster",
 }
 
 

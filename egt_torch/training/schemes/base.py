@@ -4,8 +4,9 @@ Port of `egt_tpu/training/schemes/base.py` (the reference's
 `lib/training/schemes/scheme_base.py`): the model-hyperparameter config
 surface of BaseDC -> BaseAdj -> BaseSVD | BaseEig, and the dataset with the
 positional-encoding preprocessing the config asks for. The default tables
-are those of `egt_torch/schemes.py`, the one copy. The model and the loss of
-a run come from the same module's ZINC binding, through `steps.Trainer`.
+are those of `egt_torch/schemes.py`, the one copy, with the dataset
+binding a concrete scheme names in `DATASET`. The model and the loss of a run
+come from the same binding, through `steps.Trainer`.
 """
 
 from __future__ import annotations
@@ -18,10 +19,11 @@ from ..trainer import TrainingBase
 
 class BaseDCModelScheme(TrainingBase):
     DATASET_SPEC: DatasetSpec = None  # set by concrete schemes
+    DATASET: str = None               # key of `schemes.DATASETS`
     PE: str = None                    # "svd" | "eig"
 
     def get_default_config(self) -> HParams:
-        return schemes.scheme_defaults(self.PE)
+        return schemes.dataset_defaults(self.DATASET, self.PE)
 
     def dataset_kwargs(self) -> dict:
         c = self.config

@@ -7,9 +7,7 @@ save-best / RLR.
 
 from __future__ import annotations
 
-from ... import schemes
 from ...data import datasets as D
-from ...utils.hparams import HParams
 from .base import BaseEigModelScheme, BaseSVDModelScheme
 
 
@@ -22,11 +20,7 @@ class ZincEvalMixin:
 
 class ZincSchemeMixin(ZincEvalMixin):
     DATASET_SPEC = D.ZINC
-
-    def get_default_config(self) -> HParams:
-        c = super().get_default_config()
-        c.update(schemes.ZINC_DEFAULTS)
-        return c
+    DATASET = "zinc"
 
 
 class ZincSVD(ZincSchemeMixin, BaseSVDModelScheme):

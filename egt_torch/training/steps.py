@@ -5,11 +5,13 @@ Port of `egt_tpu/training/trainer.py::_compute_loss`,
 forward in training mode with one seed per layer and step, the scheme's loss
 (`schemes.py`), the `l2_reg` penalty on every `kernel` and `table`, backward
 over one or more microbatches with their gradients averaged uniformly, and
-one optimizer update. The run engine around it (epochs, schedules,
+one optimizer update. The scheme's loss is the config's: the MAE of the
+graph target (ZINC), or the class-weighted cross-entropy over the valid
+nodes with the accuracy beside it (PATTERN, CLUSTER). The run engine around it (epochs, schedules,
 checkpoints, the data reader) is `training/trainer.py`.
 
     trainer = load_trainer("configs/main/zinc/500k/egt.json", weights)
-    trainer.train_step(batch)    # {"loss": ..., "mae": ...}
+    trainer.train_step(batch)    # {"loss": ..., "mae": ...} (ZINC)
 
 `train_step` and `eval_step` read their batch's loss and metrics back to
 the host. The engine's `train_into` and `eval_into` instead add the (sum,
@@ -53,6 +55,7 @@ class Trainer:
             c.gradient_clipval)
         self._l2 = [p for name, p in named if name.rsplit(".", 1)[-1] in L2_KEYS]
         self.l2_reg = float(cfg.l2_reg)
+        self.loss_and_metrics = schemes.loss_fn(c)
         self.grad_accum_steps = max(1, int(c.grad_accum_steps))
         # the JAX trainer's base key is PRNGKey(seed + 1), folded per step
         self.base_seed = fold_seed(int(c.seed) + 1)
@@ -75,9 +78,9 @@ class Trainer:
         out = self.model(batch, training=training, seeds=seeds)
         target = torch.as_tensor(batch["target"], device=self.device)
         if not torch.is_floating_point(target):
-            target = target.long()
+            target = target.long()     # class labels: (b,) or per node (b, l)
         sample_mask = batch.get("sample_mask")
-        loss, pairs = schemes.loss_and_metrics(
+        loss, pairs = self.loss_and_metrics(
             out, target, self.model.output_mask(batch),
             None if sample_mask is None
             else torch.as_tensor(sample_mask, device=self.device))
@@ -124,8 +127,9 @@ class Trainer:
         return loss, pairs
 
     def train_step(self, batch: dict) -> dict:
-        """One update on a batch (numpy arrays or tensors, with `target`).
-        Returns the batch's loss and metrics before the update."""
+        """One update on a batch (numpy arrays or tensors, with `target`:
+        (b, 1) values for ZINC, (b, l) node labels for PATTERN and
+        CLUSTER). Returns the batch's loss and metrics before the update."""
         loss, pairs = self._update([batch])
         return self._report(loss.detach(), pairs)
 

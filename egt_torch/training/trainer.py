@@ -350,6 +350,8 @@ class TrainingBase:
     # ------------------------------------------------------------------ evaluation
 
     def evaluate_split(self, split: str, max_steps=None) -> dict:
+        """The split's loss and metrics at inference, over its batches (one
+        shape a length bucket, with `length_buckets`)."""
         acc = M.DeviceAccumulator()
         src = self._batches(split, shuffle=False)
         if max_steps:
@@ -357,6 +359,18 @@ class TrainingBase:
         for batch in Prefetcher(src, transform=self._to_device):
             self.trainer.eval_into(acc, batch)
         return acc.result()
+
+    def predict_split(self, split: str):
+        """Yield (host batch, f32 numpy predictions) over a split, batched
+        and bucketed as evaluation is, for custom eval loops."""
+        def pair(batch):
+            return batch, self._to_device(batch)
+
+        for batch, dbatch in Prefetcher(self._batches(split, shuffle=False),
+                                        transform=pair):
+            with torch.no_grad():
+                out = self.model(dbatch)
+            yield batch, out.float().cpu().numpy()
 
     # ----------------------------------------------------------- top-level commands
 

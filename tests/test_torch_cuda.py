@@ -67,6 +67,8 @@ ATT_SHAPES = {
     "no_clip": (3, 8, 40, 40, 8, None),
     "d24": (2, 4, 20, 20, 24, (-5.0, 5.0)),
     "lk80": (2, 4, 30, 80, 8, (-5.0, 5.0)),
+    # the PATTERN / CLUSTER tile: 8 heads of 8 at their longer bucket
+    "sbm_l192": (2, 8, 192, 192, 8, (-5.0, 5.0)),
 }
 
 
@@ -1179,3 +1181,92 @@ def test_bwd_attn_refuses_a_shape_past_227_kb(dev):
                                 z(b, l, l, h), z(b, l, l, h), z(b, l, l, ew),
                                 z(b, l, dh))
     assert fl.BWD_ATTN_KERNEL.launches == before
+
+
+# The whole-layer kernels at the shapes of the PATTERN / CLUSTER 500k configs
+# (edge width 8, hidden 16, 8 heads, width 64) in both length buckets, on a
+# small batch with ragged node masks: l 128 is the last length at which the
+# bf16 K3 packs several query rows a block, l 192 the first shipped one of
+# one row and 8 warps (12 tiles of 16 keys); K5 takes one or a few warps a
+# block there (`bwd_attn_geometry`).
+SBM_LENGTHS = (128, 192)
+
+
+def _sbm_layer(dev, dtype, l, b=3):
+    g_ = _gen(dev)
+    ew, h, dh = 8, 8, 64
+
+    def rnd(*s, scale=1.0):
+        return scale * torch.randn(s, generator=g_, device=dev)
+
+    def dense(i, o):
+        return {"kernel": rnd(i, o, scale=0.3), "bias": rnd(o, scale=0.1)}
+
+    def ln(n):
+        return {"gamma": 1 + rnd(n, scale=0.1), "beta": rnd(n, scale=0.1)}
+
+    p = {"attention_gates": dense(ew, h), "dense_edge_b": dense(ew, h),
+         "norm_edge": ln(ew), "dense_edge_r": dense(h, ew),
+         "edge_ffn": {"norm": ln(ew), "lr1": dense(ew, 2 * ew),
+                      "lr2": dense(2 * ew, ew)}}
+    spec = fl.LayerSpec(l=l, ew=ew, h=h, dh=dh, hidden=2 * ew, gated=True,
+                        constrained=False, clip=(-5.0, 5.0), edge_act=None,
+                        act="elu", scale=float(dh // h) ** -0.5,
+                        random_mask_prob=0.1, attn_dropout=0.1, training=True)
+    w = fl.layer_weights(p, dtype)
+    e, qkv = rnd(b, l, l, ew).to(dtype), rnd(b, l, 3 * dh).to(dtype)
+    n = torch.tensor([[l], [l - 60], [44]][:b], device=dev)
+    mask = (torch.arange(l, device=dev)[None] < n).float()
+    # h_hat drawn on its own, none of it within 0.05 of the clip's edges in
+    # hh - E (see `_bwd_attn_case`)
+    hh = rnd(b, l, l, h, scale=3.0).to(dtype).float()
+    d = hh - fl._edge_head(spec, e, w)[5]
+    near = ((d - spec.clip[0]).abs() < 0.05) | ((d - spec.clip[1]).abs() < 0.05)
+    hh = torch.where(near, hh + 0.25, hh).to(dtype)
+    cot = (rnd(b, l, l, ew).to(dtype), rnd(b, l, dh).to(dtype))
+    return spec, w, e, qkv, mask, hh, cot
+
+
+@pytest.mark.parametrize("l", SBM_LENGTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_whole_layer_kernels_at_sbm_shapes(dev, dtype, l):
+    """K3 at inference and in training (draws live, h_hat out), K4 and K5
+    against their plain versions at the SBM shapes; K4's and K5's sums
+    bit-identical across two launches."""
+    spec, w, e, qkv, mask, hh, (ge, gv) = _sbm_layer(dev, dtype, l)
+    counts = (fl.KERNEL.launches, fl.BWD_TAIL_KERNEL.launches,
+              fl.BWD_ATTN_KERNEL.launches)
+    infer = spec._replace(training=False)
+    for o, r in zip(fl.fused_layer_core(infer, e, qkv, mask, None, w),
+                    fl.fused_layer_plain(infer, e, qkv, mask, None, w)):
+        _close(o, r, dtype)
+    out = fl.fused_layer_core(spec, e, qkv, mask, None, w, 7, save_hh=True)
+    ref = fl.fused_layer_plain(spec, e, qkv, mask, None, w, 7, save_hh=True)
+    for o, r in zip(out, ref):
+        _close(o, r, dtype)
+    tail = fl.fused_layer_bwd_tail(spec, e, hh, ge, w)
+    tail_ref = fl.fused_layer_bwd_tail_plain(spec, e, hh, ge, w)
+    for o, r in zip(tail[:2], tail_ref[:2]):
+        _close(o, r, dtype)
+    for k, r in tail_ref[2].items():
+        _close(tail[2][k], r, dtype, scaled=True)
+    de_mid, dhh = tail_ref[:2]
+    args = (spec, e, qkv, mask, None, w, hh, dhh, de_mid, gv, 7)
+    att_ = fl.fused_layer_bwd_attn(*args)
+    att_ref = fl.fused_layer_bwd_attn_plain(*args)
+    for i, (o, r) in enumerate(zip(att_[:4], att_ref[:4])):   # de dq dk dv
+        _close(o, r, dtype, scaled=i >= 2)
+    for k, r in att_ref[4].items():
+        _close(att_[4][k], r, dtype, scaled=True)
+    assert (fl.KERNEL.launches, fl.BWD_TAIL_KERNEL.launches,
+            fl.BWD_ATTN_KERNEL.launches) == (counts[0] + 2, counts[1] + 1,
+                                             counts[2] + 1)
+    again = fl.fused_layer_bwd_tail(spec, e, hh, ge, w)[2]
+    assert all(torch.equal(tail[2][k], again[k]) for k in again)
+    again = fl.fused_layer_bwd_attn(*args)
+    assert torch.equal(att_[2], again[2]) and torch.equal(att_[3], again[3])
+    assert all(torch.equal(att_[4][k], again[4][k]) for k in again[4])
+    if dtype == torch.bfloat16:
+        g = fl.bwd_attn_geometry(spec)
+        assert g is not None and not g["general"]
+        assert g["cluster"] * g["rows_per_block"] >= l
