@@ -47,7 +47,12 @@ final result line):
      graphs, l 128 and 192, ew 8, hidden 16, 8 heads, width 64, f32 and
      bf16, each bucket's graphs of its node range (44-128, 129-188), with
      K5's layout printed; K1 and K2 at the SBM tile (h 8, lq = lk = 192,
-     d 8, their CUDA-core bodies), each timed beside its bound;
+     d 8, their CUDA-core bodies), each timed beside its bound; then (3e)
+     K3 (inference and training), K4 and K5 at the superpixel pads, 128
+     graphs, l 75 (MNIST: 40-75 nodes) and l 150 (CIFAR10: 85-150), ew 8,
+     hidden 16, 8 heads, width 64, f32 and bf16, timed beside their
+     bounds, with the layouts `bwd_attn_geometry` and `bwd_tail_geometry`
+     name at both pads;
   4. serving paths: `load_predictor` on configs/main/zinc/500k/egt.json with
      seeded weights under the JAX names answers 4 requests of 128 synthetic
      ZINC-shaped graphs, checked against the model's plain path (bf16 and
@@ -79,7 +84,16 @@ final result line):
      step-1 gradients agree with the plain path's (f32 and bf16) on 32
      graphs a batch (the plain path's autograd at 128 graphs and l 192
      would not fit the card), and 20 steps on one batch of 128 lower the
-     loss; the same step checks for CLUSTER at l 192;
+     loss; the same step checks for CLUSTER at l 192; then (5c) CIFAR10 and
+     MNIST `egt_spe_do` take 1 + 4 steps (random mask, SVD sign flips and
+     the distance head live; K3 / K4 / K5 4 each a step), agree with the
+     plain path (3 losses, every step-1 gradient, f32 and bf16) with the
+     last layer's edge tail and `edge_norm_final` reached on both paths,
+     and lower the loss over 20 steps on one batch; the same agreement for
+     configs/main/pattern/500k/egt_epe.json (eigenvector PE) at l 128 on
+     32 graphs a batch, cut to 8 of its 16 layers (PE_AGREE_DEPTH), and
+     configs/main/zinc/500k/egt_spe_do.json at pad 40 on 128; each bf16
+     agreement also prints both paths' distance from the f32 plain path;
   6. the engine: the CLI triple on the flagship ZINC config over 10,000 /
      1,000 / 1,000 synthetic ZINC graphs (2 epochs, a resume to 3,
      evaluation, final weights; launches counted, the saved weights
@@ -92,9 +106,16 @@ final result line):
      reader does), K3 / K4 / K5 launches = 16 x steps (K3 also 16 x
      evaluation batches), the SBM evaluation lines of all three splits,
      the weights written, each epoch's seconds, graphs/s and wait share;
+     then (6c) the CLI triple of configs/main/mnist/100k/egt_spe.json over
+     2,560 / 512 / 512 synthetic superpixel graphs (of the published
+     55,000 / 5,000 / 10,000; the reader's SVD cache built from the
+     records), 1 epoch of the shipped 200, the evaluation lines, the epoch
+     line and its share waiting for data;
   7. one JSON line listing every kernel with its launches on its training
      path, its times and its bound, and K3, K4 and K5 again at the SBM
-     shapes (bf16, training) with PATTERN's launches in each bucket;
+     shapes (bf16, training) with PATTERN's launches in each bucket and at
+     the superpixel pads with MNIST's (l 75) and CIFAR10's (l 150)
+     launches;
   8. last line: {"ok": true, "device": {...}}.
 TF32 is off for matrix products and convolutions (full f32 references).
 Exits non-zero without a result when no CUDA device is present or when run
@@ -130,6 +151,21 @@ N_SBM_STEPS = {192: 4, 128: 2}    # timed SBM training steps a bucket
 # autograd keeps some 3-4 GB of pair tensors a layer at 128 graphs and
 # l 192, 16 layers of which would not fit the card's memory
 SBM_AGREE = 32
+# the superpixel configs (MNIST / CIFAR10 100k `egt_spe_do`: 4 layers, width
+# 64, edge width 8, 8 heads, the SVD PE, the distance head), their pads and
+# the node counts of their graphs (Dwivedi et al.: 40-75, 85-150)
+SP_CONFIGS = {kind: REPO / "configs" / "main" / kind / "100k" /
+              "egt_spe_do.json" for kind in ("mnist", "cifar10")}
+SP_PADS = {75: (40, 75), 150: (85, 150)}
+SP_KIND = {75: "mnist", 150: "cifar10"}
+# depth of the PATTERN `egt_epe` agreement with the plain path (of the
+# shipped 16): at 16 layers the random-weight model's first Adam step is
+# chaotic (the f32 loss goes 0.22 -> 0.83): each bf16 path's later losses
+# lie 3-5% and its gradients 13-16% from the f32 plain path's, so the two
+# bf16 paths differ there by 1-2% in loss, past the 0.5% of TRAIN_TOL
+# (`python -m egt_torch.precision_drift` prints these); at 8 both lie
+# within 0.7% of f32 and within 0.2% of each other
+PE_AGREE_DEPTH = 8
 SOURCES = ("fused_layer_fwd", "egt_attention_fwd", "fused_layer_bwd_tail",
            "fused_layer_bwd_attn", "egt_attention_bwd", "fused_layer_bwd_merged",
            "fused_layer_bwd_mono", "edge_block_fwd", "edge_block_bwd")
@@ -803,6 +839,31 @@ def main() -> int:
         traceback.print_exc()
         check(False, "phase 3d: the kernels at the SBM shapes")
 
+    # ---- 3e. the superpixel pads: K3 (inference and training), K4 and K5
+    # at 128 graphs, l 75 (MNIST: no multiple of 8, a partial last 16-row
+    # tile) and l 150 (CIFAR10), ew 8, hidden 16, 8 heads, width 64, each
+    # pad's graphs of its dataset's node range; the layouts that K5's and
+    # K4's bf16 bodies take there
+    try:
+        for dtype in (torch.float32, torch.bfloat16):
+            for l, nodes in SP_PADS.items():
+                for training in (False, True):
+                    results[("layer_sp", l, dtype, training)] = layer_case(
+                        GRAPHS, l, 8, 8, 64, dtype, training=training,
+                        nodes=nodes, alternatives=False)
+        for l in SP_PADS:
+            spec = fl.LayerSpec(l=l, ew=8, h=8, dh=64, hidden=16, gated=True,
+                                constrained=False, clip=(-5.0, 5.0),
+                                edge_act=None, act="elu", scale=8 ** -0.5,
+                                training=True)
+            print(f"  superpixel l {l}: bwd_attn_geometry "
+                  f"{fl.bwd_attn_geometry(spec)}, bwd_tail_geometry "
+                  f"{fl.bwd_tail_geometry(spec, torch.bfloat16)}",
+                  flush=True)
+    except Exception:                               # noqa: BLE001 - report
+        traceback.print_exc()
+        check(False, "phase 3e: the kernels at the superpixel pads")
+
     # ---- 4. the serving paths
     raw = json.loads(CONFIG.read_text())
     # seeded weights under the JAX flat names: loading them exercises the
@@ -967,6 +1028,76 @@ def main() -> int:
         traceback.print_exc()
         check(False, "phase 4b: SBM serving")
 
+    # ---- 4c. superpixel serving: MNIST and CIFAR10 `egt_spe_do` at full
+    # width and depth on path A (dense node and edge inputs, the SVD PE),
+    # N_REQUESTS requests of 128 synthetic superpixel graphs, their (b, 10)
+    # class logits against the model's plain path: bf16 each within 5e-2 +
+    # 2e-2 |plain| (a logit a graph through 4 layers, held as the kernels'
+    # bf16 outputs), f32 5e-4
+    sp_raw = {k: json.loads(p.read_text()) for k, p in SP_CONFIGS.items()}
+    sp_flat = {k: synthetic.random_flat_params(
+        schemes.model_config_from_config(r), seed=2)
+        for k, r in sp_raw.items()}
+
+    def sp_requests(kind, n, seed):
+        srng = np.random.default_rng(seed)
+        return [synthetic.superpixel_batch(srng, GRAPHS, kind)
+                for _ in range(n)]
+
+    def serve_sp(kind):
+        raw_k, flat_k = sp_raw[kind], sp_flat[kind]
+        layers = raw_k["model_height"]
+        plain_k = {**raw_k, "use_pallas": False, "use_pallas_layer": False}
+        predict = serving.load_predictor(raw_k, flat_k)
+        plain = serving.load_predictor(plain_k, flat_k)
+        reqs = sp_requests(kind, N_REQUESTS, seed=20)
+        predict(reqs[0])                           # warm-up
+        torch.cuda.synchronize()
+
+        def run():
+            lat, outs = [], []
+            for r in reqs:
+                t = time.perf_counter()
+                outs.append(predict(r))
+                lat.append(time.perf_counter() - t)
+            return lat, outs
+
+        l = reqs[0]["graph_matrix"].shape[1]
+        tag = f"{kind} serving path A, l {l}"
+        (lat, outs), _ = counted(run, {"K3": layers * len(reqs)},
+                                 f"{tag}, {len(reqs)} requests")
+        check(all(o.shape == (GRAPHS, 10) and np.isfinite(o).all()
+                  for o in outs), f"{tag}: outputs finite, shape "
+              f"({GRAPHS}, 10)")
+        refs = [plain(r) for r in reqs]
+        atol, rtol = TOL["bfloat16"]
+        diff = max(float(np.abs(o - r).max()) for o, r in zip(outs, refs))
+        excess = max(float((np.abs(o - r) - rtol * np.abs(r)).max())
+                     for o, r in zip(outs, refs))
+        check(excess <= atol,
+              f"{tag}: bf16 max |kernel path - plain path| {diff:.4g}, every "
+              f"logit within {atol} + {rtol} |plain| (|plain| max "
+              f"{max(float(np.abs(r).max()) for r in refs):.3g})")
+        f32 = serving.load_predictor({**raw_k, "compute_dtype": "float32"},
+                                     flat_k)
+        pf32 = serving.load_predictor({**plain_k, "compute_dtype": "float32"},
+                                      flat_k)
+        d32 = float(np.abs(f32(reqs[1]) - pf32(reqs[1])).max())
+        check(d32 <= MODEL_TOL["float32"],
+              f"{tag}: f32 max |kernel path - plain path| {d32:.4g} (tol "
+              f"{MODEL_TOL['float32']})")
+        med = statistics.median(lat)
+        print(f"  {tag}: request latency ms {[round(x * 1e3, 3) for x in lat]}"
+              f", median {med * 1e3:.3f} ms, {GRAPHS / med:.1f} graphs/s "
+              f"(batch {GRAPHS}, {layers} layers, bf16) [{smi}]", flush=True)
+
+    for kind in SP_CONFIGS:
+        try:
+            serve_sp(kind)
+        except Exception:                           # noqa: BLE001 - report
+            traceback.print_exc()
+            check(False, f"phase 4c: {kind} serving")
+
     # ---- 5. the training paths
     trng = np.random.default_rng(1)
     train_batches = [synthetic.zinc_batch(trng, GRAPHS, PAD)
@@ -994,7 +1125,8 @@ def main() -> int:
     def agreement(tag, overrides, dtype, kind="zinc", **ctx):
         """The kernel path's 3 losses and step-1 gradients against the
         plain path's; `ctx` (base, weights, batches) names another config
-        than ZINC's, `kind` its key."""
+        than ZINC's, `kind` its key. Returns both paths' step-1 gradients
+        (plain, kernel)."""
         if (kind, dtype) not in plain_ref:
             plain_ref[(kind, dtype)] = run_steps(
                 {"use_pallas": False, "use_pallas_layer": False}, dtype,
@@ -1026,6 +1158,24 @@ def main() -> int:
               f"{tag} {dtype}: step-1 gradients of every parameter, worst "
               f"normalised |kernel - plain| {worst:.3g} at {where} "
               f"(tol {gtol}; largest gradient {top:.3g})")
+        if dtype == "bfloat16" and (kind, "float32") in plain_ref:
+            # how far each bf16 path lies from the f32 plain path, by the
+            # same measures: the rounding both carry, beside their distance
+            lr, gr = plain_ref[(kind, "float32")]
+            top32 = max(float(g.abs().max()) for g in gr.values()
+                        if g is not None)
+
+            def drift(ls, gs):
+                dl = max(abs(a - b) / max(abs(b), 1e-6)
+                         for a, b in zip(ls, lr))
+                dg = max(float((gs[k] - g).abs().max())
+                         / max(float(g.abs().max()), 1e-2 * top32)
+                         for k, g in gr.items() if g is not None)
+                return f"losses {dl:.3g}, gradients {dg:.3g}"
+            print(f"  {tag}: bf16 distance from the f32 plain path: kernel "
+                  f"path {drift(lk, gk)}; plain path {drift(lp, gp)}",
+                  flush=True)
+        return gp, gk
 
     def train(tag, overrides, want, impl="split"):
         """Timed steps with the launches a step in `want`, agreement with
@@ -1150,6 +1300,107 @@ def main() -> int:
         except Exception:                           # noqa: BLE001 - report
             traceback.print_exc()
             check(False, f"phase 5b: {kind} training")
+
+    # ---- 5c. training with the positional encodings and the distance head:
+    # CIFAR10 and MNIST `egt_spe_do` (random mask 0.1, the SVD sign flips
+    # and the distance head live) take a warm-up step and N_STEPS timed
+    # steps on 128 graphs, K3 / K4 / K5 once each a layer a step; their 3
+    # losses and step-1 gradients agree with the plain path's (f32 and
+    # bf16), the last layer's edge tail and the final edge norm among them,
+    # non-zero on both paths (the distance head reads them); 20 steps on
+    # one batch lower the loss. Then the same agreement for the PATTERN
+    # `egt_epe` config (eigenvectors) at l 128 on SBM_AGREE graphs a batch,
+    # cut from 16 layers to PE_AGREE_DEPTH, and the ZINC `egt_spe_do` config
+    # (10 layers, edge width 64) at pad 40 on 128 graphs
+    sp_launches = {}
+    reached = ("edge_ffn.lr1.kernel", "edge_ffn.lr2.kernel",
+               "edge_ffn.norm.gamma", "dense_edge_r.kernel",
+               "norm_edge.gamma")
+
+    def edge_tail_reached(tag, layers, grads):
+        """The last layer's edge tail and the final edge norm have a
+        non-zero gradient on both paths (`grads`: (plain, kernel))."""
+        names = [f"stack.layers.{layers - 1}.{n}" for n in reached] + [
+            "stack.edge_norm_final.gamma", "stack.edge_norm_final.beta"]
+        for path, g in zip(("plain", "kernel"), grads):
+            nz = [n for n in names if g[n] is not None and bool(g[n].any())]
+            check(len(nz) == len(names), f"{tag}: the last layer's edge tail "
+                  f"and edge_norm_final reached on the {path} path "
+                  f"({len(nz)} of {len(names)} gradients non-zero)")
+
+    def train_pe(kind, raw_k, flat_k, batches, agree, timed=True):
+        layers = raw_k["model_height"]
+        l = batches[0]["graph_matrix"].shape[1]
+        tag = f"{kind} training path A, l {l}"
+        if timed:
+            tr = load_trainer(raw_k, flat_k)       # bf16, as shipped
+            tr.train_step(batches[0])              # warm-up
+            torch.cuda.synchronize()
+
+            def run():
+                times, losses, dist = [], [], []
+                for bt in batches[1:]:
+                    t = time.perf_counter()
+                    res = tr.train_step(bt)
+                    times.append(time.perf_counter() - t)
+                    losses.append(res["loss"])
+                    dist.append(res.get("distance_loss"))
+                return times, losses, dist
+
+            n = len(batches) - 1
+            (times, losses, dist), launches = counted(
+                run, {k: layers * n for k in ("K3", "K4", "K5")},
+                f"{tag}, {n} steps")
+            sp_launches[kind] = launches
+            check(bool(np.all(np.isfinite(losses))) and all(
+                d is not None and np.isfinite(d) for d in dist),
+                f"{tag}: losses finite {[round(x, 5) for x in losses]}, "
+                f"distance losses {[round(x, 3) for x in dist]}")
+            med = statistics.median(times)
+            print(f"  {tag}: step ms {[round(x * 1e3, 3) for x in times]}, "
+                  f"median {med * 1e3:.3f} ms, {GRAPHS / med:.1f} graphs/s "
+                  f"(batch {GRAPHS}, {layers} layers, bf16) [{smi}]",
+                  flush=True)
+        for dtype in ("float32", "bfloat16"):
+            grads = agreement(f"{tag}, {len(agree[0]['target'])} graphs",
+                              {}, dtype, kind=kind, base=raw_k,
+                              weights=flat_k, batches=agree)
+            if raw_k.get("distance_loss", 0) > 0:
+                edge_tail_reached(f"{tag} {dtype}", layers, grads)
+        if timed:
+            fall = load_trainer(raw_k, flat_k)
+            fl_losses = [fall.train_step(batches[0])["loss"]
+                         for _ in range(N_FALL)]
+            first, last = np.mean(fl_losses[:5]), np.mean(fl_losses[-5:])
+            check(last < first, f"{tag}: {N_FALL} steps on one batch, mean "
+                  f"loss of the first 5 {first:.5f} -> last 5 {last:.5f}")
+
+    for kind in ("cifar10", "mnist"):
+        try:
+            bs = sp_requests(kind, N_STEPS + 1, seed=30)
+            train_pe(kind, sp_raw[kind], sp_flat[kind], bs, bs[:3])
+        except Exception:                           # noqa: BLE001 - report
+            traceback.print_exc()
+            check(False, f"phase 5c: {kind} training")
+    for kind, path, make in (
+            ("pattern-epe", REPO / "configs/main/pattern/500k/egt_epe.json",
+             lambda r: synthetic.add_pe(synthetic.sbm_batch(
+                 r, SBM_AGREE, 128, "pattern", above=43), "eig", 20)),
+            ("zinc-spe-do", REPO / "configs/main/zinc/500k/egt_spe_do.json",
+             lambda r: synthetic.add_pe(synthetic.zinc_batch(r, GRAPHS, PAD),
+                                        "svd", 16))):
+        try:
+            raw_k = json.loads(path.read_text())
+            if kind == "pattern-epe":
+                raw_k["model_height"] = PE_AGREE_DEPTH
+            flat_k = synthetic.random_flat_params(
+                schemes.model_config_from_config(raw_k), seed=3)
+            prng = np.random.default_rng(40)
+            bs = [make(prng) for _ in range(3)]
+            train_pe(kind, raw_k, flat_k, bs, bs, timed=False)
+        except Exception:                           # noqa: BLE001 - report
+            traceback.print_exc()
+            check(False, f"phase 5c: {kind} agreement")
 
     # ---- 6. the engine: the CLI triple on synthetic ZINC at the ZINC-12k
     # split sizes, the flagship config as shipped (path A: K3; K4, K5)
@@ -1370,6 +1621,84 @@ def main() -> int:
         traceback.print_exc()
         check(False, "phase 6b: engine on PATTERN")
 
+    # ---- 6c. the engine on MNIST: the CLI triple of `egt_spe.json` (the
+    # SVD PE, 16 hops) over synthetic superpixel graphs, cut from the
+    # published 55,000 / 5,000 / 10,000 to 2,560 / 512 / 512 and from 200
+    # epochs to 1; the reader's SVD cache built here from the records
+    # (numpy), as `run_training` would build it from HDF5
+    def engine_sp(tmp: Path):
+        path_k = REPO / "configs" / "main" / "mnist" / "100k" / "egt_spe.json"
+        raw_k = json.loads(path_k.read_text())
+        sizes = {"training": 2560, "validation": 512, "test": 512}
+        erng = np.random.default_rng(7)
+        cache = tmp / "cache"
+        c = schemes.resolve_config(raw_k)
+        ds = GraphDataset(D.MNIST, str(tmp / "MNIST.h5"), str(cache),
+                          splits=list(sizes), pe="svd",
+                          num_features=c.num_svd_features)
+        t = time.perf_counter()
+        for split, n in sizes.items():
+            ds.write_cache(split, synthetic.superpixel_records(erng, n,
+                                                               "mnist"))
+        print(f"  engine (MNIST): wrote the SVD cache of "
+              f"{sum(sizes.values())} synthetic superpixel graphs in "
+              f"{time.perf_counter() - t:.1f} s", flush=True)
+        bs = raw_k["batch_size"]
+        steps = math.ceil(sizes["training"] / bs)
+        val = math.ceil(sizes["validation"] / bs)
+        evals = sum(math.ceil(n / (2 * bs)) for n in sizes.values())
+        cfg = {**raw_k, "dataset_path": str(tmp / "MNIST.h5"),
+               "cache_dir": str(cache), "save_path": str(tmp / "run"),
+               "num_epochs": 1, "log_tensorboard": False}
+        path = tmp / "config.json"
+        path.write_text(json.dumps(cfg))
+        layers = raw_k["model_height"]
+        s1, _ = counted(lambda: run_training.main([str(path)]),
+                        dict(K3=layers * (steps + val), K4=layers * steps,
+                             K5=layers * steps),
+                        f"engine (MNIST) run_training, 1 epoch of {steps} "
+                        f"steps and {val} validation batches")
+        check(s1.pad_len == 75, f"engine (MNIST): pad {s1.pad_len}")
+        path.write_text(json.dumps({**cfg, "weight_file": ""}))
+        counted(lambda: do_evaluations.main([str(path)]),
+                dict(K3=layers * evals),
+                f"engine (MNIST) do_evaluations, {evals} batches")
+        counted(lambda: end_training.main([str(path)]), {},
+                "engine (MNIST) end_training")
+        run_dir = tmp / "run"
+        for rel in (f"saved/{raw_k['model_name']}.npz", "logs/metrics.jsonl",
+                    "checkpoint/ckpt_1.pt"):
+            check((run_dir / rel).is_file(),
+                  f"engine (MNIST): run dir holds {rel}")
+        rec = json.loads((run_dir / "logs" / "metrics.jsonl").read_text())
+        keys = ("loss", "xent", "acc", "val_loss", "val_xent", "val_acc")
+        check(all(np.isfinite(rec[k]) for k in keys),
+              "engine (MNIST): epoch 1 " + ", ".join(
+                  f"{k} {rec[k]:.5f}" for k in keys))
+        for split, name in (("trainset", "training"),
+                            ("valset", "validation"), ("testset", "test")):
+            text = (run_dir / "predictions" / f"{split}_evals.txt").read_text()
+            got = [ln.split(" =")[0] for ln in text.splitlines()]
+            check(got == [f"{name} accuracy", f"{name} crossentropy"],
+                  f"engine (MNIST): {split}_evals.txt: "
+                  + " | ".join(text.strip().splitlines()))
+        for st in s1.epoch_stats:
+            print(f"  engine (MNIST) epoch {st['epoch']}: "
+                  f"{st['seconds']:.3f} s ({st['train_seconds']:.3f} s "
+                  f"training, {st['steps']} steps, "
+                  f"{1e3 * st['train_seconds'] / st['steps']:.2f} ms a step),"
+                  f" {st['graphs_per_s']:.1f} graphs/s, "
+                  f"{st['wait_share']:.4f} of the training time waiting for "
+                  f"the next batch (Prefetcher.waited) [{smi}]", flush=True)
+
+    try:
+        with tempfile.TemporaryDirectory(prefix="engine-sp-",
+                                         dir=REPO / "build") as tmp:
+            engine_sp(Path(tmp))
+    except Exception:                               # noqa: BLE001 - report
+        traceback.print_exc()
+        check(False, "phase 6c: engine on MNIST")
+
     # ---- 7. kernels line: the training-mode cases at the flagship shape,
     # bf16, each kernel's launches on its training path
     rows = []
@@ -1418,6 +1747,27 @@ def main() -> int:
             if r is None or n is None:
                 continue
             rows.append({"name": f"{Path(source).stem} (PATTERN, l {l})",
+                         "route": "cuda", "source": source,
+                         "replaces": replaces, "launches": n, **r,
+                         "library_ms": None})
+    # K3, K4 and K5 at the superpixel pads: the bf16 training-mode cases of
+    # phase 3e, with MNIST's (l 75) and CIFAR10's (l 150) launches in their
+    # timed steps (phase 5c)
+    for l, kind in SP_KIND.items():
+        for key, part, source, replaces in (
+                ("K3", "fwd", "egt_torch/csrc/fused_layer_fwd.cu",
+                 "egt_tpu/ops/fused_layer_pallas.py:373"),
+                ("K4", "tail", "egt_torch/csrc/fused_layer_bwd_tail.cu",
+                 "egt_tpu/ops/fused_layer_pallas.py:789"),
+                ("K5", "attn", "egt_torch/csrc/fused_layer_bwd_attn.cu",
+                 "egt_tpu/ops/fused_layer_pallas.py:868")):
+            r = results.get(("layer_sp", l, torch.bfloat16, True),
+                            {}).get(part)
+            n = sp_launches.get(kind, {}).get(key)
+            if r is None or n is None:
+                continue
+            rows.append({"name": f"{Path(source).stem} ({kind.upper()}, "
+                                 f"l {l})",
                          "route": "cuda", "source": source,
                          "replaces": replaces, "launches": n, **r,
                          "library_ms": None})

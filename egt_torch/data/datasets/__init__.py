@@ -1,7 +1,8 @@
 """Dataset bindings for the 7 GNN benchmarking datasets and PCQM4Mv2.
 
-The port's own copy of `egt_tpu/data/datasets/__init__.py`; only ZINC has a
-scheme in the port so far, the others are kept for the schemes to come.
+The port's own copy of `egt_tpu/data/datasets/__init__.py`; ZINC, PATTERN,
+CLUSTER, MNIST and CIFAR10 have a scheme in the port so far, the others are
+kept for the schemes to come.
 
 Record schemas, pad values and max lengths mirror the reference bindings under
 `lib/data/datasets/*.py`:

@@ -14,8 +14,8 @@ the card sees only ready-made dense arrays. Semantics match the reference
   * eigen features: normalized-Laplacian eigenvectors, smallest-real first, the trivial
     first vector dropped (`eigen_gt.py:6-71`).
 
-The model does not read the SVD and eigen features yet; the cache builder
-computes them for the schemes that ask.
+The cache builder computes the SVD and eigen features for the schemes that
+ask; the model reads them as `singular_vectors` and `eigen_vectors`.
 """
 
 from __future__ import annotations

@@ -1,8 +1,17 @@
 """Feature embeddings, initialisers and the adjacency hop stack.
 
-Port of the parts of `egt_tpu/models/features.py` the ZINC path runs:
+Port of the parts of `egt_tpu/models/features.py` the ported schemes run:
 Keras-style initialisers (drawn from an explicit `torch.Generator`), `dense`,
-the -1-masked token embedding and the clipped hop stack.
+the -1-masked token embedding, the masked dense embedding (MNIST / CIFAR10
+superpixel features), the clipped hop stack, the distance objective's
+targets, and the SVD and eigenvector positional encodings with their
+training-time sign flips.
+
+The flips are drawn from the port's Philox (`ops/rng.py`, draw index
+`PE_FLIP`) on the input tensor's device from an explicit seed: one uniform a
+(graph, feature), keyed by (graph, feature), with no host read and no global
+generator. JAX's bits differ, so parity with JAX is statistical, as for the
+attention draws.
 """
 
 from __future__ import annotations
@@ -11,6 +20,8 @@ import math
 
 import torch
 from torch import nn
+
+from ..ops import rng
 
 
 # ---------------------------------------------------------------------- initializers
@@ -65,6 +76,13 @@ def token_embed(p, ids):
     return table[idx]
 
 
+def masked_dense_embed(p, x, mask_value: float = -1.0):
+    """Keras Masking + Dense: rows whose features all equal `mask_value` are
+    zeroed before the projection."""
+    valid = torch.any(x != mask_value, dim=-1, keepdim=True)
+    return dense(p, x * valid.to(x.dtype))
+
+
 # -------------------------------------------------------------- adjacency structure
 
 
@@ -79,3 +97,73 @@ def stack_hops(adj, upto_hop: int, clip_hops: bool = True):
             hop = torch.clamp(hop, 0.0, 1.0)
         hops.append(hop)
     return torch.stack(hops, dim=-1)
+
+
+def distance_targets(adj, distance_target: int):
+    """k-hop reachability counts: round(sum_k clip(A^k, 0, 1)) as int64, the
+    distance objective's target."""
+    total = adj
+    hop = adj
+    for _ in range(distance_target - 1):
+        hop = torch.clamp(torch.matmul(adj, hop), 0.0, 1.0)
+        total = total + hop
+    return torch.round(total).long()
+
+
+# --------------------------------------------------------------- positional encodings
+
+
+def sign_flips(seed: int, b: int, k: int, device) -> torch.Tensor:
+    """(b, k) f32 of -1 or +1, each with probability 1/2, one a (graph,
+    feature), keyed by `seed`."""
+    zero = torch.zeros((1, 1), dtype=torch.int64, device=device)
+    u = rng.uniform(seed, torch.arange(b, device=device)[:, None], zero,
+                    torch.arange(k, device=device)[None, :], zero, rng.PE_FLIP)
+    return torch.where(u < 0.5, -1.0, 1.0)
+
+
+def _flip_seed(random_neg: bool, training: bool, seed):
+    if not (random_neg and training):
+        return None
+    if seed is None:
+        raise ValueError("random_neg requires a seed at training time")
+    return seed
+
+
+def process_svd(p, svd, *, sel: int, model_width: int, transform: bool,
+                random_neg: bool, training: bool, seed=None):
+    """Keep `sel` singular-vector pairs of `svd` (b, l, k, 2), zero-pad them
+    to width/2 unless `transform`, flip each (graph, feature)'s sign at
+    training time with `random_neg` (the same flip for U and V and for
+    every node), flatten [U, V] on the feature axis, and with `transform`
+    project through `p`."""
+    v = svd[:, :, :sel, :]
+    if not transform:
+        pad = max(0, model_width // 2 - sel)
+        v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+    seed = _flip_seed(random_neg, training, seed)
+    if seed is not None:
+        flips = sign_flips(seed, v.shape[0], v.shape[2], v.device)
+        v = v * flips[:, None, :, None].to(v.dtype)
+    flat = torch.cat([v[..., 0], v[..., 1]], dim=-1)
+    if transform:
+        flat = dense(p, flat)
+    return flat
+
+
+def process_eig(p, eig, *, sel: int, model_width: int, transform: bool,
+                random_neg: bool, training: bool, seed=None):
+    """The eigenvector PE: keep `sel` eigenvectors of `eig` (b, l, k), pad
+    to the width unless `transform`, the training-time sign flips as
+    `process_svd`'s, and with `transform` project through `p`."""
+    v = eig[:, :, :sel]
+    if not transform:
+        pad = max(0, model_width - sel)
+        v = torch.nn.functional.pad(v, (0, pad))
+    seed = _flip_seed(random_neg, training, seed)
+    if seed is not None:
+        flips = sign_flips(seed, v.shape[0], v.shape[2], v.device)
+        v = v * flips[:, None, :].to(v.dtype)
+    if transform:
+        v = dense(p, v)
+    return v

@@ -1,26 +1,35 @@
 """EGTGraphModel: config + `nn.Module` with the forward pass.
 
-Port of `egt_tpu/models/graph_model.py` for the ZINC and SBM paths: token
-node embeddings, the edge channel from token edge embeddings plus the
+Port of `egt_tpu/models/graph_model.py` for the ZINC, SBM and superpixel
+paths: token or dense (Keras-masked) node embeddings, the SVD or
+eigenvector positional encoding added to them (with its training-time sign
+flips), the edge channel from token or dense edge embeddings plus the
 adjacency-hop embedding (or, with `edge_input_kind="none"`, from the hop
 embedding alone), the layer stack (with the training draws and dropout when
-`training`), the final node norm, and the masked mean-pool graph readout or
-the per-node readout. `GraphModelConfig` is
-redeclared with the JAX fields, defaults and checks (the JAX module imports
-jax). Parameters carry the JAX params-tree names, so a state-dict key such
-as `stack.layers.0.dense_qkv.kernel` is the flat npz key
+`training`), the final norms, the distance objective's head on the
+final-normed edge channel, and the masked mean-pool graph readout or the
+per-node readout. `GraphModelConfig` is redeclared with the JAX fields,
+defaults and checks (the JAX module imports jax). Parameters carry the JAX
+params-tree names, so a state-dict key such as
+`stack.layers.0.dense_qkv.kernel` is the flat npz key
 `stack/layers/0/dense_qkv/kernel` (see `egt_torch.weights`).
+
+The forward's side outputs, the JAX `ModelContext.losses` / `.metrics`,
+come back in a `ModelContext` beside the predictions when the caller asks
+(`with_context=True`): the distance objective's weighted loss under
+`losses` and its unweighted value under `metrics`.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 from torch import nn
 
 from . import features as F
 from . import layers as L
+from ..ops.rng import fold_seed
 
 
 @dataclass
@@ -128,20 +137,17 @@ def unsupported(cfg: GraphModelConfig) -> list[str]:
         out.append("BatchNorm")
     if cfg.num_virtual_nodes > 0:
         out.append("virtual nodes")
-    if cfg.use_svd or cfg.use_eig:
-        out.append("SVD / eigenvector positional encodings")
-    if cfg.node_input_kind != "tokens" \
-            or cfg.edge_input_kind not in ("tokens", "none") \
-            or cfg.node_vocab_sizes is not None \
-            or cfg.edge_vocab_sizes is not None:
-        out.append("inputs other than single-column tokens")
+    if cfg.node_input_kind not in ("tokens", "dense") \
+            or cfg.edge_input_kind not in ("tokens", "dense", "none"):
+        out.append(f"inputs {cfg.node_input_kind!r} / "
+                   f"{cfg.edge_input_kind!r}")
+    if cfg.node_vocab_sizes is not None or cfg.edge_vocab_sizes is not None:
+        out.append("multi-column tokens")
     if cfg.edge_input_kind == "none" and not (cfg.use_adj
                                               and cfg.upto_hop >= 1):
         out.append("an edge channel with neither edge inputs nor hops")
     if cfg.readout_kind not in ("graph", "node") or cfg.readout_edges:
         out.append(f"readout {cfg.readout_kind!r} (edges={cfg.readout_edges})")
-    if cfg.distance_loss > 0:
-        out.append("the distance head")
     if cfg.max_degree_enc > 0 or cfg.max_diffuse_t > 0 or cfg.node2edge_embed \
             or cfg.include_xpose:
         out.append("degree / diffusion / node2edge / transposed-hop encodings")
@@ -149,6 +155,20 @@ def unsupported(cfg: GraphModelConfig) -> list[str]:
             and not str(cfg.activation).startswith("lrelu"):
         out.append(f"activation {cfg.activation!r}")
     return out
+
+
+@dataclass
+class ModelContext:
+    """Side outputs of one forward pass: auxiliary losses (added to the
+    scheme's loss) and metric scalars (reported beside its metrics), each a
+    0-d f32 tensor by name."""
+    losses: dict = field(default_factory=dict)
+    metrics: dict = field(default_factory=dict)
+
+
+# the JAX fold tags of the positional encodings' seeds (`fold_rng(rng, 101)`
+# for the SVD PE, 102 for the eigenvector PE)
+PE_TAGS = {"svd": 101, "eig": 102}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -163,7 +183,8 @@ def resolve_device(device=None) -> torch.device:
 
 
 class EGTGraphModel(nn.Module):
-    """The EGT model: graph regression (ZINC) or node classification (SBM).
+    """The EGT model: graph regression (ZINC), graph classification (MNIST,
+    CIFAR10) or node classification (SBM).
 
     Parameters are initialised from `generator` (a CPU `torch.Generator`;
     seeded 0 if None) and placed on `device` (see `resolve_device`)."""
@@ -180,11 +201,21 @@ class EGTGraphModel(nn.Module):
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         w, ew = cfg.model_width, cfg.edge_width
-        self.node_emb = F.embedding_params(cfg.num_node_features + 1, w,
-                                           generator)
+        if cfg.node_input_kind == "tokens":
+            self.node_emb = F.embedding_params(cfg.num_node_features + 1, w,
+                                               generator)
+        else:
+            self.node_emb = F.dense_params(cfg.node_feature_dim, w, generator)
+        if cfg.use_svd and cfg.transform_svd:
+            self.svd_emb = F.dense_params(2 * cfg.sel_svd_features, w,
+                                          generator)
+        if cfg.use_eig and cfg.transform_eig:
+            self.eig_emb = F.dense_params(cfg.sel_eig_features, w, generator)
         if cfg.edge_input_kind == "tokens":
             self.fm_emb = F.embedding_params(cfg.num_edge_features + 1, ew,
                                              generator)
+        elif cfg.edge_input_kind == "dense":
+            self.fm_emb = F.dense_params(cfg.edge_feature_dim, ew, generator)
         if cfg.use_adj and cfg.upto_hop >= 1:
             self.adj_emb = F.dense_params(cfg.upto_hop, ew, generator)
         stack = {"layers": nn.ModuleList(
@@ -193,14 +224,26 @@ class EGTGraphModel(nn.Module):
             stack["node_norm_final"] = L.norm_params(w)
             stack["edge_norm_final"] = L.norm_params(ew)
         self.stack = nn.ModuleDict(stack)
-        mlp, din = [], w
-        for f in cfg.mlp_layers:
-            dout = round(f * w)
-            mlp.append(F.dense_params(din, dout, generator))
-            din = dout
-        self.mlp_out = nn.ModuleDict({"dense": nn.ModuleList(mlp)})
+        if cfg.distance_loss > 0:
+            mlp, din = self._mlp_params(ew, generator)
+            self.distance_head = nn.ModuleDict({
+                "mlp": nn.ModuleDict({"dense": mlp}),
+                "distance_target": F.dense_params(
+                    din, cfg.distance_target + 1, generator)})
+        mlp, din = self._mlp_params(w, generator)
+        self.mlp_out = nn.ModuleDict({"dense": mlp})
         self.target = F.dense_params(din, cfg.num_targets, generator)
         self.to(dev)
+
+    def _mlp_params(self, din: int, generator):
+        """The Dense layers of `mlp_layers` (widths f x model_width) from
+        `din` inputs, and their output width."""
+        mlp = []
+        for f in self.cfg.mlp_layers:
+            dout = round(f * self.cfg.model_width)
+            mlp.append(F.dense_params(din, dout, generator))
+            din = dout
+        return nn.ModuleList(mlp), din
 
     @property
     def device(self) -> torch.device:
@@ -214,47 +257,103 @@ class EGTGraphModel(nn.Module):
     @property
     def input_keys(self) -> tuple:
         """The batch keys the forward reads."""
-        if self.cfg.edge_input_kind == "tokens":
-            return ("node_features", "feature_matrix", "graph_matrix")
-        return ("node_features", "graph_matrix")
+        cfg = self.cfg
+        keys = ["node_features"]
+        if cfg.edge_input_kind in ("tokens", "dense"):
+            keys.append("feature_matrix")
+        keys.append("graph_matrix")
+        if cfg.use_svd:
+            keys.append("singular_vectors")
+        if cfg.use_eig:
+            keys.append("eigen_vectors")
+        return tuple(keys)
+
+    def node_valid(self, batch) -> torch.Tensor:
+        """(b, l) bool: a token >= 0, or a dense row with a feature other
+        than `mask_value`."""
+        nf = torch.as_tensor(batch["node_features"], device=self.device)
+        if self.cfg.node_input_kind == "tokens":
+            return nf >= 0
+        return torch.any(nf != self.cfg.mask_value, dim=-1)
 
     def output_mask(self, batch):
         """The mask Keras would feed into compiled losses and metrics: none
-        for a graph readout, token validity for a node or edge readout."""
-        kind = self.cfg.readout_kind
-        if kind == "graph":
+        for a graph readout, node validity for a node readout."""
+        if self.cfg.readout_kind == "graph":
             return None
-        key = {"node": "node_features", "edge": "feature_matrix"}[kind]
-        return torch.as_tensor(batch[key], device=self.device) >= 0
+        return self.node_valid(batch)
 
-    def forward(self, batch: dict, training: bool = False,
-                seeds=None) -> torch.Tensor:
-        """batch: node_features (b, l) int, feature_matrix (b, l, l) int
-        (token edge inputs only) and graph_matrix (b, l, l) (any numeric
-        dtype), as tensors or numpy arrays. Returns the f32 predictions:
-        (b, num_targets) for a graph readout, (b, l, num_targets) for a node
-        readout. `seeds` holds
-        one seed per layer for this step (`fold_rng(rng, 1000 + i)` in JAX);
-        training draws and dropout need it."""
+    def embed_nodes(self, batch, training: bool = False, pe_seed=None):
+        """The node embedding in f32: tokens or masked dense features, plus
+        the SVD or eigenvector PE. `pe_seed` (the step's seed) keys the PE's
+        sign flips at training time, folded with the JAX tag of each PE."""
+        cfg = self.cfg
+        dev = self.device
+        nf = torch.as_tensor(batch["node_features"], device=dev)
+        if cfg.node_input_kind == "tokens":
+            h = F.token_embed(self.node_emb, nf)
+        else:
+            h = F.masked_dense_embed(self.node_emb, nf.float(),
+                                     cfg.mask_value)
+
+        def seed(kind):
+            return None if pe_seed is None else fold_seed(pe_seed,
+                                                          PE_TAGS[kind])
+        if cfg.use_svd:
+            h = h + F.process_svd(
+                getattr(self, "svd_emb", None),
+                torch.as_tensor(batch["singular_vectors"], device=dev).float(),
+                sel=cfg.sel_svd_features, model_width=cfg.model_width,
+                transform=cfg.transform_svd, random_neg=cfg.random_neg,
+                training=training, seed=seed("svd"))
+        if cfg.use_eig:
+            h = h + F.process_eig(
+                getattr(self, "eig_emb", None),
+                torch.as_tensor(batch["eigen_vectors"], device=dev).float(),
+                sel=cfg.sel_eig_features, model_width=cfg.model_width,
+                transform=cfg.transform_eig, random_neg=cfg.random_neg,
+                training=training, seed=seed("eig"))
+        return h
+
+    def _embed_edges(self, batch, adj):
+        cfg = self.cfg
+        parts = []
+        if cfg.edge_input_kind != "none":
+            fm = torch.as_tensor(batch["feature_matrix"], device=self.device)
+            if cfg.edge_input_kind == "tokens":
+                parts.append(F.token_embed(self.fm_emb, fm))
+            else:
+                parts.append(F.masked_dense_embed(self.fm_emb, fm.float(),
+                                                  cfg.mask_value))
+        if cfg.use_adj and cfg.upto_hop >= 1:
+            hops = F.stack_hops(adj, cfg.upto_hop, cfg.clip_hops)
+            parts.append(F.dense(self.adj_emb, hops))
+        return parts[0] if len(parts) == 1 else parts[0] + parts[1]
+
+    def forward(self, batch: dict, training: bool = False, seeds=None,
+                pe_seed=None, with_context: bool = False):
+        """batch: node_features (b, l) int tokens or (b, l, f) f32 dense
+        features (`mask_value` padding), feature_matrix (b, l, l) int or
+        (b, l, l, f) f32 (edge inputs only), graph_matrix (b, l, l) (any
+        numeric dtype), and singular_vectors (b, l, k, 2) / eigen_vectors
+        (b, l, k) with a PE, as tensors or numpy arrays. Returns the f32
+        predictions: (b, num_targets) for a graph readout, (b, l,
+        num_targets) for a node readout; with `with_context`, the pair
+        (predictions, `ModelContext`), and only then does the distance head
+        run. `seeds` holds one seed per layer for
+        this step (`fold_rng(rng, 1000 + i)` in JAX); training draws and
+        dropout need it. `pe_seed` is the step's seed for the PE sign flips
+        (`random_neg`)."""
         cfg = self.cfg
         dev = self.device
         if seeds is not None and len(seeds) != cfg.model_height:
             raise ValueError(f"need {cfg.model_height} layer seeds, got "
                              f"{len(seeds)}")
-        nf = torch.as_tensor(batch["node_features"], device=dev)
         # the dataset ships the adjacency in a narrow integer dtype
         adj = torch.as_tensor(batch["graph_matrix"], device=dev).float()
-
-        node_mask = nf >= 0
-        h = F.token_embed(self.node_emb, nf)
-        parts = []
-        if cfg.edge_input_kind == "tokens":
-            fm = torch.as_tensor(batch["feature_matrix"], device=dev)
-            parts.append(F.token_embed(self.fm_emb, fm))
-        if cfg.use_adj and cfg.upto_hop >= 1:
-            hops = F.stack_hops(adj, cfg.upto_hop, cfg.clip_hops)
-            parts.append(F.dense(self.adj_emb, hops))
-        e = parts[0] if len(parts) == 1 else parts[0] + parts[1]
+        node_mask = self.node_valid(batch)
+        h = self.embed_nodes(batch, training, pe_seed)
+        e = self._embed_edges(batch, adj)
         edge_mask = adj if cfg.edge_channel_type == "constrained" else None
 
         dtype = self.compute_dtype
@@ -263,11 +362,39 @@ class EGTGraphModel(nn.Module):
         for i, layer in enumerate(self.stack["layers"]):
             h, e = layer(h, e, node_mask, edge_mask, training,
                          None if seeds is None else seeds[i])
+        # the graph and node readouts read no edges: the final edge norm
+        # runs only for the distance head, and that only when the caller
+        # takes the side outputs
+        distance = with_context and cfg.distance_loss > 0
         if (not cfg.add_n_norm) and cfg.do_final_norm:
-            # the graph and node readouts read no edges, so
-            # `edge_norm_final` (kept for the weight names) is not applied
             h = L.layer_norm(self.stack["node_norm_final"], h)
-        return self._readout(h, node_mask).float()
+            if distance:
+                e = L.layer_norm(self.stack["edge_norm_final"], e)
+        ctx = ModelContext()
+        if distance:
+            metric = self._distance_loss(e, adj)
+            ctx.metrics["distance_loss"] = metric
+            ctx.losses["distance_loss"] = metric * cfg.distance_loss
+        out = self._readout(h, node_mask).float()
+        return (out, ctx) if with_context else out
+
+    def _distance_loss(self, e, adj):
+        """The distance objective in f32: the head's (b, l, l,
+        distance_target + 1) logits on the final-normed edge channel, the
+        cross-entropy to the k-hop reachability count on the pairs it is
+        positive, summed a graph and averaged over the batch. (A count past
+        the last class, which the data never gives, is clamped to it.)"""
+        cfg = self.cfg
+        target = F.distance_targets(adj, cfg.distance_target)
+        x = e.float()
+        for dp in self.distance_head["mlp"]["dense"]:
+            x = L.activation(cfg.activation, F.dense(dp, x))
+        logits = F.dense(self.distance_head["distance_target"], x)
+        logp = torch.log_softmax(logits, dim=-1)
+        idx = torch.clamp(target, 0, cfg.distance_target)
+        elem = -torch.gather(logp, -1, idx[..., None])[..., 0]
+        elem = elem * (target > 0)
+        return torch.mean(torch.sum(elem.reshape(elem.shape[0], -1), dim=-1))
 
     def _mlp_out(self, x):
         x = x.float()

@@ -12,6 +12,8 @@ Contract (the draw order of `egt_tpu/ops/fused_layer_pallas.py:287-325` and
 - key   = (seed mod 2^32, seed >> 32 mod 2^32), one seed per layer call;
 - counter = (key index j, query index i, graph b, head | draw << 16);
 - draw 0 is the random attention mask, draw 1 attention dropout;
+  draw 2 the positional encodings' sign flips, counted by (feature j,
+  query 0, graph b, head 0), drawn outside the kernels;
 - uniform = (word 0 >> 8) * 2^-24, exact in f32 on both sides.
 
 The counter names the pair and head, not a position in memory, so the
@@ -34,6 +36,7 @@ MASK32 = 0xFFFFFFFF
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57          # Philox4x32 multipliers
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85          # Weyl key increments
 RANDOM_MASK, DROPOUT = 0, 1                # draw indices
+PE_FLIP = 2       # the PEs' sign flips (models/features.py): (graph, feature)
 SEED_BITS = 62
 
 

@@ -1,12 +1,15 @@
 """Where a serving request's time goes on the card.
 
     python -m egt_torch.profile_serving [--path A|B|C] [--requests N]
-        [--scheme zinc|pattern|cluster] [--pad L]
+        [--scheme zinc|pattern|cluster|mnist|cifar10] [--pad L]
 
-Serves the 500k config of a scheme (the flagship ZINC by default; seeded
-weights, synthetic 128-graph requests, see `egt_torch.synthetic`: ZINC
-padded to 40, PATTERN / CLUSTER graphs of one length bucket, `--pad` 192 by
-default, 128 the other) under `torch.profiler` and prints the
+Serves the 500k config of a scheme (the flagship ZINC by default; for
+MNIST and CIFAR10 the 100k `egt_spe_do` config: the SVD PE and the
+distance head) with seeded weights on synthetic 128-graph requests (see
+`egt_torch.synthetic`: ZINC padded to 40, PATTERN / CLUSTER graphs of one
+length bucket, `--pad` 192 by default, 128 the other, MNIST / CIFAR10
+superpixel graphs with their SVD PE at their pads, 75 and 150) under
+`torch.profiler` and prints the
 wall time per request, the device-busy time per request and the device's
 idle share, then the operators ranked by device time. Path A is the config as
 shipped (whole-layer kernel); path B sets use_pallas true and
@@ -26,9 +29,11 @@ import torch
 
 from . import schemes, serving, synthetic
 
-CONFIGS = {kind: Path(__file__).resolve().parents[1] / "configs" / "main"
-           / kind / "500k" / "egt.json" for kind in ("zinc", "pattern",
-                                                     "cluster")}
+_MAIN = Path(__file__).resolve().parents[1] / "configs" / "main"
+CONFIGS = {**{kind: _MAIN / kind / "500k" / "egt.json"
+              for kind in ("zinc", "pattern", "cluster")},
+           **{kind: _MAIN / kind / "100k" / "egt_spe_do.json"
+              for kind in ("mnist", "cifar10")}}
 PATHS = {"A": {}, "B": {"use_pallas": True, "use_pallas_layer": False},
          "C": {"use_pallas": True, "use_pallas_layer": False,
                "use_pallas_edge": True}}
@@ -49,10 +54,15 @@ def device_kernels(prof) -> dict[str, tuple[float, int]]:
 
 
 def workload(scheme: str, path: str, pad: int | None):
-    """(run config, fn(rng, n, graphs) -> batches) of a scheme's 500k config
-    on a path: ZINC padded to `pad` (40), or PATTERN / CLUSTER graphs of the
-    length bucket `pad` (192), more nodes than the next smaller bucket."""
+    """(run config, fn(rng, n, graphs) -> batches) of a scheme's config
+    (`CONFIGS`) on a path: ZINC padded to `pad` (40), PATTERN / CLUSTER
+    graphs of the length bucket `pad` (192), more nodes than the next
+    smaller bucket, or MNIST / CIFAR10 superpixel graphs at their pad."""
     raw = {**json.loads(CONFIGS[scheme].read_text()), **PATHS[path]}
+    if scheme in synthetic.SUPERPIXEL:
+        return raw, lambda rng, n, graphs: [
+            synthetic.superpixel_batch(rng, graphs, scheme)
+            for _ in range(n)]
     if scheme == "zinc":
         return raw, lambda rng, n, graphs: [
             synthetic.zinc_batch(rng, graphs, pad or 40) for _ in range(n)]
@@ -69,7 +79,7 @@ def add_workload_args(ap) -> None:
     ap.add_argument("--scheme", choices=sorted(CONFIGS), default="zinc")
     ap.add_argument("--pad", type=int, default=None,
                     help="pad length (zinc 40; pattern, cluster: the length "
-                         "bucket, 192 or 128)")
+                         "bucket, 192 or 128; mnist, cifar10: theirs)")
 
 
 def main(argv=None) -> int:

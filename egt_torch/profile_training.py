@@ -1,12 +1,14 @@
 """Where a training step's time goes on the card.
 
     python -m egt_torch.profile_training [--path A|B|C]
-        [--scheme zinc|pattern|cluster] [--pad L]
+        [--scheme zinc|pattern|cluster|mnist|cifar10] [--pad L]
 
-Trains the 500k config of a scheme (the flagship ZINC by default; seeded
-weights, STEPS synthetic batches of GRAPHS graphs, the config's batch size:
-ZINC padded to 40, PATTERN / CLUSTER graphs of one length bucket, `--pad`
-192 by default; see `egt_torch.synthetic` and `profile_serving.workload`)
+Trains the config of a scheme (the flagship ZINC 500k by default; the SBM
+500k, the superpixel 100k `egt_spe_do`; seeded weights, STEPS synthetic
+batches of GRAPHS graphs, the config's batch size: ZINC padded to 40,
+PATTERN / CLUSTER graphs of one length bucket, `--pad` 192 by default,
+MNIST / CIFAR10 at 75 / 150; see `egt_torch.synthetic` and
+`profile_serving.workload`)
 and prints the wall time per step
 (without the profiler, which slows the host), the device-busy time per step
 under `torch.profiler` and the device's idle share (1 - busy / wall), then

@@ -153,11 +153,15 @@ def loss_and_metrics(pred, target, mask, sample_mask):
     return s / torch.clamp(c, min=1.0), {"mae": (s, c)}
 
 
-def sbm_loss(c: HParams) -> Callable:
-    """The PATTERN / CLUSTER loss (`egt_tpu/training/schemes/pattern.py:44-50`):
-    sparse cross-entropy over the valid nodes, each weighted by its class's
-    weight from `class_sizes`, as `xent`, and the accuracy as `acc`."""
-    cw = M.class_weights_from_sizes(c.class_sizes)
+def xent_loss(c: HParams) -> Callable:
+    """The classification loss: the sparse cross-entropy as `xent`, and the
+    accuracy as `acc`, over the valid nodes of a node readout. PATTERN and
+    CLUSTER weight each class by its weight from `class_sizes`
+    (`egt_tpu/training/schemes/pattern.py:44-50`); MNIST and CIFAR10, whose
+    schemes have no `class_sizes`, weigh every graph alike
+    (`egt_tpu/training/schemes/mnist.py:36-40`)."""
+    sizes = c.get("class_sizes")
+    cw = None if sizes is None else M.class_weights_from_sizes(sizes)
 
     def loss_and_metrics(pred, target, mask, sample_mask):
         s, n = M.sparse_xent_loss(pred, target, mask, sample_mask,
@@ -171,13 +175,22 @@ def sbm_loss(c: HParams) -> Callable:
 class DatasetBinding:
     """What a dataset's scheme mixin binds: its config defaults over the PE
     chain, the model's inputs and readout (`get_model_config`), the pad
-    length the model is built for (None: the batch's), and its loss: a
+    length the model is built for (None: the batch's), its loss (a
     function of the resolved config giving `fn(pred, target, mask,
-    sample_mask) -> (loss, {metric: (sum, count)})`."""
+    sample_mask) -> (loss, {metric: (sum, count)})`), and the scheme
+    variants JAX has for it (`pes`)."""
     defaults: dict
     model: dict
     max_length: int | None
     loss: Callable[[HParams], Callable]
+    pes: tuple = ("svd", "eig")     # the scheme variants JAX has
+
+
+def _superpixel_model(node_feature_dim: int) -> dict:
+    """The model inputs and readout of the superpixel schemes."""
+    return dict(node_input_kind="dense", node_feature_dim=node_feature_dim,
+                edge_input_kind="dense", edge_feature_dim=1, num_targets=10,
+                readout_kind="graph")
 
 
 # `egt_tpu/training/schemes/pattern.py:22-33` (SBM graphs have ~40-190
@@ -199,16 +212,30 @@ DATASETS = {
                       class_sizes=[979220, 209900]),
         model=dict(edge_input_kind="none", num_node_features=3,
                    num_targets=2, readout_kind="node"),
-        max_length=None, loss=sbm_loss),
+        max_length=None, loss=xent_loss),
     # `schemes/cluster.py:13-28`
     "cluster": DatasetBinding(
         defaults=dict(_SBM_DEFAULTS, dataset_name="sbm_cluster",
                       class_sizes=[19695, 19222, 19559, 19417, 19801, 20139]),
         model=dict(edge_input_kind="none", num_node_features=7,
                    num_targets=6, readout_kind="node"),
-        max_length=None, loss=sbm_loss),
+        max_length=None, loss=xent_loss),
+    # `schemes/mnist.py:15-42`: superpixel graphs, dense node features
+    # (intensity, x, y) and a dense edge feature, padded to 75; an SVD
+    # scheme only
+    "mnist": DatasetBinding(
+        defaults=dict(dataset_name="mnist", save_best_monitor="val_xent"),
+        model=_superpixel_model(3), max_length=75, loss=xent_loss,
+        pes=("svd",)),
+    # `schemes/cifar10.py:13-31`: (r, g, b, x, y) node features, padded to
+    # 150; virtual nodes (num_virtual_nodes > 0) are not ported
+    "cifar10": DatasetBinding(
+        defaults=dict(dataset_name="cifar10", save_best_monitor="val_xent",
+                      num_virtual_nodes=0),
+        model=_superpixel_model(5), max_length=150, loss=xent_loss,
+        pes=("svd",)),
 }
-SCHEMES = tuple(f"{ds}.{pe}" for ds in DATASETS for pe in ("svd", "eig"))
+SCHEMES = tuple(f"{ds}.{pe}" for ds, b in DATASETS.items() for pe in b.pes)
 
 
 def dataset_defaults(ds: str, pe: str) -> HParams:
@@ -273,9 +300,10 @@ def model_config_from_config(config: dict | str) -> GraphModelConfig:
     ds, _, pe = c.scheme.partition(".")
     binding = DATASETS[ds]
     cfg = GraphModelConfig(
-        **_model_config_kwargs(c, pe), **binding.model,
-        node_input_kind="tokens", readout_edges=False,
-        # a key of the ZINC mixin only (the SBM schemes refuse it)
+        **_model_config_kwargs(c, pe),
+        **{"node_input_kind": "tokens", **binding.model},
+        readout_edges=False,
+        # a key of the ZINC and CIFAR10 mixins only (the others refuse it)
         num_virtual_nodes=c.get("num_virtual_nodes", 0),
     )
     cfg.max_length = binding.max_length

@@ -1,10 +1,15 @@
 """Serving: a run config and trained weights -> `fn(batch) -> predictions`.
 
 Port of `egt_tpu/serving.py::load_serving` for the eager PyTorch model. The
-batch is the JAX model's batch dict: `node_features (b, l)`,
-`feature_matrix (b, l, l)` (token edge inputs: ZINC; the SBM schemes have
-none) and `graph_matrix (b, l, l)` numpy arrays (ints, -1 padding; the
-adjacency may be a narrow integer type), at any pad length l. On a CUDA
+batch is the JAX model's batch dict of numpy arrays at any pad length l:
+`node_features` (b, l) int tokens or (b, l, f) f32 dense features (MNIST,
+CIFAR10), `feature_matrix` (b, l, l) int or (b, l, l, f) f32 (edge inputs:
+ZINC, MNIST, CIFAR10; the SBM schemes have none), `graph_matrix` (b, l, l)
+(the adjacency may be a narrow integer type), and with a positional
+encoding `singular_vectors` (b, l, k, 2) or `eigen_vectors` (b, l, k);
+-1 pads the features, 0 the PEs. The predictions are the readout's alone:
+the distance head, whose output is a training and evaluation metric, does
+not run here. On a CUDA
 device the layers run through the hand-written kernels (see
 `models/layers.py`). An
 exported, self-contained artifact (the JAX StableHLO export) has no
@@ -36,8 +41,8 @@ def load_model(config, weights, device=None) -> EGTGraphModel:
 
 def load_predictor(config, weights, device=None):
     """Returns `fn(batch) -> np.ndarray` of f32 predictions: (b,
-    num_targets) for a graph readout (ZINC), (b, l, num_targets) for a node
-    readout (PATTERN, CLUSTER). Only the keys the model reads are taken from
+    num_targets) for a graph readout (ZINC, MNIST, CIFAR10), (b, l,
+    num_targets) for a node readout (PATTERN, CLUSTER). Only the keys the model reads are taken from
     the batch."""
     model = load_model(config, weights, device)
 

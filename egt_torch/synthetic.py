@@ -1,6 +1,6 @@
-"""Seeded stand-ins for trained weights and for ZINC, PATTERN and CLUSTER
-graphs, for runs on a machine that holds neither (the chip smoke test and
-the serving and training profiles).
+"""Seeded stand-ins for trained weights and for ZINC, PATTERN, CLUSTER,
+MNIST and CIFAR10 graphs, for runs on a machine that holds neither (the
+chip smoke test and the serving and training profiles).
 
 `random_flat_params` draws a {JAX flat name: array} dict, the form a JAX
 `saved/*.npz` snapshot takes, so loading it exercises the weight transfer.
@@ -22,12 +22,27 @@ label 1; 44-188 nodes. CLUSTER: 6 communities of 5-35 nodes, 0.55 within and
 token, every other node 0; the label of a node is its community; 40-190
 nodes. A graph whose node count falls outside the published range is drawn
 again. Nodes come in a random order; edges are listed in both directions.
+
+`superpixel_records` and `superpixel_batch` draw the two superpixel
+datasets as Dwivedi et al. build them from MNIST and CIFAR10 images: a
+node a superpixel, at its centroid in the unit square, with its mean
+intensity (MNIST; RGB for CIFAR10) and (x, y) as features; 40-75 nodes
+(MNIST) or 85-150 (CIFAR10); each node's edges to its k = 8 nearest
+centroids, an edge's feature the Gaussian kernel exp(-(d / sigma)^2) of
+the centroid distance d, sigma a node's mean distance to those 8; a label
+0-9. Here the image is a blob around a point of the label's own, so the
+label can be learned from the intensities. The batches carry the SVD (or
+eigenvector) PE the reader's cache would hold (`data/graph_ops.py`);
+`add_pe` gives any of these batches the PE of its adjacency.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from .data import datasets as D
+from .data import graph_ops
+from .data.dataset import GraphDataset
 from .models.graph_model import EGTGraphModel, GraphModelConfig
 from .weights import flat_names
 
@@ -168,3 +183,88 @@ def sbm_batch(rng: np.random.Generator, b: int, pad: int, kind: str,
         adj[i, np.arange(n), np.arange(n)] = 1
         target[i, :n] = labels
     return {"node_features": nf, "graph_matrix": adj, "target": target}
+
+
+# Dwivedi et al. (JMLR 2023), the superpixel datasets: the reader's spec,
+# the node-count range, the intensity channels
+SUPERPIXEL = {"mnist": dict(spec=D.MNIST, nodes=(40, 75), channels=1),
+              "cifar10": dict(spec=D.CIFAR10, nodes=(85, 150), channels=3)}
+SUPERPIXEL_K = 8
+# a point of the unit square a label, around which its images are bright
+_CLASS_CENTRES = np.random.default_rng(1234).uniform(0.2, 0.8, (10, 2))
+
+
+def _superpixel_graph(rng: np.random.Generator, kind: str):
+    """One image's superpixel graph: (n, edges (E, 2), node features (n,
+    channels + 2), edge features (E, 1), label)."""
+    s = SUPERPIXEL[kind]
+    n = int(rng.integers(s["nodes"][0], s["nodes"][1] + 1))
+    label = int(rng.integers(0, 10))
+    xy = rng.uniform(0.0, 1.0, (n, 2))
+    blob = np.exp(-np.sum((xy - _CLASS_CENTRES[label]) ** 2, -1) / 0.05)
+    colour = rng.uniform(0.5, 1.0, s["channels"])
+    inten = np.clip(blob[:, None] * colour
+                    + 0.1 * rng.normal(size=(n, s["channels"])), 0.0, 1.0)
+    d = np.sqrt(np.sum((xy[:, None] - xy[None]) ** 2, -1))
+    np.fill_diagonal(d, np.inf)
+    nbr = np.argsort(d, axis=1)[:, :SUPERPIXEL_K]
+    dn = np.take_along_axis(d, nbr, axis=1)
+    sigma = dn.mean(axis=1, keepdims=True) + 1e-8
+    src = np.repeat(np.arange(n), SUPERPIXEL_K)
+    edges = np.stack([src, nbr.reshape(-1)], 1).astype(np.int64)
+    feat = np.exp(-(dn / sigma) ** 2).reshape(-1, 1)
+    nodes = np.concatenate([inten, xy], axis=1)
+    return n, edges, nodes.astype(np.float32), feat.astype(np.float32), label
+
+
+def superpixel_records(rng: np.random.Generator, count: int,
+                       kind: str) -> list[dict]:
+    """`count` MNIST or CIFAR10 (`kind`) superpixel graphs as records of a
+    dataset split (the form of `data/hdf5_io.write_records`)."""
+    records = []
+    for _ in range(count):
+        n, edges, nodes, feat, label = _superpixel_graph(rng, kind)
+        records.append(dict(num_nodes=n, edges=edges, node_features=nodes,
+                            edge_features=feat, label=label))
+    return records
+
+
+def superpixel_batch(rng: np.random.Generator, b: int, kind: str,
+                     pe: str = "svd", num_features: int = 16) -> dict:
+    """A batch of `b` MNIST or CIFAR10 superpixel graphs as the reader
+    builds it from its cache: node_features (b, pad, f) and
+    feature_matrix (b, pad, pad, 1) f32 with -1 padding, a self-looped
+    uint8 adjacency, the PE (`singular_vectors` (b, pad, k, 2) or
+    `eigen_vectors` (b, pad, k)), the labels `target` (b,) int32 and
+    `sample_mask`; pad 75 (MNIST) or 150 (CIFAR10)."""
+    spec = SUPERPIXEL[kind]["spec"]
+    ds = GraphDataset(spec, "", "", pe=pe, num_features=num_features)
+    data = ds._cache_from_records(
+        [{**r, "target": r["label"]} for r in superpixel_records(rng, b, kind)])
+    return ds._build_batch(data, np.arange(b), b, spec.max_length)
+
+
+def add_pe(batch: dict, pe: str, num_features: int) -> dict:
+    """`batch` with the positional encoding the reader's cache would give
+    it (`data/dataset.py`), computed from its self-looped `graph_matrix`
+    (one self-loop on every real node): `singular_vectors` (b, pad, k, 2)
+    of the adjacency (`pe` "svd") or `eigen_vectors` (b, pad, k) of the
+    Laplacian of its edges without the self-loops ("eig", by the dense
+    solver, so that a seed gives the same batch every run), zero on
+    padding."""
+    adj = np.asarray(batch["graph_matrix"], np.float32)
+    b, pad = adj.shape[:2]
+    shape = (num_features, 2) if pe == "svd" else (num_features,)
+    out = np.zeros((b, pad) + shape, np.float32)
+    for i in range(b):
+        n = int(np.count_nonzero(np.diagonal(adj[i])))
+        a = adj[i, :n, :n]
+        if pe == "svd":
+            out[i, :n] = graph_ops.svd_features(a, num_features)
+        else:
+            off = a - np.eye(n, dtype=np.float32)
+            out[i, :n] = graph_ops.eigen_features(
+                np.argwhere(off > 0).astype(np.int64), n, num_features,
+                sparse=False)
+    key = "singular_vectors" if pe == "svd" else "eigen_vectors"
+    return {**batch, key: out}

@@ -2,8 +2,8 @@
 
 Port of `egt_tpu/training/schemes/__init__.py` (the reference's
 `lib/training/importer.py:4-12`) for the schemes ported so far: zinc,
-pattern and cluster, each .svd and .eig. The others raise
-NotImplementedError (ROADMAP §A item 6).
+pattern and cluster, each .svd and .eig, and mnist.svd and cifar10.svd.
+The others raise NotImplementedError (ROADMAP §A item 6).
 """
 
 from __future__ import annotations
@@ -19,6 +19,8 @@ _MODULES = {
     "zinc": ".zinc",
     "pattern": ".pattern",
     "cluster": ".cluster",
+    "mnist": ".mnist",
+    "cifar10": ".cifar10",
 }
 
 

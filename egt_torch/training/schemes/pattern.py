@@ -2,7 +2,7 @@
 (`lib/training/schemes/pattern/{svd,eig}.py`).
 
 Port of `egt_tpu/training/schemes/pattern.py`: class-size-weighted sparse
-cross-entropy over the valid nodes (`egt_torch/schemes.py::sbm_loss`),
+cross-entropy over the valid nodes (`egt_torch/schemes.py::xent_loss`),
 val_xent monitored for save-best / RLR, length buckets 128 / 192, and the
 SBM evaluation of `sbm_eval.py`.
 """

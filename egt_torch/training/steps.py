@@ -2,12 +2,17 @@
 
 Port of `egt_tpu/training/trainer.py::_compute_loss`,
 `_grads_over_microbatches`, `train_step` and `eval_step`: the model's
-forward in training mode with one seed per layer and step, the scheme's loss
-(`schemes.py`), the `l2_reg` penalty on every `kernel` and `table`, backward
+forward in training mode with one seed per layer and step (and the step's
+seed for the positional encodings' sign flips), the scheme's loss
+(`schemes.py`) plus the model's auxiliary losses (the distance objective),
+whose unweighted values join the metrics as (value, 1) pairs, the
+`l2_reg` penalty on every `kernel` and `table`, backward
 over one or more microbatches with their gradients averaged uniformly, and
 one optimizer update. The scheme's loss is the config's: the MAE of the
-graph target (ZINC), or the class-weighted cross-entropy over the valid
-nodes with the accuracy beside it (PATTERN, CLUSTER). The run engine around it (epochs, schedules,
+graph target (ZINC), the cross-entropy of the graph's class with the
+accuracy beside it (MNIST, CIFAR10), or the class-weighted cross-entropy
+over the valid nodes with the accuracy beside it (PATTERN, CLUSTER). The
+run engine around it (epochs, schedules,
 checkpoints, the data reader) is `training/trainer.py`.
 
     trainer = load_trainer("configs/main/zinc/500k/egt.json", weights)
@@ -73,9 +78,20 @@ class Trainer:
         return [fold_seed(self.base_seed, *tags, 1000 + i)
                 for i in range(self.model.cfg.model_height)]
 
-    def compute_loss(self, batch: dict, training: bool, seeds=None):
-        """(total loss, {metric: (sum, count)}) of a batch."""
-        out = self.model(batch, training=training, seeds=seeds)
+    def pe_seed(self, step: int, micro: int | None = None) -> int:
+        """The seed of a step (and microbatch) that the model folds into
+        its positional encodings' sign-flip seeds (`fold_rng(rng, 101)` /
+        `102` of the step's rng in JAX)."""
+        tags = (step,) if micro is None else (step, micro)
+        return fold_seed(self.base_seed, *tags)
+
+    def compute_loss(self, batch: dict, training: bool, seeds=None,
+                     pe_seed=None):
+        """(total loss, {metric: (sum, count)}) of a batch: the scheme's
+        loss plus the model's auxiliary losses and the L2 penalty; the
+        model's metrics join the scheme's as (value, 1) pairs."""
+        out, ctx = self.model(batch, training=training, seeds=seeds,
+                              pe_seed=pe_seed, with_context=True)
         target = torch.as_tensor(batch["target"], device=self.device)
         if not torch.is_floating_point(target):
             target = target.long()     # class labels: (b,) or per node (b, l)
@@ -84,9 +100,13 @@ class Trainer:
             out, target, self.model.output_mask(batch),
             None if sample_mask is None
             else torch.as_tensor(sample_mask, device=self.device))
+        for v in ctx.losses.values():
+            loss = loss + v
         if self.l2_reg > 0:
             loss = loss + self.l2_reg * sum(torch.sum(torch.square(p))
                                             for p in self._l2)
+        for name, v in ctx.metrics.items():
+            pairs[name] = (v, torch.ones_like(v))
         return loss, pairs
 
     @staticmethod
@@ -111,8 +131,10 @@ class Trainer:
         self.optimizer.zero_grad()
         accum = self.grad_accum_steps > 1
         for i, mb in enumerate(microbatches):
+            micro = i if accum else None
             loss, pairs = self.compute_loss(
-                mb, True, self.layer_seeds(self.step, i if accum else None))
+                mb, True, self.layer_seeds(self.step, micro),
+                self.pe_seed(self.step, micro))
             loss.backward()
             if acc is not None:
                 acc.add(self._with_loss(loss, pairs))
@@ -129,7 +151,8 @@ class Trainer:
     def train_step(self, batch: dict) -> dict:
         """One update on a batch (numpy arrays or tensors, with `target`:
         (b, 1) values for ZINC, (b, l) node labels for PATTERN and
-        CLUSTER). Returns the batch's loss and metrics before the update."""
+        CLUSTER, (b,) class labels for MNIST and CIFAR10). Returns the
+        batch's loss and metrics before the update."""
         loss, pairs = self._update([batch])
         return self._report(loss.detach(), pairs)
 

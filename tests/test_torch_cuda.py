@@ -1233,6 +1233,25 @@ def test_whole_layer_kernels_at_sbm_shapes(dev, dtype, l):
     """K3 at inference and in training (draws live, h_hat out), K4 and K5
     against their plain versions at the SBM shapes; K4's and K5's sums
     bit-identical across two launches."""
+    _check_whole_layer(dev, dtype, l)
+
+
+# The pads of the superpixel configs (MNIST 75, CIFAR10 150: edge width 8,
+# hidden 16, 8 heads, width 64): 75 is no multiple of 8, and neither
+# length's f32 mask row (300 and 600 bytes) of 16; K3's last 16-row tile is
+# partial at both, and K5's layout at l 150 lies between l 128's and 192's.
+SP_LENGTHS = (75, 150)
+
+
+@pytest.mark.parametrize("l", SP_LENGTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_whole_layer_kernels_at_superpixel_shapes(dev, dtype, l):
+    """K3, K4 and K5 as `test_whole_layer_kernels_at_sbm_shapes` checks
+    them, at the superpixel pads."""
+    _check_whole_layer(dev, dtype, l)
+
+
+def _check_whole_layer(dev, dtype, l):
     spec, w, e, qkv, mask, hh, (ge, gv) = _sbm_layer(dev, dtype, l)
     counts = (fl.KERNEL.launches, fl.BWD_TAIL_KERNEL.launches,
               fl.BWD_ATTN_KERNEL.launches)

@@ -14,8 +14,9 @@ the JAX package on the CPU, at a small size (2 layers, width 16, edge width
 - the loss pieces (`class_weights_from_sizes`, the weighted sparse xent,
   the accuracy) on a node mask, and `sbm_eval`'s numpy metrics and printed
   lines against the JAX module's scikit-learn ones;
-- config resolution of every shipped PATTERN / CLUSTER config, the refusal
-  of the positional encodings, and `load_predictor` on a node readout.
+- config resolution of every shipped PATTERN / CLUSTER config, the
+  positional encodings building and serving, and `load_predictor` on a
+  node readout.
 """
 
 import dataclasses
@@ -280,16 +281,38 @@ def test_shipped_config_builds_the_model(kind):
 
 
 @pytest.mark.parametrize("kind", list(KINDS))
-def test_positional_encodings_refused(kind):
+def test_positional_encodings_build(kind):
+    """`<kind>.svd` with `use_svd` and `<kind>.eig` build and serve node
+    logits from their PE arrays; what still raises names only what is
+    missing (here the `bias` edge channel), not the PEs."""
     raw = json.loads((REPO / f"configs/main/{kind}/500k/egt.json").read_text())
-    cfg = schemes.model_config_from_config({**raw, "model_height": 1,
-                                            "use_svd": True})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TModel(cfg, device="cpu")
+    raw.update(model_height=1, compute_dtype="float32")
     eig = {k: v for k, v in raw.items() if k != "use_svd"}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serving.load_predictor({**eig, "scheme": f"{kind}.eig",
-                                "model_height": 1}, {}, device="cpu")
+    nf = KINDS[kind][0]
+    for cfg_raw, key, shape in (
+            ({**raw, "use_svd": True}, "singular_vectors", (16, 2)),
+            ({**eig, "scheme": f"{kind}.eig"}, "eigen_vectors", (20,))):
+        cfg = schemes.model_config_from_config(cfg_raw)
+        model = TModel(cfg, device="cpu")
+        assert key in model.input_keys
+        flat = synthetic.random_flat_params(cfg)
+        predict = serving.load_predictor(cfg_raw, flat, device="cpu")
+        rng = np.random.default_rng(2)
+        batch = random_zinc_batch(rng, b=3, l=PAD[kind], nf=nf)
+        batch[key] = rng.normal(size=(3, PAD[kind]) + shape).astype(
+            np.float32)
+        out = predict(batch)
+        assert out.shape == (3, PAD[kind], KINDS[kind][1])
+        assert np.all(np.isfinite(out))
+        # the PE reaches the outputs
+        batch[key] = batch[key] * 2.0
+        assert not np.allclose(predict(batch), out)
+    bias = schemes.model_config_from_config(
+        {**raw, "use_svd": True, "edge_channel_type": "bias"})
+    with pytest.raises(NotImplementedError, match="ROADMAP") as exc:
+        TModel(bias, device="cpu")
+    assert "bias" in str(exc.value)
+    assert "SVD" not in str(exc.value) and "eigen" not in str(exc.value)
 
 
 @pytest.mark.parametrize("kind", list(KINDS))
