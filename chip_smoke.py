@@ -52,7 +52,13 @@ final result line):
      graphs, l 75 (MNIST: 40-75 nodes) and l 150 (CIFAR10: 85-150), ew 8,
      hidden 16, 8 heads, width 64, f32 and bf16, timed beside their
      bounds, with the layouts `bwd_attn_geometry` and `bwd_tail_geometry`
-     name at both pads;
+     name at both pads; then (3f) K3 (inference and training), K4 and K5
+     at the TSP batch of 8, l 128, 256 and 512 (50-128, 129-256, 257-500
+     points), ew 8, hidden 16, 8 heads, width 64, f32 and bf16, timed
+     beside their bounds (a call past 100 ms over 5 launches, not 30), K5
+     also ungated at l 512, and the layouts at each pad, K5's bf16 body
+     asserted to keep k, v, dk and dv in device memory (`kv_global`), one
+     block a graph, at l 256 and 512;
   4. serving paths: `load_predictor` on configs/main/zinc/500k/egt.json with
      seeded weights under the JAX names answers 4 requests of 128 synthetic
      ZINC-shaped graphs, checked against the model's plain path (bf16 and
@@ -67,7 +73,11 @@ final result line):
      against the model's plain path (bf16: each logit within 5e-2 + 2e-2
      |plain|, the kernels' bf16 tolerance, as a logit a node is no mean
      over a graph; f32: 5e-4), and both paths' bf16 distance from the f32
-     plain path printed;
+     plain path printed; (4c) MNIST and CIFAR10 `egt_spe_do`, 4 requests of
+     128 graphs; (4d) configs/main/tsp/500k/egt.json, 2 requests of 24
+     graphs (the prediction batch) in each length bucket, K3 16 launches a
+     request, the (b, l, l, 2) edge logits on the valid pairs checked as
+     PATTERN's node logits are, the median latency printed;
   5. training paths: `load_trainer` on the same config and weights takes a
      warm-up step, then 4 timed steps on 128-graph batches (bf16, random
      mask 0.1 live); each path's launches a step are checked, its
@@ -94,6 +104,14 @@ final result line):
      32 graphs a batch, cut to 8 of its 16 layers (PE_AGREE_DEPTH), and
      configs/main/zinc/500k/egt_spe_do.json at pad 40 on 128; each bf16
      agreement also prints both paths' distance from the f32 plain path;
+     then (5d) the TSP 500k `egt.json` takes a warm-up step and 4 timed
+     steps at l 512, 1 + 2 at l 256 and at l 128 (random mask live), K3 /
+     K4 / K5 16 each a step; its 3 losses and step-1 gradients agree with
+     the plain path's at l 512 and l 128 on 8 graphs a batch, the last
+     layer's edge tail and `edge_norm_final` reached on both paths (the
+     edge readout reads them), the peak device memory printed; 20 steps on
+     one batch at l 128 lower the loss; the same agreement for
+     `tsp/500k/egt_spe.json` at l 256 with the SVD sign flips live;
   6. the engine: the CLI triple on the flagship ZINC config over 10,000 /
      1,000 / 1,000 synthetic ZINC graphs (2 epochs, a resume to 3,
      evaluation, final weights; launches counted, the saved weights
@@ -110,12 +128,19 @@ final result line):
      2,560 / 512 / 512 synthetic superpixel graphs (of the published
      55,000 / 5,000 / 10,000; the reader's SVD cache built from the
      records), 1 epoch of the shipped 200, the evaluation lines, the epoch
-     line and its share waiting for data;
+     line and its share waiting for data; then (6d) the CLI triple of
+     configs/main/tsp/100k/egt_spe.json over 240 / 48 / 48 synthetic TSP
+     graphs (`synthetic.tsp_records`; of the published 10,000 / 1,000 /
+     1,000; the SVD cache built from the records), 1 epoch of the shipped
+     100, all three length buckets in every split, K3 / K4 / K5 launches =
+     4 x steps, the accuracy, precision, recall and F1 lines of each split,
+     the epoch line and its wait share;
   7. one JSON line listing every kernel with its launches on its training
      path, its times and its bound, and K3, K4 and K5 again at the SBM
      shapes (bf16, training) with PATTERN's launches in each bucket and at
      the superpixel pads with MNIST's (l 75) and CIFAR10's (l 150)
-     launches;
+     launches, and at the TSP pads with TSP 500k's launches in each
+     bucket;
   8. last line: {"ok": true, "device": {...}}.
 TF32 is off for matrix products and convolutions (full f32 references).
 Exits non-zero without a result when no CUDA device is present or when run
@@ -166,6 +191,19 @@ SP_KIND = {75: "mnist", 150: "cifar10"}
 # (`python -m egt_torch.precision_drift` prints these); at 8 both lie
 # within 0.7% of f32 and within 0.2% of each other
 PE_AGREE_DEPTH = 8
+# the TSP edge-classification configs (500k `egt.json`, `egt_spe.json`: 16
+# layers; 100k `egt_spe.json`: 4; width 64, edge width 8, 8 heads, batch 8,
+# prediction batch 24) and their length buckets with the node counts each
+# takes (the data: 50-500 points)
+TSP_DIR = REPO / "configs" / "main" / "tsp"
+TSP_BUCKETS = {128: (50, 128), 256: (129, 256), 512: (257, 500)}
+TSP_BATCH = 8
+N_TSP_STEPS = {512: 4, 256: 2, 128: 2}   # timed TSP training steps a bucket
+# graphs a batch in the TSP agreement with the plain path: 8 x 512^2 = 2.1 M
+# pairs, whose autograd through 16 layers the card holds
+TSP_AGREE = 8
+# a kernel call past SLOW_MS is timed over SLOW_ITERS launches, not 30
+SLOW_MS, SLOW_ITERS = 100.0, 5
 SOURCES = ("fused_layer_fwd", "egt_attention_fwd", "fused_layer_bwd_tail",
            "fused_layer_bwd_attn", "egt_attention_bwd", "fused_layer_bwd_merged",
            "fused_layer_bwd_mono", "edge_block_fwd", "edge_block_bwd")
@@ -301,8 +339,18 @@ def main() -> int:
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
 
     def time_ms(fn, iters=30, warmup=3):
+        """(median ms of `iters` launches, iters); a call that takes more
+        than SLOW_MS is timed SLOW_ITERS times."""
         for _ in range(warmup):
             fn()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        torch.cuda.synchronize()
+        if s.elapsed_time(e) > SLOW_MS:
+            iters = SLOW_ITERS
         times = []
         for _ in range(iters):
             # a ~1 ms spin keeps the card busy while the host enqueues the
@@ -317,7 +365,7 @@ def main() -> int:
             e.record()
             times.append((s, e))
         torch.cuda.synchronize()
-        return statistics.median(s.elapsed_time(e) for s, e in times)
+        return statistics.median(s.elapsed_time(e) for s, e in times), iters
 
     def bound_ms(nbytes, mm_flops, ew_flops, dtype):
         peak_mm = peak_bf16 if dtype == torch.bfloat16 else peak_f32
@@ -369,11 +417,13 @@ def main() -> int:
         check(all(x[1] for x in errs), f"{tag}: max |kernel - plain| {err:.3g}")
         if not timing:
             return None
-        ms, plain = time_ms(kernel_fn), time_ms(plain_fn)
+        (ms, n), (plain, n_plain) = time_ms(kernel_fn), time_ms(plain_fn)
         bnd, by = bound_ms(nbytes, mm, elementwise, dtype)
+        reps = "" if n == n_plain == 30 else \
+            f" (medians of {n} and {n_plain} launches)"
         print(f"  {tag}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
               f"{bnd:.4f} ms ({by}); {mm / 1e9:.3f} GFLOP in products, "
-              f"{nbytes / 1e6:.1f} MB", flush=True)
+              f"{nbytes / 1e6:.1f} MB{reps}", flush=True)
         return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
                     bound_by=by)
 
@@ -864,6 +914,42 @@ def main() -> int:
         traceback.print_exc()
         check(False, "phase 3e: the kernels at the superpixel pads")
 
+    # ---- 3f. the TSP shapes: K3 (inference and training), K4 and K5 at the
+    # TSP batch of 8 in the three length buckets (ew 8, hidden 16, 8 heads,
+    # width 64; each bucket's graphs of its node range), timed beside their
+    # bounds; K5 also ungated at l 512 (the `ungated` ablation); the layouts
+    # of K5's and K4's bf16 bodies at each pad, K5's `kv_global` with one
+    # block a graph asserted at l 256 and 512
+    try:
+        for dtype in (torch.float32, torch.bfloat16):
+            for l, nodes in TSP_BUCKETS.items():
+                for training in (False, True):
+                    results[("layer_tsp", l, dtype, training)] = layer_case(
+                        TSP_BATCH, l, 8, 8, 64, dtype, training=training,
+                        nodes=nodes, alternatives=False)
+            attn_bwd_case(TSP_BATCH, 512, 8, 8, 64, dtype, gated=False,
+                          constrained=False)
+        for l in TSP_BUCKETS:
+            for gated in (True, False):
+                spec = fl.LayerSpec(l=l, ew=8, h=8, dh=64, hidden=16,
+                                    gated=gated, constrained=False,
+                                    clip=(-5.0, 5.0), edge_act=None,
+                                    act="elu", scale=8 ** -0.5, training=True)
+                g = fl.bwd_attn_geometry(spec)
+                print(f"  TSP l {l}{'' if gated else ' ungated'}: "
+                      f"bwd_attn_geometry {g}, bwd_tail_geometry "
+                      f"{fl.bwd_tail_geometry(spec, torch.bfloat16)}",
+                      flush=True)
+                if l > 128:
+                    check(g is not None and bool(g["kv_global"])
+                          and g["cluster"] == 1,
+                          f"TSP l {l}{'' if gated else ' ungated'}: K5's bf16 "
+                          "body keeps k, v, dk and dv in device memory, one "
+                          "block a graph")
+    except Exception:                               # noqa: BLE001 - report
+        traceback.print_exc()
+        check(False, "phase 3f: the kernels at the TSP shapes")
+
     # ---- 4. the serving paths
     raw = json.loads(CONFIG.read_text())
     # seeded weights under the JAX flat names: loading them exercises the
@@ -957,14 +1043,22 @@ def main() -> int:
         return [synthetic.sbm_batch(srng, GRAPHS, l, kind, above=lo - 1)
                 for _ in range(n)]
 
-    def node_diff(outs, refs, reqs, rtol=0.0):
-        """max over the valid nodes of the requests of |a - b| - rtol |b|."""
-        return max(float((np.abs(o - r) - rtol * np.abs(r))[
-            q["node_features"] >= 0].max()) for o, r, q in zip(outs, refs,
-                                                               reqs))
+    def valid_nodes(q):
+        return q["node_features"] >= 0
 
-    def serve_sbm(kind):
-        raw_k, flat_k = sbm_raw[kind], sbm_flat[kind]
+    def valid_pairs(q):
+        return q["feature_matrix"][..., 0] >= 0
+
+    def valid_diff(outs, refs, reqs, valid, rtol=0.0):
+        """max over the valid nodes or pairs (`valid(request)`) of the
+        requests of |a - b| - rtol |b|."""
+        return max(float((np.abs(o - r) - rtol * np.abs(r))[valid(q)].max())
+                   for o, r, q in zip(outs, refs, reqs))
+
+    def serve_buckets(kind, raw_k, flat_k, buckets, requests_of, valid, what):
+        """Serve path A on 2 requests (`requests_of(l)`) in each length
+        bucket: K3's launches, finite logits of the targets' shape, and
+        agreement with the plain path on the valid nodes or pairs (`what`)."""
         layers, classes = raw_k["model_height"], \
             schemes.model_config_from_config(raw_k).num_targets
         plain_k = {**raw_k, "use_pallas": False, "use_pallas_layer": False}
@@ -974,8 +1068,8 @@ def main() -> int:
                                      flat_k)
         pf32 = serving.load_predictor({**plain_k, "compute_dtype": "float32"},
                                       flat_k)
-        for l in SBM_BUCKETS:
-            reqs = sbm_requests(kind, l, 2, seed=l)
+        for l in buckets:
+            reqs = requests_of(l)
             predict(reqs[0])                       # warm-up
             torch.cuda.synchronize()
 
@@ -990,40 +1084,46 @@ def main() -> int:
             tag = f"{kind} serving path A, l {l}"
             (lat, outs), _ = counted(run, {"K3": layers * len(reqs)},
                                      f"{tag}, {len(reqs)} requests")
-            check(all(o.shape == (GRAPHS, l, classes) and np.isfinite(o).all()
-                      for o in outs),
-                  f"{tag}: outputs finite, shape ({GRAPHS}, {l}, {classes})")
+            shape = reqs[0]["target"].shape + (classes,)
+            check(all(o.shape == shape and np.isfinite(o).all()
+                      for o in outs), f"{tag}: outputs finite, shape {shape}")
             refs = [plain(r) for r in reqs]
-            # a logit a node, not a mean over a graph's nodes as ZINC's
-            # prediction, through 16 layers: bf16 is held element by element
-            # to the kernels' bf16 tolerance, atol + rtol |plain| (the plain
-            # path rounds the gates, the edge bias and h_hat to bf16 where
-            # the kernels keep f32); f32 as ZINC's predictions
+            # a logit a node or pair, not a mean over a graph's nodes as
+            # ZINC's prediction, through 16 layers: bf16 is held element by
+            # element to the kernels' bf16 tolerance, atol + rtol |plain|
+            # (the plain path rounds the gates, the edge bias and h_hat to
+            # bf16 where the kernels keep f32); f32 as ZINC's predictions
             atol, rtol = TOL["bfloat16"]
-            diff = node_diff(outs, refs, reqs)
-            excess = node_diff(outs, refs, reqs, rtol)
+            diff = valid_diff(outs, refs, reqs, valid)
+            excess = valid_diff(outs, refs, reqs, valid, rtol)
             big = max(float(np.abs(r).max()) for r in refs)
             check(excess <= atol,
                   f"{tag}: bf16 max |kernel path - plain path| on the valid "
-                  f"nodes {diff:.4g}, every logit within {atol} + {rtol} "
+                  f"{what} {diff:.4g}, every logit within {atol} + {rtol} "
                   f"|plain| (|plain| max {big:.3g})")
             ref32 = pf32(reqs[1])
-            d32 = node_diff([f32(reqs[1])], [ref32], reqs[1:])
+            d32 = valid_diff([f32(reqs[1])], [ref32], reqs[1:], valid)
             check(d32 <= MODEL_TOL["float32"],
                   f"{tag}: f32 max |kernel path - plain path| on the valid "
-                  f"nodes {d32:.4g} (tol {MODEL_TOL['float32']})")
+                  f"{what} {d32:.4g} (tol {MODEL_TOL['float32']})")
             print(f"  {tag}: bf16 distance from the f32 plain path on the "
-                  f"valid nodes: kernel path "
-                  f"{node_diff([outs[1]], [ref32], reqs[1:]):.4g}, plain path "
-                  f"{node_diff([refs[1]], [ref32], reqs[1:]):.4g}", flush=True)
+                  f"valid {what}: kernel path "
+                  f"{valid_diff([outs[1]], [ref32], reqs[1:], valid):.4g}, "
+                  f"plain path "
+                  f"{valid_diff([refs[1]], [ref32], reqs[1:], valid):.4g}",
+                  flush=True)
             med = statistics.median(lat)
+            graphs = shape[0]
             print(f"  {tag}: request latency ms "
                   f"{[round(x * 1e3, 3) for x in lat]}, median "
-                  f"{med * 1e3:.3f} ms, {GRAPHS / med:.1f} graphs/s (batch "
-                  f"{GRAPHS}, {layers} layers, bf16) [{smi}]", flush=True)
+                  f"{med * 1e3:.3f} ms, {graphs / med:.1f} graphs/s (batch "
+                  f"{graphs}, {layers} layers, bf16) [{smi}]", flush=True)
 
     try:
-        serve_sbm("pattern")
+        serve_buckets("pattern", sbm_raw["pattern"], sbm_flat["pattern"],
+                      SBM_BUCKETS,
+                      lambda l: sbm_requests("pattern", l, 2, seed=l),
+                      valid_nodes, "nodes")
     except Exception:                               # noqa: BLE001 - report
         traceback.print_exc()
         check(False, "phase 4b: SBM serving")
@@ -1097,6 +1197,31 @@ def main() -> int:
         except Exception:                           # noqa: BLE001 - report
             traceback.print_exc()
             check(False, f"phase 4c: {kind} serving")
+
+    # ---- 4d. TSP serving: the 500k `egt.json` at full width and depth on
+    # path A, 2 requests of 24 graphs (the scheme's prediction batch) in each
+    # length bucket through K3 (16 launches a request), the (b, l, l, 2) edge
+    # logits on the valid pairs against the model's plain path (bf16 each
+    # within 5e-2 + 2e-2 |plain|, f32 5e-4)
+    tsp_raw = json.loads((TSP_DIR / "500k" / "egt.json").read_text())
+    tsp_flat = synthetic.random_flat_params(
+        schemes.model_config_from_config(tsp_raw), seed=4)
+
+    def tsp_batches(l, n, graphs, seed, pe=None):
+        srng = np.random.default_rng(seed)
+        above = TSP_BUCKETS[l][0] - 1
+        return [synthetic.tsp_batch(srng, graphs, l, above, pe=pe)
+                for _ in range(n)]
+
+    try:
+        c = schemes.resolve_config(tsp_raw)
+        graphs = c.batch_size * c.prediction_bmult
+        serve_buckets("tsp", tsp_raw, tsp_flat, TSP_BUCKETS,
+                      lambda l: tsp_batches(l, 2, graphs, seed=50 + l),
+                      valid_pairs, "pairs")
+    except Exception:                               # noqa: BLE001 - report
+        traceback.print_exc()
+        check(False, "phase 4d: TSP serving")
 
     # ---- 5. the training paths
     trng = np.random.default_rng(1)
@@ -1247,12 +1372,14 @@ def main() -> int:
     # falling loss over 20 steps on one batch of 128 at l 192
     sbm_launches = {}
 
-    def train_sbm(kind, lengths):
-        raw_k, flat_k = sbm_raw[kind], sbm_flat[kind]
+    def train_buckets(kind, raw_k, flat_k, batches):
+        """One trainer (bf16, as shipped) over the length buckets of
+        `batches` ({l: [warm-up batch, timed batches...]}): K3 / K4 / K5
+        once each a layer a step, finite losses, the step times; returns
+        the launches a bucket."""
         layers = raw_k["model_height"]
-        batches = {l: sbm_requests(kind, l, 1 + n, seed=10 + l)
-                   for l, n in lengths.items()}
-        tr = load_trainer(raw_k, flat_k)           # bf16, as shipped
+        tr = load_trainer(raw_k, flat_k)
+        out = {}
         for l, bs in batches.items():
             tag = f"{kind} training path A, l {l}"
             tr.train_step(bs[0])                   # warm-up at this shape
@@ -1267,17 +1394,33 @@ def main() -> int:
                 return times, losses
 
             n = len(bs) - 1
-            (times, losses), launches = counted(
+            (times, losses), out[l] = counted(
                 run, {k: layers * n for k in ("K3", "K4", "K5")},
                 f"{tag}, {n} steps")
-            sbm_launches.setdefault(kind, {})[l] = launches
             check(bool(np.all(np.isfinite(losses))),
                   f"{tag}: losses finite {[round(x, 5) for x in losses]}")
             med = statistics.median(times)
+            graphs = len(bs[0]["target"])
             print(f"  {tag}: step ms {[round(x * 1e3, 3) for x in times]}, "
-                  f"median {med * 1e3:.3f} ms, {GRAPHS / med:.1f} graphs/s "
-                  f"(batch {GRAPHS}, {layers} layers, bf16) [{smi}]",
+                  f"median {med * 1e3:.3f} ms, {graphs / med:.1f} graphs/s "
+                  f"(batch {graphs}, {layers} layers, bf16) [{smi}]",
                   flush=True)
+        return out
+
+    def loss_falls(kind, raw_k, flat_k, batch):
+        fall = load_trainer(raw_k, flat_k)
+        fl_losses = [fall.train_step(batch)["loss"] for _ in range(N_FALL)]
+        first, last = np.mean(fl_losses[:5]), np.mean(fl_losses[-5:])
+        check(last < first, f"{kind} training path A, l "
+              f"{batch['graph_matrix'].shape[1]}: {N_FALL} steps on one "
+              f"batch, mean loss of the first 5 {first:.5f} -> last 5 "
+              f"{last:.5f}")
+
+    def train_sbm(kind, lengths):
+        raw_k, flat_k = sbm_raw[kind], sbm_flat[kind]
+        batches = {l: sbm_requests(kind, l, 1 + n, seed=10 + l)
+                   for l, n in lengths.items()}
+        sbm_launches[kind] = train_buckets(kind, raw_k, flat_k, batches)
         l = max(lengths)
         small = [{k: v[:SBM_AGREE] for k, v in bt.items()}
                  for bt in batches[l]]
@@ -1285,13 +1428,7 @@ def main() -> int:
             agreement(f"{kind} training path A, l {l}, {SBM_AGREE} graphs",
                       {}, dtype, kind=kind, base=raw_k, weights=flat_k,
                       batches=small)
-        fall = load_trainer(raw_k, flat_k)
-        fl_losses = [fall.train_step(batches[l][0])["loss"]
-                     for _ in range(N_FALL)]
-        first, last = np.mean(fl_losses[:5]), np.mean(fl_losses[-5:])
-        check(last < first, f"{kind} training path A, l {l}: {N_FALL} steps "
-              f"on one batch, mean loss of the first 5 {first:.5f} -> last 5 "
-              f"{last:.5f}")
+        loss_falls(kind, raw_k, flat_k, batches[l][0])
 
     for kind, lengths in (("pattern", N_SBM_STEPS),
                           ("cluster", {192: N_SBM_STEPS[192]})):
@@ -1401,6 +1538,58 @@ def main() -> int:
         except Exception:                           # noqa: BLE001 - report
             traceback.print_exc()
             check(False, f"phase 5c: {kind} agreement")
+
+    # ---- 5d. TSP training: the 500k `egt.json` takes a warm-up step and 4
+    # timed steps at l 512, then 1 + 2 at l 256 and at l 128 (bf16, random
+    # mask 0.1 live), K3 / K4 / K5 16 launches each a step (the last layer's
+    # K4 with a live edge cotangent: the edge readout reads its edge
+    # output); its 3 losses and step-1 gradients agree with the plain path's
+    # (f32 and bf16) at l 512 and l 128 on TSP_AGREE graphs a batch, the last
+    # layer's edge tail and `edge_norm_final` reached on both paths; 20 steps
+    # on one batch at l 128 lower the loss; the same agreement for the 500k
+    # `egt_spe.json` (the SVD PE, its sign flips live) at l 256
+    tsp_launches = {}
+
+    def train_tsp():
+        layers = tsp_raw["model_height"]
+        batches = {l: tsp_batches(l, 1 + n, TSP_BATCH, seed=60 + l)
+                   for l, n in N_TSP_STEPS.items()}
+        tsp_launches.update(train_buckets("tsp", tsp_raw, tsp_flat, batches))
+        for l in (512, 128):
+            agree = [{k: v[:TSP_AGREE] for k, v in bt.items()}
+                     for bt in batches[l][:3]]
+            tag = f"tsp training path A, l {l}, {TSP_AGREE} graphs"
+            for dtype in ("float32", "bfloat16"):
+                torch.cuda.reset_peak_memory_stats()
+                grads = agreement(tag, {}, dtype, kind=f"tsp-{l}",
+                                  base=tsp_raw, weights=tsp_flat,
+                                  batches=agree)
+                edge_tail_reached(f"{tag} {dtype}", layers, grads)
+                print(f"  {tag} {dtype}: peak device memory "
+                      f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB",
+                      flush=True)
+        loss_falls("tsp", tsp_raw, tsp_flat, batches[128][0])
+
+    def agree_tsp_spe():
+        raw_k = json.loads((TSP_DIR / "500k" / "egt_spe.json").read_text())
+        c = schemes.resolve_config(raw_k)
+        flat_k = synthetic.random_flat_params(
+            schemes.model_config_from_config(raw_k), seed=5)
+        agree = tsp_batches(256, 3, TSP_AGREE, seed=70, pe="svd")
+        tag = f"tsp-spe training path A, l 256, {TSP_AGREE} graphs"
+        check(bool(c.random_neg), f"{tag}: the SVD sign flips live")
+        for dtype in ("float32", "bfloat16"):
+            grads = agreement(tag, {}, dtype, kind="tsp-spe", base=raw_k,
+                              weights=flat_k, batches=agree)
+            edge_tail_reached(f"{tag} {dtype}", raw_k["model_height"], grads)
+
+    for what, fn in (("training", train_tsp), ("egt_spe agreement",
+                                               agree_tsp_spe)):
+        try:
+            fn()
+        except Exception:                           # noqa: BLE001 - report
+            traceback.print_exc()
+            check(False, f"phase 5d: TSP {what}")
 
     # ---- 6. the engine: the CLI triple on synthetic ZINC at the ZINC-12k
     # split sizes, the flagship config as shipped (path A: K3; K4, K5)
@@ -1699,6 +1888,91 @@ def main() -> int:
         traceback.print_exc()
         check(False, "phase 6c: engine on MNIST")
 
+    # ---- 6d. the engine on TSP: the CLI triple of the 100k `egt_spe.json`
+    # (4 layers, the SVD PE) over synthetic TSP graphs, cut from the
+    # published 10,000 / 1,000 / 1,000 to 240 / 48 / 48 and from 100 epochs
+    # to 1; every length bucket in every split (the largest cut to the
+    # split's largest graph, rounded up to 8, as the reader does); the
+    # reader's SVD cache built here from the records
+    def engine_tsp(tmp: Path):
+        raw_k = json.loads((TSP_DIR / "100k" / "egt_spe.json").read_text())
+        sizes = {"training": 240, "validation": 48, "test": 48}
+        erng = np.random.default_rng(8)
+        cache = tmp / "cache"
+        c = schemes.resolve_config(raw_k)
+        ds = GraphDataset(D.TSP, str(tmp / "TSP.h5"), str(cache),
+                          splits=list(sizes), pe="svd",
+                          num_features=c.num_svd_features)
+        t = time.perf_counter()
+        for split, n in sizes.items():
+            ds.write_cache(split, synthetic.tsp_records(erng, n))
+        print(f"  engine (TSP): wrote the SVD cache of {sum(sizes.values())} "
+              f"synthetic TSP graphs in {time.perf_counter() - t:.1f} s",
+              flush=True)
+        bs, buckets = c.batch_size, c.length_buckets
+
+        def pads(split, size):
+            return [b["node_features"].shape[1] for b in
+                    ds.batches(split, size, buckets=buckets)]
+
+        for split in sizes:
+            got = sorted(set(pads(split, bs)))
+            check(len(got) == 3 and got[:2] == buckets[:2],
+                  f"engine (TSP): {split} batches in all three length "
+                  f"buckets, pads {got}")
+        steps, val = len(pads("training", bs)), len(pads("validation", bs))
+        evals = sum(len(pads(split, c.prediction_bmult * bs))
+                    for split in sizes)
+        cfg = {**raw_k, "dataset_path": str(tmp / "TSP.h5"),
+               "cache_dir": str(cache), "save_path": str(tmp / "run"),
+               "num_epochs": 1, "log_tensorboard": False}
+        path = tmp / "config.json"
+        path.write_text(json.dumps(cfg))
+        layers = raw_k["model_height"]
+        s1, _ = counted(lambda: run_training.main([str(path)]),
+                        dict(K3=layers * (steps + val), K4=layers * steps,
+                             K5=layers * steps),
+                        f"engine (TSP) run_training, 1 epoch of {steps} "
+                        f"steps and {val} validation batches")
+        path.write_text(json.dumps({**cfg, "weight_file": ""}))
+        counted(lambda: do_evaluations.main([str(path)]),
+                dict(K3=layers * evals),
+                f"engine (TSP) do_evaluations, {evals} batches")
+        counted(lambda: end_training.main([str(path)]), {},
+                "engine (TSP) end_training")
+        run_dir = tmp / "run"
+        for rel in (f"saved/{raw_k['model_name']}.npz", "logs/metrics.jsonl",
+                    "checkpoint/ckpt_1.pt"):
+            check((run_dir / rel).is_file(),
+                  f"engine (TSP): run dir holds {rel}")
+        rec = json.loads((run_dir / "logs" / "metrics.jsonl").read_text())
+        keys = ("loss", "xent", "acc", "val_loss", "val_xent", "val_acc")
+        check(all(np.isfinite(rec[k]) for k in keys),
+              "engine (TSP): epoch 1 " + ", ".join(
+                  f"{k} {rec[k]:.5f}" for k in keys))
+        for split in ("trainset", "valset", "testset"):
+            text = (run_dir / "predictions" / f"{split}_evals.txt").read_text()
+            got = [ln.split(" = ")[0] for ln in text.splitlines()]
+            check(got == ["Accuracy", "Precision", "Recall", "f1"],
+                  f"engine (TSP): {split}_evals.txt: "
+                  + " | ".join(text.strip().splitlines()))
+        for st in s1.epoch_stats:
+            print(f"  engine (TSP) epoch {st['epoch']}: "
+                  f"{st['seconds']:.3f} s ({st['train_seconds']:.3f} s "
+                  f"training, {st['steps']} steps, "
+                  f"{1e3 * st['train_seconds'] / st['steps']:.2f} ms a step),"
+                  f" {st['graphs_per_s']:.1f} graphs/s, "
+                  f"{st['wait_share']:.4f} of the training time waiting for "
+                  f"the next batch (Prefetcher.waited) [{smi}]", flush=True)
+
+    try:
+        with tempfile.TemporaryDirectory(prefix="engine-tsp-",
+                                         dir=REPO / "build") as tmp:
+            engine_tsp(Path(tmp))
+    except Exception:                               # noqa: BLE001 - report
+        traceback.print_exc()
+        check(False, "phase 6d: engine on TSP")
+
     # ---- 7. kernels line: the training-mode cases at the flagship shape,
     # bf16, each kernel's launches on its training path
     rows = []
@@ -1768,6 +2042,25 @@ def main() -> int:
                 continue
             rows.append({"name": f"{Path(source).stem} ({kind.upper()}, "
                                  f"l {l})",
+                         "route": "cuda", "source": source,
+                         "replaces": replaces, "launches": n, **r,
+                         "library_ms": None})
+    # K3, K4 and K5 at the TSP pads: the bf16 training-mode cases of phase
+    # 3f, with TSP 500k's launches in that bucket's timed steps (phase 5d)
+    for l in TSP_BUCKETS:
+        for key, part, source, replaces in (
+                ("K3", "fwd", "egt_torch/csrc/fused_layer_fwd.cu",
+                 "egt_tpu/ops/fused_layer_pallas.py:373"),
+                ("K4", "tail", "egt_torch/csrc/fused_layer_bwd_tail.cu",
+                 "egt_tpu/ops/fused_layer_pallas.py:789"),
+                ("K5", "attn", "egt_torch/csrc/fused_layer_bwd_attn.cu",
+                 "egt_tpu/ops/fused_layer_pallas.py:868")):
+            r = results.get(("layer_tsp", l, torch.bfloat16, True),
+                            {}).get(part)
+            n = tsp_launches.get(l, {}).get(key)
+            if r is None or n is None:
+                continue
+            rows.append({"name": f"{Path(source).stem} (TSP, l {l})",
                          "route": "cuda", "source": source,
                          "replaces": replaces, "launches": n, **r,
                          "library_ms": None})

@@ -1,14 +1,15 @@
 """EGTGraphModel: config + `nn.Module` with the forward pass.
 
-Port of `egt_tpu/models/graph_model.py` for the ZINC, SBM and superpixel
-paths: token or dense (Keras-masked) node embeddings, the SVD or
+Port of `egt_tpu/models/graph_model.py` for the ZINC, SBM, superpixel and
+TSP paths: token or dense (Keras-masked) node embeddings, the SVD or
 eigenvector positional encoding added to them (with its training-time sign
 flips), the edge channel from token or dense edge embeddings plus the
 adjacency-hop embedding (or, with `edge_input_kind="none"`, from the hop
 embedding alone), the layer stack (with the training draws and dropout when
 `training`), the final norms, the distance objective's head on the
-final-normed edge channel, and the masked mean-pool graph readout or the
-per-node readout. `GraphModelConfig` is redeclared with the JAX fields,
+final-normed edge channel, and the masked mean-pool graph readout, the
+per-node readout or the per-pair edge readout on the final-normed edge
+channel. `GraphModelConfig` is redeclared with the JAX fields,
 defaults and checks (the JAX module imports jax). Parameters carry the JAX
 params-tree names, so a state-dict key such as
 `stack.layers.0.dense_qkv.kernel` is the flat npz key
@@ -146,8 +147,13 @@ def unsupported(cfg: GraphModelConfig) -> list[str]:
     if cfg.edge_input_kind == "none" and not (cfg.use_adj
                                               and cfg.upto_hop >= 1):
         out.append("an edge channel with neither edge inputs nor hops")
-    if cfg.readout_kind not in ("graph", "node") or cfg.readout_edges:
+    if cfg.readout_kind not in ("graph", "node", "edge") or cfg.readout_edges:
         out.append(f"readout {cfg.readout_kind!r} (edges={cfg.readout_edges})")
+    if cfg.use_node_embeddings:
+        out.append("the pairwise-cat edge readout (use_node_embeddings)")
+    if cfg.readout_kind == "edge" and cfg.distance_loss > 0:
+        # JAX's edge readout would read the distance head's logits
+        out.append("the distance head with the edge readout")
     if cfg.max_degree_enc > 0 or cfg.max_diffuse_t > 0 or cfg.node2edge_embed \
             or cfg.include_xpose:
         out.append("degree / diffusion / node2edge / transposed-hop encodings")
@@ -184,7 +190,7 @@ def resolve_device(device=None) -> torch.device:
 
 class EGTGraphModel(nn.Module):
     """The EGT model: graph regression (ZINC), graph classification (MNIST,
-    CIFAR10) or node classification (SBM).
+    CIFAR10), node classification (SBM) or edge classification (TSP).
 
     Parameters are initialised from `generator` (a CPU `torch.Generator`;
     seeded 0 if None) and placed on `device` (see `resolve_device`)."""
@@ -230,7 +236,9 @@ class EGTGraphModel(nn.Module):
                 "mlp": nn.ModuleDict({"dense": mlp}),
                 "distance_target": F.dense_params(
                     din, cfg.distance_target + 1, generator)})
-        mlp, din = self._mlp_params(w, generator)
+        # the edge readout reads the edge channel (`_readout_in_dim` in JAX)
+        mlp, din = self._mlp_params(ew if cfg.readout_kind == "edge" else w,
+                                    generator)
         self.mlp_out = nn.ModuleDict({"dense": mlp})
         self.target = F.dense_params(din, cfg.num_targets, generator)
         self.to(dev)
@@ -276,12 +284,24 @@ class EGTGraphModel(nn.Module):
             return nf >= 0
         return torch.any(nf != self.cfg.mask_value, dim=-1)
 
+    def edge_valid(self, batch) -> torch.Tensor:
+        """(b, l, l) bool: an edge token >= 0, or a dense row with a feature
+        other than `mask_value`."""
+        fm = torch.as_tensor(batch["feature_matrix"], device=self.device)
+        if self.cfg.edge_input_kind == "tokens":
+            return fm >= 0
+        return torch.any(fm != self.cfg.mask_value, dim=-1)
+
     def output_mask(self, batch):
         """The mask Keras would feed into compiled losses and metrics: none
-        for a graph readout, node validity for a node readout."""
-        if self.cfg.readout_kind == "graph":
+        for a graph readout, node validity for a node readout, edge
+        validity for an edge readout."""
+        kind = self.cfg.readout_kind
+        if kind == "graph":
             return None
-        return self.node_valid(batch)
+        if kind == "node":
+            return self.node_valid(batch)
+        return self.edge_valid(batch)
 
     def embed_nodes(self, batch, training: bool = False, pe_seed=None):
         """The node embedding in f32: tokens or masked dense features, plus
@@ -338,11 +358,11 @@ class EGTGraphModel(nn.Module):
         numeric dtype), and singular_vectors (b, l, k, 2) / eigen_vectors
         (b, l, k) with a PE, as tensors or numpy arrays. Returns the f32
         predictions: (b, num_targets) for a graph readout, (b, l,
-        num_targets) for a node readout; with `with_context`, the pair
-        (predictions, `ModelContext`), and only then does the distance head
-        run. `seeds` holds one seed per layer for
-        this step (`fold_rng(rng, 1000 + i)` in JAX); training draws and
-        dropout need it. `pe_seed` is the step's seed for the PE sign flips
+        num_targets) for a node readout, (b, l, l, num_targets) for an edge
+        readout; with `with_context`, the pair (predictions,
+        `ModelContext`), and only then does the distance head run. `seeds`
+        holds one seed per layer for this step (`fold_rng(rng, 1000 + i)`
+        in JAX); training draws and dropout need it. `pe_seed` is the step's seed for the PE sign flips
         (`random_neg`)."""
         cfg = self.cfg
         dev = self.device
@@ -363,19 +383,19 @@ class EGTGraphModel(nn.Module):
             h, e = layer(h, e, node_mask, edge_mask, training,
                          None if seeds is None else seeds[i])
         # the graph and node readouts read no edges: the final edge norm
-        # runs only for the distance head, and that only when the caller
-        # takes the side outputs
+        # runs for the edge readout, and for the distance head when the
+        # caller takes the side outputs
         distance = with_context and cfg.distance_loss > 0
         if (not cfg.add_n_norm) and cfg.do_final_norm:
             h = L.layer_norm(self.stack["node_norm_final"], h)
-            if distance:
+            if distance or cfg.readout_kind == "edge":
                 e = L.layer_norm(self.stack["edge_norm_final"], e)
         ctx = ModelContext()
         if distance:
             metric = self._distance_loss(e, adj)
             ctx.metrics["distance_loss"] = metric
             ctx.losses["distance_loss"] = metric * cfg.distance_loss
-        out = self._readout(h, node_mask).float()
+        out = self._readout(h, e, node_mask).float()
         return (out, ctx) if with_context else out
 
     def _distance_loss(self, e, adj):
@@ -402,12 +422,14 @@ class EGTGraphModel(nn.Module):
             x = L.activation(self.cfg.activation, F.dense(dp, x))
         return F.dense(self.target, x)
 
-    def _readout(self, h, node_mask):
+    def _readout(self, h, e, node_mask):
         """Graph: masked mean-pool over valid nodes -> MLP -> target. Node:
-        the MLP on every node (padding included; the loss masks it). In
-        f32."""
+        the MLP on every node; edge: on every pair of the final-normed edge
+        channel (padding included; the loss masks it). In f32."""
         if self.cfg.readout_kind == "node":
             return self._mlp_out(h)
+        if self.cfg.readout_kind == "edge":
+            return self._mlp_out(e)
         m = node_mask.float()[..., None]
         s = torch.sum(h.float() * m, dim=1)
         c = torch.sum(m, dim=1)

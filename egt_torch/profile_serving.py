@@ -1,20 +1,23 @@
 """Where a serving request's time goes on the card.
 
     python -m egt_torch.profile_serving [--path A|B|C] [--requests N]
-        [--scheme zinc|pattern|cluster|mnist|cifar10] [--pad L]
+        [--scheme zinc|pattern|cluster|mnist|cifar10|tsp] [--pad L]
+        [--graphs N]
 
 Serves the 500k config of a scheme (the flagship ZINC by default; for
 MNIST and CIFAR10 the 100k `egt_spe_do` config: the SVD PE and the
-distance head) with seeded weights on synthetic 128-graph requests (see
-`egt_torch.synthetic`: ZINC padded to 40, PATTERN / CLUSTER graphs of one
-length bucket, `--pad` 192 by default, 128 the other, MNIST / CIFAR10
-superpixel graphs with their SVD PE at their pads, 75 and 150) under
-`torch.profiler` and prints the
-wall time per request, the device-busy time per request and the device's
-idle share, then the operators ranked by device time. Path A is the config as
-shipped (whole-layer kernel); path B sets use_pallas true and
-use_pallas_layer false (attention kernel); path C also sets use_pallas_edge
-true (attention kernel, then the edge-block kernel). Needs a CUDA device.
+distance head) with seeded weights on synthetic requests (see
+`egt_torch.synthetic`) of 128 graphs (TSP: 24, its prediction batch):
+ZINC padded to 40, PATTERN / CLUSTER graphs of one length bucket, `--pad`
+192 by default, 128 the other, MNIST / CIFAR10 superpixel graphs with
+their SVD PE at their pads, 75 and 150, TSP graphs of one length bucket,
+`--pad` 512 by default, 128 or 256 the others) under `torch.profiler` and
+prints the wall time per request, the device-busy time per request and
+the device's idle share, then the operators ranked by device time. Path A
+is the config as shipped (whole-layer kernel); path B sets use_pallas true
+and use_pallas_layer false (attention kernel); path C also sets
+use_pallas_edge true (attention kernel, then the edge-block kernel).
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from . import schemes, serving, synthetic
 
 _MAIN = Path(__file__).resolve().parents[1] / "configs" / "main"
 CONFIGS = {**{kind: _MAIN / kind / "500k" / "egt.json"
-              for kind in ("zinc", "pattern", "cluster")},
+              for kind in ("zinc", "pattern", "cluster", "tsp")},
            **{kind: _MAIN / kind / "100k" / "egt_spe_do.json"
               for kind in ("mnist", "cifar10")}}
 PATHS = {"A": {}, "B": {"use_pallas": True, "use_pallas_layer": False},
@@ -56,8 +59,9 @@ def device_kernels(prof) -> dict[str, tuple[float, int]]:
 def workload(scheme: str, path: str, pad: int | None):
     """(run config, fn(rng, n, graphs) -> batches) of a scheme's config
     (`CONFIGS`) on a path: ZINC padded to `pad` (40), PATTERN / CLUSTER
-    graphs of the length bucket `pad` (192), more nodes than the next
-    smaller bucket, or MNIST / CIFAR10 superpixel graphs at their pad."""
+    (TSP) graphs of the length bucket `pad` (192; TSP 512), more nodes than
+    the next smaller bucket, or MNIST / CIFAR10 superpixel graphs at their
+    pad."""
     raw = {**json.loads(CONFIGS[scheme].read_text()), **PATHS[path]}
     if scheme in synthetic.SUPERPIXEL:
         return raw, lambda rng, n, graphs: [
@@ -66,9 +70,12 @@ def workload(scheme: str, path: str, pad: int | None):
     if scheme == "zinc":
         return raw, lambda rng, n, graphs: [
             synthetic.zinc_batch(rng, graphs, pad or 40) for _ in range(n)]
-    pad = pad or 192
+    pad = pad or (512 if scheme == "tsp" else 192)
     buckets = schemes.resolve_config(raw).length_buckets
     above = max([b for b in buckets if b < pad], default=0)
+    if scheme == "tsp":
+        return raw, lambda rng, n, graphs: [
+            synthetic.tsp_batch(rng, graphs, pad, above) for _ in range(n)]
     return raw, lambda rng, n, graphs: [
         synthetic.sbm_batch(rng, graphs, pad, scheme, above)
         for _ in range(n)]
@@ -79,19 +86,26 @@ def add_workload_args(ap) -> None:
     ap.add_argument("--scheme", choices=sorted(CONFIGS), default="zinc")
     ap.add_argument("--pad", type=int, default=None,
                     help="pad length (zinc 40; pattern, cluster: the length "
-                         "bucket, 192 or 128; mnist, cifar10: theirs)")
+                         "bucket, 192 or 128; tsp: 512, 256 or 128; mnist, "
+                         "cifar10: theirs)")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     add_workload_args(ap)
     ap.add_argument("--requests", type=int, default=8)
-    ap.add_argument("--graphs", type=int, default=128)
+    ap.add_argument("--graphs", type=int, default=None,
+                    help="graphs a request (128; tsp 24)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving needs a CUDA device")
 
     raw, make = workload(args.scheme, args.path, args.pad)
+    if args.graphs is None:
+        # TSP's prediction batch (batch size 8 x prediction_bmult 3)
+        c = schemes.resolve_config(raw)
+        args.graphs = c.batch_size * c.prediction_bmult \
+            if args.scheme == "tsp" else 128
     flat = synthetic.random_flat_params(schemes.model_config_from_config(raw))
     predict = serving.load_predictor(raw, flat)
     reqs = make(np.random.default_rng(1), args.requests, args.graphs)

@@ -1,23 +1,23 @@
 """Where a training step's time goes on the card.
 
     python -m egt_torch.profile_training [--path A|B|C]
-        [--scheme zinc|pattern|cluster|mnist|cifar10] [--pad L]
+        [--scheme zinc|pattern|cluster|mnist|cifar10|tsp] [--pad L]
 
 Trains the config of a scheme (the flagship ZINC 500k by default; the SBM
-500k, the superpixel 100k `egt_spe_do`; seeded weights, STEPS synthetic
-batches of GRAPHS graphs, the config's batch size: ZINC padded to 40,
-PATTERN / CLUSTER graphs of one length bucket, `--pad` 192 by default,
-MNIST / CIFAR10 at 75 / 150; see `egt_torch.synthetic` and
-`profile_serving.workload`)
-and prints the wall time per step
-(without the profiler, which slows the host), the device-busy time per step
-under `torch.profiler` and the device's idle share (1 - busy / wall), then
-the operators ranked by device time. Path A is the config as
-shipped (whole-layer kernel K3 forward; backward K4 and K5, or K7 with
-EGT_FUSED_BWD=merged, or K6 with EGT_FUSED_BWD=mono); path B sets use_pallas
-true and use_pallas_layer false (attention kernels K1 forward, K2 backward);
-path C also sets use_pallas_edge true (K1 then the edge block K8 forward;
-K9 then K2 backward). Needs a CUDA device.
+and TSP 500k, the superpixel 100k `egt_spe_do`; seeded weights, STEPS
+synthetic batches of the config's batch size, 128 graphs, TSP's 8: ZINC
+padded to 40, PATTERN / CLUSTER graphs of one length bucket, `--pad` 192
+by default, MNIST / CIFAR10 at 75 / 150, TSP graphs of one length
+bucket, `--pad` 512 by default; see `egt_torch.synthetic` and
+`profile_serving.workload`) and prints the wall time per step (without
+the profiler, which slows the host), the device-busy time per step under
+`torch.profiler` and the device's idle share (1 - busy / wall), then the
+operators ranked by device time. Path A is the config as shipped
+(whole-layer kernel K3 forward; backward K4 and K5, or K7 with
+EGT_FUSED_BWD=merged, or K6 with EGT_FUSED_BWD=mono); path B sets
+use_pallas true and use_pallas_layer false (attention kernels K1 forward,
+K2 backward); path C also sets use_pallas_edge true (K1 then the edge
+block K8 forward; K9 then K2 backward). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ from .ops import fused_layer
 from .profile_serving import add_workload_args, device_kernels, workload
 from .training.steps import load_trainer
 
-STEPS, GRAPHS = 6, 128
+STEPS = 6
 
 
 def main(argv=None) -> int:
@@ -46,7 +46,8 @@ def main(argv=None) -> int:
     raw, make = workload(args.scheme, args.path, args.pad)
     flat = synthetic.random_flat_params(schemes.model_config_from_config(raw))
     trainer = load_trainer(raw, flat)
-    batches = make(np.random.default_rng(1), STEPS, GRAPHS)
+    graphs = schemes.resolve_config(raw).batch_size
+    batches = make(np.random.default_rng(1), STEPS, graphs)
     for b in batches[:2]:
         trainer.train_step(b)                        # warm-up
     torch.cuda.synchronize()
@@ -66,7 +67,7 @@ def main(argv=None) -> int:
     busy = sum(us for us, _ in kernels.values()) / 1e6 / STEPS
     print(f"{args.scheme} path {args.path}, pad "
           f"{batches[0]['graph_matrix'].shape[1]} (whole-layer backward "
-          f"{fused_layer.BWD_IMPL}): {STEPS} steps x {GRAPHS} graphs, "
+          f"{fused_layer.BWD_IMPL}): {STEPS} steps x {graphs} graphs, "
           f"wall {wall * 1e3:.3f} ms/step ({wall_prof * 1e3:.3f} under the "
           f"profiler), device busy {busy * 1e3:.3f} ms/step, device idle "
           f"share {max(0.0, 1 - busy / wall):.3f}")

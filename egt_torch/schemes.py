@@ -4,8 +4,9 @@
 Port of the serving side of the JAX package's config chain: the trainer
 defaults (`egt_tpu/training/trainer.py::TrainingBase.get_default_config`),
 the scheme defaults and `model_config_kwargs` of `schemes/base.py`, the
-dataset bindings of `schemes/zinc.py`, `pattern.py` and `cluster.py`
-(`DATASETS`: their defaults, model inputs and readout, and loss), and the
+dataset bindings of `schemes/zinc.py`, `pattern.py`, `cluster.py`,
+`mnist.py`, `cifar10.py` and `tsp.py` (`DATASETS`: their defaults, model
+inputs and readout, and loss), and the
 dispatch-knob copy of `TrainingBase.load_model`. The default tables carry the
 whole key surface of the trainer and the scheme, so the strict unknown-key
 check accepts every key a config of a ported scheme may hold, including those
@@ -155,7 +156,9 @@ def loss_and_metrics(pred, target, mask, sample_mask):
 
 def xent_loss(c: HParams) -> Callable:
     """The classification loss: the sparse cross-entropy as `xent`, and the
-    accuracy as `acc`, over the valid nodes of a node readout. PATTERN and
+    accuracy as `acc`, over the valid nodes of a node readout or the valid
+    pairs of an edge readout (TSP, `egt_tpu/training/schemes/tsp.py:55-59`,
+    unweighted). PATTERN and
     CLUSTER weight each class by its weight from `class_sizes`
     (`egt_tpu/training/schemes/pattern.py:44-50`); MNIST and CIFAR10, whose
     schemes have no `class_sizes`, weigh every graph alike
@@ -174,13 +177,14 @@ def xent_loss(c: HParams) -> Callable:
 @dataclass(frozen=True)
 class DatasetBinding:
     """What a dataset's scheme mixin binds: its config defaults over the PE
-    chain, the model's inputs and readout (`get_model_config`), the pad
+    chain, the model's inputs and readout (`get_model_config`; a dict, or
+    a function of the resolved config giving one), the pad
     length the model is built for (None: the batch's), its loss (a
     function of the resolved config giving `fn(pred, target, mask,
     sample_mask) -> (loss, {metric: (sum, count)})`), and the scheme
     variants JAX has for it (`pes`)."""
     defaults: dict
-    model: dict
+    model: dict | Callable[[HParams], dict]
     max_length: int | None
     loss: Callable[[HParams], Callable]
     pes: tuple = ("svd", "eig")     # the scheme variants JAX has
@@ -191,6 +195,17 @@ def _superpixel_model(node_feature_dim: int) -> dict:
     return dict(node_input_kind="dense", node_feature_dim=node_feature_dim,
                 edge_input_kind="dense", edge_feature_dim=1, num_targets=10,
                 readout_kind="graph")
+
+
+def _tsp_model(c: HParams) -> dict:
+    """The TSP mixin's model inputs and edge readout; the pairwise-cat
+    readout (`use_node_embeddings`) for the channels without an edge
+    residual (`egt_tpu/training/schemes/tsp.py:43-53`)."""
+    return dict(node_input_kind="dense", node_feature_dim=2,
+                edge_input_kind="dense", edge_feature_dim=1, num_targets=2,
+                readout_kind="edge",
+                use_node_embeddings=c.edge_channel_type not in
+                ("residual", "constrained"))
 
 
 # `egt_tpu/training/schemes/pattern.py:22-33` (SBM graphs have ~40-190
@@ -234,6 +249,14 @@ DATASETS = {
                       num_virtual_nodes=0),
         model=_superpixel_model(5), max_length=150, loss=xent_loss,
         pes=("svd",)),
+    # `schemes/tsp.py:22-59`: 50-500 points in the unit square, the
+    # k-nearest-neighbour edges labelled by the tour; `include_xpose` is a
+    # key JAX accepts and does not forward to the model, as here
+    "tsp": DatasetBinding(
+        defaults=dict(dataset_name="tsp", batch_size=8, prediction_bmult=3,
+                      include_xpose=True, save_best_monitor="val_xent",
+                      rlr_monitor="val_xent", length_buckets=[128, 256, 512]),
+        model=_tsp_model, max_length=None, loss=xent_loss, pes=("svd",)),
 }
 SCHEMES = tuple(f"{ds}.{pe}" for ds, b in DATASETS.items() for pe in b.pes)
 
@@ -299,9 +322,10 @@ def model_config_from_config(config: dict | str) -> GraphModelConfig:
     c = resolve_config(config)
     ds, _, pe = c.scheme.partition(".")
     binding = DATASETS[ds]
+    model = binding.model(c) if callable(binding.model) else binding.model
     cfg = GraphModelConfig(
         **_model_config_kwargs(c, pe),
-        **{"node_input_kind": "tokens", **binding.model},
+        **{"node_input_kind": "tokens", **model},
         readout_edges=False,
         # a key of the ZINC and CIFAR10 mixins only (the others refuse it)
         num_virtual_nodes=c.get("num_virtual_nodes", 0),

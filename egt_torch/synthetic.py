@@ -1,6 +1,6 @@
 """Seeded stand-ins for trained weights and for ZINC, PATTERN, CLUSTER,
-MNIST and CIFAR10 graphs, for runs on a machine that holds neither (the
-chip smoke test and the serving and training profiles).
+MNIST, CIFAR10 and TSP graphs, for runs on a machine that holds neither
+(the chip smoke test and the serving and training profiles).
 
 `random_flat_params` draws a {JAX flat name: array} dict, the form a JAX
 `saved/*.npz` snapshot takes, so loading it exercises the weight transfer.
@@ -34,6 +34,16 @@ the centroid distance d, sigma a node's mean distance to those 8; a label
 label can be learned from the intensities. The batches carry the SVD (or
 eigenvector) PE the reader's cache would hold (`data/graph_ops.py`);
 `add_pe` gives any of these batches the PE of its adjacency.
+
+`tsp_records` and `tsp_batch` draw TSP graphs as Dwivedi et al. build them
+(benchmarking-gnns `data/TSP.py`): 50-500 points uniform in the unit
+square with (x, y) as node features, each node's edges to its k = 25
+nearest points with the Euclidean length as the edge feature, and label 1
+on the edges of a tour. The benchmark's tours come from Concorde; here the
+tour is a deterministic function of the points, the nearest-neighbour tour
+from point 0 improved by 2-opt until no exchange shortens it. Only the
+k-nearest-neighbour edges are kept, as in the benchmark, so a tour edge
+outside them carries no label.
 """
 
 from __future__ import annotations
@@ -268,3 +278,89 @@ def add_pe(batch: dict, pe: str, num_features: int) -> dict:
                 sparse=False)
     key = "singular_vectors" if pe == "svd" else "eigen_vectors"
     return {**batch, key: out}
+
+
+# Dwivedi et al. (JMLR 2023), TSP: the node-count range, the neighbours a node
+TSP_NODES, TSP_K = (50, 500), 25
+
+
+def _two_opt(d: np.ndarray, tour: np.ndarray) -> np.ndarray:
+    """`tour` improved by 2-opt exchanges until none shortens it. Each round
+    takes, for every tour position i, the exchange of edges (i, i + 1) and
+    (j, j + 1) that gains most, and applies the best of them whose
+    reversed segments do not overlap (those exchanges are independent)."""
+    n = len(tour)
+    nxt = np.roll(np.arange(n), -1)
+    while True:
+        p = d[np.ix_(tour, tour)]                 # distances in tour order
+        a = p[np.arange(n), nxt]                  # edge i -> i + 1
+        gain = np.triu(a[:, None] + a[None, :] - p - p[np.ix_(nxt, nxt)], 2)
+        gain[0, n - 1] = 0.0                      # the same two edges
+        best_j = gain.argmax(1)
+        best = gain[np.arange(n), best_j]
+        cand = np.nonzero(best > 1e-12)[0]
+        if not len(cand):
+            return tour
+        busy = np.zeros(n + 1, bool)
+        tour = tour.copy()
+        for i in cand[np.argsort(-best[cand], kind="stable")]:
+            j = best_j[i]
+            if busy[i:j + 2].any():
+                continue
+            busy[i:j + 2] = True
+            tour[i + 1:j + 1] = tour[i + 1:j + 1][::-1].copy()
+
+
+def _tsp_graph(rng: np.random.Generator, lo: int, hi: int):
+    """One TSP graph with lo <= n <= hi points: (n, edges (n k, 2), node
+    features (n, 2), edge features (n k, 1), edge labels (n k,))."""
+    n = int(rng.integers(max(lo, TSP_NODES[0]), min(hi, TSP_NODES[1]) + 1))
+    xy = rng.uniform(0.0, 1.0, (n, 2))
+    d = np.sqrt(np.sum((xy[:, None] - xy[None]) ** 2, -1))
+    visited = np.zeros(n, bool)
+    visited[0] = True
+    tour = [0]
+    for _ in range(n - 1):
+        j = int(np.where(visited, np.inf, d[tour[-1]]).argmin())
+        tour.append(j)
+        visited[j] = True
+    tour = _two_opt(d, np.asarray(tour))
+    on_tour = np.zeros((n, n), bool)
+    on_tour[tour, np.roll(tour, -1)] = True
+    on_tour |= on_tour.T
+    dn = d + np.diag(np.full(n, np.inf))
+    nbr = np.argsort(dn, axis=1, kind="stable")[:, :TSP_K]
+    src = np.repeat(np.arange(n), TSP_K)
+    dst = nbr.reshape(-1)
+    edges = np.stack([src, dst], 1).astype(np.int64)
+    return (n, edges, xy.astype(np.float32),
+            d[src, dst].astype(np.float32)[:, None],
+            on_tour[src, dst].astype(np.int64))
+
+
+def tsp_records(rng: np.random.Generator, count: int, lo: int = 0,
+                hi: int = 1 << 30) -> list[dict]:
+    """`count` TSP graphs (of lo to hi points, within the published 50-500)
+    as records of a dataset split (the form of
+    `data/hdf5_io.write_records`)."""
+    records = []
+    for _ in range(count):
+        n, edges, nodes, feat, labels = _tsp_graph(rng, lo, hi)
+        records.append(dict(num_nodes=n, edges=edges, node_features=nodes,
+                            edge_features=feat, edge_labels=labels))
+    return records
+
+
+def tsp_batch(rng: np.random.Generator, b: int, pad: int, above: int = 0,
+              pe: str | None = None, num_features: int = 16) -> dict:
+    """A batch of `b` TSP graphs of more than `above` and at most `pad`
+    points (a length bucket) as the reader builds it: node_features (b,
+    pad, 2) and feature_matrix (b, pad, pad, 1) f32 with -1 padding, a
+    self-looped uint8 adjacency of the neighbour edges, the edge labels
+    `target` (b, pad, pad) int8, `sample_mask`, and with `pe` "svd" the
+    `singular_vectors` (b, pad, k, 2) of the reader's SVD cache."""
+    ds = GraphDataset(D.TSP, "", "", pe=pe, num_features=num_features)
+    data = ds._cache_from_records(
+        [{**r, "target": r["edge_labels"]}
+         for r in tsp_records(rng, b, above + 1, pad)])
+    return ds._build_batch(data, np.arange(b), b, pad)

@@ -2,7 +2,8 @@
 
 Port of `egt_tpu/training/schemes/__init__.py` (the reference's
 `lib/training/importer.py:4-12`) for the schemes ported so far: zinc,
-pattern and cluster, each .svd and .eig, and mnist.svd and cifar10.svd.
+pattern and cluster, each .svd and .eig, and mnist.svd, cifar10.svd and
+tsp.svd.
 The others raise NotImplementedError (ROADMAP §A item 6).
 """
 
@@ -21,6 +22,7 @@ _MODULES = {
     "cluster": ".cluster",
     "mnist": ".mnist",
     "cifar10": ".cifar10",
+    "tsp": ".tsp",
 }
 
 

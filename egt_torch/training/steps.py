@@ -10,8 +10,9 @@ whose unweighted values join the metrics as (value, 1) pairs, the
 over one or more microbatches with their gradients averaged uniformly, and
 one optimizer update. The scheme's loss is the config's: the MAE of the
 graph target (ZINC), the cross-entropy of the graph's class with the
-accuracy beside it (MNIST, CIFAR10), or the class-weighted cross-entropy
-over the valid nodes with the accuracy beside it (PATTERN, CLUSTER). The
+accuracy beside it (MNIST, CIFAR10), the class-weighted cross-entropy
+over the valid nodes with the accuracy beside it (PATTERN, CLUSTER), or the
+cross-entropy over the valid pairs with the accuracy beside it (TSP). The
 run engine around it (epochs, schedules,
 checkpoints, the data reader) is `training/trainer.py`.
 
@@ -94,7 +95,7 @@ class Trainer:
                               pe_seed=pe_seed, with_context=True)
         target = torch.as_tensor(batch["target"], device=self.device)
         if not torch.is_floating_point(target):
-            target = target.long()     # class labels: (b,) or per node (b, l)
+            target = target.long()     # class labels: (b,), (b, l), (b, l, l)
         sample_mask = batch.get("sample_mask")
         loss, pairs = self.loss_and_metrics(
             out, target, self.model.output_mask(batch),
@@ -151,8 +152,9 @@ class Trainer:
     def train_step(self, batch: dict) -> dict:
         """One update on a batch (numpy arrays or tensors, with `target`:
         (b, 1) values for ZINC, (b, l) node labels for PATTERN and
-        CLUSTER, (b,) class labels for MNIST and CIFAR10). Returns the
-        batch's loss and metrics before the update."""
+        CLUSTER, (b,) class labels for MNIST and CIFAR10, (b, l, l) edge
+        labels for TSP). Returns the batch's loss and metrics before the
+        update."""
         loss, pairs = self._update([batch])
         return self._report(loss.detach(), pairs)
 

@@ -1192,7 +1192,10 @@ def test_bwd_attn_refuses_a_shape_past_227_kb(dev):
 SBM_LENGTHS = (128, 192)
 
 
-def _sbm_layer(dev, dtype, l, b=3):
+def _sbm_layer(dev, dtype, l, b=3, nodes=None):
+    """A layer's weights and inputs at edge width 8; graphs of l, l - 60 and
+    44 nodes, or with `nodes` (lo, hi) b graphs of a node count drawn in
+    that range."""
     g_ = _gen(dev)
     ew, h, dh = 8, 8, 64
 
@@ -1215,7 +1218,9 @@ def _sbm_layer(dev, dtype, l, b=3):
                         random_mask_prob=0.1, attn_dropout=0.1, training=True)
     w = fl.layer_weights(p, dtype)
     e, qkv = rnd(b, l, l, ew).to(dtype), rnd(b, l, 3 * dh).to(dtype)
-    n = torch.tensor([[l], [l - 60], [44]][:b], device=dev)
+    n = torch.tensor([[l], [l - 60], [44]][:b], device=dev) if nodes is None \
+        else torch.randint(nodes[0], nodes[1] + 1, (b, 1), generator=g_,
+                           device=dev)
     mask = (torch.arange(l, device=dev)[None] < n).float()
     # h_hat drawn on its own, none of it within 0.05 of the clip's edges in
     # hh - E (see `_bwd_attn_case`)
@@ -1251,8 +1256,35 @@ def test_whole_layer_kernels_at_superpixel_shapes(dev, dtype, l):
     _check_whole_layer(dev, dtype, l)
 
 
-def _check_whole_layer(dev, dtype, l):
-    spec, w, e, qkv, mask, hh, (ge, gv) = _sbm_layer(dev, dtype, l)
+# The TSP configs (100k and 500k: edge width 8, hidden 16, 8 heads, width
+# 64) at their batch of 8 in the three length buckets, each graph of its
+# bucket's node range (the data: 50-500 points). At l 256 and 512 no layout
+# of K5's bf16 body with k, v, dk and dv in shared memory fits 227 KB: it
+# keeps them in device memory (kv_global), one block a graph.
+TSP_BUCKETS = {128: (50, 128), 256: (129, 256), 512: (257, 500)}
+
+
+@pytest.mark.parametrize("l", list(TSP_BUCKETS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_whole_layer_kernels_at_tsp_shapes(dev, dtype, l):
+    """K3, K4 and K5 as `test_whole_layer_kernels_at_sbm_shapes` checks
+    them, at the TSP batch and pads."""
+    _check_whole_layer(dev, dtype, l, b=8, nodes=TSP_BUCKETS[l])
+
+
+@pytest.mark.parametrize("gated", [True, False])
+@pytest.mark.parametrize("l", (256, 512))
+def test_bwd_attn_takes_kv_global_at_tsp_lengths(dev, l, gated):
+    spec = fl.LayerSpec(l=l, ew=8, h=8, dh=64, hidden=16, gated=gated,
+                        constrained=False, clip=(-5.0, 5.0), edge_act=None,
+                        act="elu", scale=8 ** -0.5, training=True)
+    g = fl.bwd_attn_geometry(spec)
+    assert g is not None and g["kv_global"] and g["cluster"] == 1, g
+    assert g["rows_per_block"] == l and not g["general"], g
+
+
+def _check_whole_layer(dev, dtype, l, b=3, nodes=None):
+    spec, w, e, qkv, mask, hh, (ge, gv) = _sbm_layer(dev, dtype, l, b, nodes)
     counts = (fl.KERNEL.launches, fl.BWD_TAIL_KERNEL.launches,
               fl.BWD_ATTN_KERNEL.launches)
     infer = spec._replace(training=False)

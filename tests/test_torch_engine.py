@@ -322,7 +322,7 @@ def test_refuses_what_is_not_ported(workdir):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ts.load_model()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        timport("tsp.svd")
+        timport("pcqm4mv2.svd")
 
 
 def _cli(module, cfg_path, *extra):
