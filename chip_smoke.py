@@ -58,7 +58,14 @@ final result line):
      beside their bounds (a call past 100 ms over 5 launches, not 30), K5
      also ungated at l 512, and the layouts at each pad, K5's bf16 body
      asserted to keep k, v, dk and dv in device memory (`kv_global`), one
-     block a graph, at l 256 and 512;
+     block a graph, at l 256 and 512; then (3g) K1 (inference and
+     training) and K2 at the `egt_simple` shapes (the `bias` edge channel's
+     main path, 8 heads): ZINC 128 graphs, l 40, d 10 (the tensor-core
+     bodies, asserted), the superpixel pads 75 / 150 and the SBM buckets
+     128 / 192 at 128 graphs and the TSP buckets at 8, d 8 (the CUDA-core
+     bodies, asserted; K2's block 164,608 B at l 512), f32 and bf16, timed
+     beside their bounds, K2's dk and dv bit-identical across two launches
+     at l 512, and a general-valued bf16 case there;
   4. serving paths: `load_predictor` on configs/main/zinc/500k/egt.json with
      seeded weights under the JAX names answers 4 requests of 128 synthetic
      ZINC-shaped graphs, checked against the model's plain path (bf16 and
@@ -77,7 +84,11 @@ final result line):
      128 graphs; (4d) configs/main/tsp/500k/egt.json, 2 requests of 24
      graphs (the prediction batch) in each length bucket, K3 16 launches a
      request, the (b, l, l, 2) edge logits on the valid pairs checked as
-     PATTERN's node logits are, the median latency printed;
+     PATTERN's node logits are, the median latency printed; then (4e) the
+     `egt_simple` configs as shipped, through K1 (one launch a layer a
+     request, K3 none): ZINC 4 x 128 graphs (predictions within 5e-2 of
+     the plain path), PATTERN 2 x 128 at l 128 and 192, TSP 2 x 24 in each
+     bucket (the pairwise-cat edge readout);
   5. training paths: `load_trainer` on the same config and weights takes a
      warm-up step, then 4 timed steps on 128-graph batches (bf16, random
      mask 0.1 live); each path's launches a step are checked, its
@@ -111,7 +122,14 @@ final result line):
      layer's edge tail and `edge_norm_final` reached on both paths (the
      edge readout reads them), the peak device memory printed; 20 steps on
      one batch at l 128 lower the loss; the same agreement for
-     `tsp/500k/egt_spe.json` at l 256 with the SVD sign flips live;
+     `tsp/500k/egt_spe.json` at l 256 with the SVD sign flips live; then
+     (5e) the `egt_simple` configs: ZINC 1 + 4 steps, PATTERN 1 + 4 at l
+     192 and 1 + 2 at l 128, TSP 1 + 4 at l 512 and 1 + 2 at l 256 and 128,
+     MNIST and CIFAR10 1 + 2 (random mask live), K1 and K2 one launch each a
+     layer a step and K3-K9 none; agreement with the plain path (3 losses,
+     every step-1 gradient, f32 and bf16) at ZINC, PATTERN l 192 on 32
+     graphs, TSP l 512 on 8 and CIFAR10 l 150, the edge embeddings'
+     gradients non-zero on both paths; a falling ZINC loss;
   6. the engine: the CLI triple on the flagship ZINC config over 10,000 /
      1,000 / 1,000 synthetic ZINC graphs (2 epochs, a resume to 3,
      evaluation, final weights; launches counted, the saved weights
@@ -134,13 +152,19 @@ final result line):
      1,000; the SVD cache built from the records), 1 epoch of the shipped
      100, all three length buckets in every split, K3 / K4 / K5 launches =
      4 x steps, the accuracy, precision, recall and F1 lines of each split,
-     the epoch line and its wait share;
+     the epoch line and its wait share; then (6e) the CLI triple of
+     `ablation/egt_simple/zinc_full/500k/egt_simple.json` over 10,000 /
+     1,000 / 1,000 synthetic ZINC-full graphs (of the published 220,011 /
+     24,445 / 5,000), 1 epoch of the shipped 200 and a resume to 2, K1 /
+     K2 launches = 10 x steps (K1 also 10 x validation and evaluation
+     batches), the MAE lines, the epoch lines and their wait share;
   7. one JSON line listing every kernel with its launches on its training
      path, its times and its bound, and K3, K4 and K5 again at the SBM
      shapes (bf16, training) with PATTERN's launches in each bucket and at
      the superpixel pads with MNIST's (l 75) and CIFAR10's (l 150)
-     launches, and at the TSP pads with TSP 500k's launches in each
-     bucket;
+     launches, at the TSP pads with TSP 500k's launches in each
+     bucket, and K1 and K2 at the `egt_simple` shapes with the launches of
+     phase 5e's timed steps there;
   8. last line: {"ok": true, "device": {...}}.
 TF32 is off for matrix products and convolutions (full f32 references).
 Exits non-zero without a result when no CUDA device is present or when run
@@ -202,6 +226,27 @@ N_TSP_STEPS = {512: 4, 256: 2, 128: 2}   # timed TSP training steps a bucket
 # graphs a batch in the TSP agreement with the plain path: 8 x 512^2 = 2.1 M
 # pairs, whose autograd through 16 layers the card holds
 TSP_AGREE = 8
+# the `egt_simple` ablations (the `bias` edge channel, no edge update: the
+# attention kernel K1 forward and K2 backward in every layer, K3-K5 never):
+# the configs a family, and their attention shapes at 8 heads, (graphs, l,
+# d, node range) by family and pad: ZINC at width 80 (d 10, the tensor-core
+# bodies, rows of 20 bytes), the others at width 64 (d 8, past 64 keys the
+# CUDA-core bodies)
+SIMPLE_DIR = REPO / "configs" / "ablation" / "egt_simple"
+SIMPLE_CONFIGS = {kind: SIMPLE_DIR / kind / size / "egt_simple.json"
+                  for kind, size in (("zinc", "500k"), ("pattern", "500k"),
+                                     ("tsp", "500k"), ("mnist", "100k"),
+                                     ("cifar10", "100k"))}
+SIMPLE_SHAPES = {
+    "ZINC": (GRAPHS, PAD, 10, (9, 38)),
+    **{f"SP l {l}": (GRAPHS, l, 8, n) for l, n in SP_PADS.items()},
+    **{f"SBM l {l}": (GRAPHS, l, 8, n) for l, n in SBM_BUCKETS.items()},
+    **{f"TSP l {l}": (TSP_BATCH, l, 8, n) for l, n in TSP_BUCKETS.items()}}
+# the run whose timed steps give each shape's launches (phase 5e)
+SIMPLE_RUNS = {"ZINC": ("zinc", PAD), "SP l 75": ("mnist", 75),
+               "SP l 150": ("cifar10", 150),
+               **{f"SBM l {l}": ("pattern", l) for l in SBM_BUCKETS},
+               **{f"TSP l {l}": ("tsp", l) for l in TSP_BUCKETS}}
 # a kernel call past SLOW_MS is timed over SLOW_ITERS launches, not 30
 SLOW_MS, SLOW_ITERS = 100.0, 5
 SOURCES = ("fused_layer_fwd", "egt_attention_fwd", "fused_layer_bwd_tail",
@@ -430,7 +475,7 @@ def main() -> int:
     # ---- 3a. attention kernels (K1 forward, K2 backward)
     def attention_case(b, h, l, d, dtype, gated=True, hard=False,
                        training=False, timing=True, qk_scale=2.0, grid=True,
-                       nodes=(9, 38)):
+                       nodes=(9, 38), rerun=False):
         # q and k scaled so that the clip binds on a share of pairs; with
         # `grid`, on a 1/8 grid: q.k is then exact in f32 in any summation
         # order, and K2's inclusive clip test on the recomputed raw logit
@@ -491,6 +536,12 @@ def main() -> int:
         out = att._egt_core_bwd_cuda(*bargs)
         ref = att.egt_core_bwd_plain(*bargs)
         torch.cuda.synchronize()
+        if rerun:
+            again = att._egt_core_bwd_cuda(*bargs)
+            check(torch.equal(out[1], again[1]) and
+                  torch.equal(out[2], again[2]),
+                  f"attention_bwd {shape}: dk and dv bit-identical across "
+                  "two launches")
         if not grid:
             # the pairs within 16 f32 ulps of a clip edge: their row's dq
             # and their column's dk take the plain version's values
@@ -950,6 +1001,46 @@ def main() -> int:
         traceback.print_exc()
         check(False, "phase 3f: the kernels at the TSP shapes")
 
+    # ---- 3g. the `egt_simple` shapes: K1 (inference and training) and K2
+    # at the attention shapes of the `bias` channel's configs (8 heads; each
+    # shape's graphs of its node range), gated, draws live, f32 and bf16,
+    # each timed beside its bound; the bodies their geometry queries name
+    # printed and asserted (the tensor cores at ZINC's d 10, the CUDA cores
+    # past 64 keys, K2's 164,608 B block at l 512); K2's dk and dv
+    # bit-identical across two launches at l 512; a general-valued bf16
+    # case at l 512
+    try:
+        for fam, (b, l, d, nodes) in SIMPLE_SHAPES.items():
+            geo = {dt: (att.fwd_geometry(dt, l, l, d),
+                        att.bwd_geometry(dt, l, l, d))
+                   for dt in (torch.float32, torch.bfloat16)}
+            print(f"  egt_simple {fam} (b {b}, h 8, l {l}, d {d}): "
+                  + "; ".join(f"{str(dt)[6:]} fwd_geometry {f}, bwd_geometry "
+                              f"{g}" for dt, (f, g) in geo.items()),
+                  flush=True)
+            mma = fam == "ZINC"
+            check(all(x["tensor_cores"] == mma
+                      for x in geo[torch.bfloat16]),
+                  f"egt_simple {fam}: K1 and K2 take their "
+                  f"{'tensor-core' if mma else 'CUDA-core'} bodies in bf16")
+            if l == 512:
+                check(geo[torch.bfloat16][1]["smem"] == 164_608,
+                      f"egt_simple {fam}: K2's CUDA-core block holds "
+                      f"{geo[torch.bfloat16][1]['smem']} B of shared memory "
+                      "(164,608 expected), one block a SM")
+            for dtype in (torch.float32, torch.bfloat16):
+                for training in (False, True):
+                    results[("attention_simple", fam, dtype, training)] = \
+                        attention_case(b, 8, l, d, dtype, training=training,
+                                       nodes=nodes,
+                                       rerun=training and l == 512)
+        attention_case(TSP_BATCH, 8, 512, 8, torch.bfloat16, training=True,
+                       timing=False, grid=False, nodes=TSP_BUCKETS[512])
+    except Exception:                               # noqa: BLE001 - report
+        traceback.print_exc()
+        check(False, "phase 3g: the attention kernels at the egt_simple "
+              "shapes")
+
     # ---- 4. the serving paths
     raw = json.loads(CONFIG.read_text())
     # seeded weights under the JAX flat names: loading them exercises the
@@ -1055,10 +1146,15 @@ def main() -> int:
         return max(float((np.abs(o - r) - rtol * np.abs(r))[valid(q)].max())
                    for o, r, q in zip(outs, refs, reqs))
 
-    def serve_buckets(kind, raw_k, flat_k, buckets, requests_of, valid, what):
-        """Serve path A on 2 requests (`requests_of(l)`) in each length
-        bucket: K3's launches, finite logits of the targets' shape, and
-        agreement with the plain path on the valid nodes or pairs (`what`)."""
+    def serve_buckets(kind, raw_k, flat_k, buckets, requests_of, valid, what,
+                      kernel="K3", path="path A", out_shape=None, rtol=None):
+        """Serve the config as shipped on the requests `requests_of(l)` in
+        each length bucket: `kernel`'s launches, one a layer a request (K3
+        on path A), and no other kernel's; finite logits of the targets'
+        shape (`out_shape`: a graph readout's); agreement with the plain
+        path on the valid nodes or pairs (`what`), in bf16 each within the
+        kernels' tolerance, atol + rtol |plain| (`rtol` 0: ZINC's absolute
+        one)."""
         layers, classes = raw_k["model_height"], \
             schemes.model_config_from_config(raw_k).num_targets
         plain_k = {**raw_k, "use_pallas": False, "use_pallas_layer": False}
@@ -1068,6 +1164,8 @@ def main() -> int:
                                      flat_k)
         pf32 = serving.load_predictor({**plain_k, "compute_dtype": "float32"},
                                       flat_k)
+        atol = TOL["bfloat16"][0]
+        rtol = TOL["bfloat16"][1] if rtol is None else rtol
         for l in buckets:
             reqs = requests_of(l)
             predict(reqs[0])                       # warm-up
@@ -1081,10 +1179,10 @@ def main() -> int:
                     lat.append(time.perf_counter() - t)
                 return lat, outs
 
-            tag = f"{kind} serving path A, l {l}"
-            (lat, outs), _ = counted(run, {"K3": layers * len(reqs)},
+            tag = f"{kind} serving {path}, l {l}"
+            (lat, outs), _ = counted(run, {kernel: layers * len(reqs)},
                                      f"{tag}, {len(reqs)} requests")
-            shape = reqs[0]["target"].shape + (classes,)
+            shape = out_shape or reqs[0]["target"].shape + (classes,)
             check(all(o.shape == shape and np.isfinite(o).all()
                       for o in outs), f"{tag}: outputs finite, shape {shape}")
             refs = [plain(r) for r in reqs]
@@ -1093,7 +1191,6 @@ def main() -> int:
             # element to the kernels' bf16 tolerance, atol + rtol |plain|
             # (the plain path rounds the gates, the edge bias and h_hat to
             # bf16 where the kernels keep f32); f32 as ZINC's predictions
-            atol, rtol = TOL["bfloat16"]
             diff = valid_diff(outs, refs, reqs, valid)
             excess = valid_diff(outs, refs, reqs, valid, rtol)
             big = max(float(np.abs(r).max()) for r in refs)
@@ -1222,6 +1319,42 @@ def main() -> int:
     except Exception:                               # noqa: BLE001 - report
         traceback.print_exc()
         check(False, "phase 4d: TSP serving")
+
+    # ---- 4e. `egt_simple` serving at full width and depth, in bf16, as
+    # shipped (`use_pallas` "auto": the `bias` channel takes the attention
+    # kernel, K1 one launch a layer a request, K3 none): ZINC (10 layers,
+    # width 80) 4 requests of 128 graphs, its (b, 1) predictions within
+    # ZINC's 5e-2 of the plain path; PATTERN (16 layers) 2 x 128 graphs at l
+    # 128 and 192, node logits on the valid nodes; TSP (16 layers, the
+    # pairwise-cat edge readout) 2 x 24 graphs in each bucket, the (b, l, l,
+    # 2) edge logits on the valid pairs
+    simple_raw = {k: json.loads(p.read_text())
+                  for k, p in SIMPLE_CONFIGS.items()}
+    simple_flat = {k: synthetic.random_flat_params(
+        schemes.model_config_from_config(r), seed=6)
+        for k, r in simple_raw.items()}
+    simple = dict(kernel="K1", path="(bias channel, attention kernel)")
+    for kind, buckets, requests_of, valid, what, extra in (
+            ("zinc", {PAD: None},
+             lambda l: [synthetic.zinc_batch(np.random.default_rng(90),
+                                             GRAPHS, PAD)
+                        for _ in range(N_REQUESTS)],
+             lambda q: np.ones((len(q["target"]), 1), bool), "graphs",
+             dict(out_shape=(GRAPHS, 1), rtol=0.0)),
+            ("pattern", SBM_BUCKETS,
+             lambda l: sbm_requests("pattern", l, 2, seed=91 + l),
+             valid_nodes, "nodes", {}),
+            ("tsp", TSP_BUCKETS,
+             lambda l: tsp_batches(l, 2, TSP_BATCH * schemes.resolve_config(
+                 simple_raw["tsp"]).prediction_bmult, seed=92 + l),
+             valid_pairs, "pairs", {})):
+        try:
+            serve_buckets(f"{kind} egt_simple", simple_raw[kind],
+                          simple_flat[kind], buckets, requests_of, valid,
+                          what, **simple, **extra)
+        except Exception:                           # noqa: BLE001 - report
+            traceback.print_exc()
+            check(False, f"phase 4e: {kind} egt_simple serving")
 
     # ---- 5. the training paths
     trng = np.random.default_rng(1)
@@ -1372,16 +1505,17 @@ def main() -> int:
     # falling loss over 20 steps on one batch of 128 at l 192
     sbm_launches = {}
 
-    def train_buckets(kind, raw_k, flat_k, batches):
+    def train_buckets(kind, raw_k, flat_k, batches,
+                      kernels=("K3", "K4", "K5"), path="path A"):
         """One trainer (bf16, as shipped) over the length buckets of
-        `batches` ({l: [warm-up batch, timed batches...]}): K3 / K4 / K5
-        once each a layer a step, finite losses, the step times; returns
-        the launches a bucket."""
+        `batches` ({l: [warm-up batch, timed batches...]}): each of
+        `kernels` once a layer a step (path A: K3 / K4 / K5) and no other,
+        finite losses, the step times; returns the launches a bucket."""
         layers = raw_k["model_height"]
         tr = load_trainer(raw_k, flat_k)
         out = {}
         for l, bs in batches.items():
-            tag = f"{kind} training path A, l {l}"
+            tag = f"{kind} training {path}, l {l}"
             tr.train_step(bs[0])                   # warm-up at this shape
             torch.cuda.synchronize()
 
@@ -1395,8 +1529,7 @@ def main() -> int:
 
             n = len(bs) - 1
             (times, losses), out[l] = counted(
-                run, {k: layers * n for k in ("K3", "K4", "K5")},
-                f"{tag}, {n} steps")
+                run, {k: layers * n for k in kernels}, f"{tag}, {n} steps")
             check(bool(np.all(np.isfinite(losses))),
                   f"{tag}: losses finite {[round(x, 5) for x in losses]}")
             med = statistics.median(times)
@@ -1407,11 +1540,11 @@ def main() -> int:
                   flush=True)
         return out
 
-    def loss_falls(kind, raw_k, flat_k, batch):
+    def loss_falls(kind, raw_k, flat_k, batch, path="path A"):
         fall = load_trainer(raw_k, flat_k)
         fl_losses = [fall.train_step(batch)["loss"] for _ in range(N_FALL)]
         first, last = np.mean(fl_losses[:5]), np.mean(fl_losses[-5:])
-        check(last < first, f"{kind} training path A, l "
+        check(last < first, f"{kind} training {path}, l "
               f"{batch['graph_matrix'].shape[1]}: {N_FALL} steps on one "
               f"batch, mean loss of the first 5 {first:.5f} -> last 5 "
               f"{last:.5f}")
@@ -1590,6 +1723,81 @@ def main() -> int:
         except Exception:                           # noqa: BLE001 - report
             traceback.print_exc()
             check(False, f"phase 5d: TSP {what}")
+
+    # ---- 5e. `egt_simple` training as shipped (bf16, random mask 0.1
+    # live): ZINC 1 + 4 steps of 128 graphs at pad 40, PATTERN 1 + 4 at l
+    # 192 and 1 + 2 at l 128, TSP 1 + 4 at l 512 and 1 + 2 at l 256 and
+    # 128, MNIST and CIFAR10 1 + 2 at their pads; K1 and K2 once each a
+    # layer a step, K3-K9 never; the 3 losses and every step-1 gradient
+    # agree with the plain path's (f32 and bf16) at ZINC (128 graphs),
+    # PATTERN l 192 (SBM_AGREE graphs), TSP l 512 (TSP_AGREE) and CIFAR10 l
+    # 150 (128), the edge embeddings' gradients (each the sum of every
+    # layer's de and dg: the raw e feeds every layer) non-zero on both
+    # paths; 20 steps on one ZINC batch lower the loss
+    simple_launches = {}
+
+    def embeddings_reached(tag, grads):
+        """The edge embeddings' step-1 gradients (`grads`: plain, kernel)
+        are non-zero on both paths; their distance normalised as the
+        agreement normalises it."""
+        plain, kern = grads
+        top = max(float(g.abs().max()) for g in plain.values()
+                  if g is not None)
+        for n in ("fm_emb.table", "fm_emb.kernel", "adj_emb.kernel"):
+            if n not in plain:
+                continue
+            nz = all(g[n] is not None and bool(g[n].any()) for g in grads)
+            err = float((kern[n] - plain[n]).abs().max()) / max(
+                float(plain[n].abs().max()), 1e-2 * top) if nz else math.nan
+            check(nz, f"{tag}: {n}'s gradient non-zero on both paths, "
+                  f"normalised |kernel - plain| {err:.3g}")
+
+    def train_simple(kind, batches, agree_l, agree_n):
+        raw_k, flat_k = simple_raw[kind], simple_flat[kind]
+        simple_launches[kind] = train_buckets(
+            f"{kind} egt_simple", raw_k, flat_k, batches,
+            kernels=("K1", "K2"), path=simple["path"])
+        if agree_l is None:
+            return
+        agree = [{k: v[:agree_n] for k, v in bt.items()}
+                 for bt in batches[agree_l][:3]]
+        tag = (f"{kind} egt_simple training {simple['path']}, l {agree_l}, "
+               f"{agree_n} graphs")
+        for dtype in ("float32", "bfloat16"):
+            torch.cuda.reset_peak_memory_stats()
+            grads = agreement(tag, {}, dtype, kind=f"{kind}-simple",
+                              base=raw_k, weights=flat_k, batches=agree)
+            embeddings_reached(f"{tag} {dtype}", grads)
+            print(f"  {tag} {dtype}: peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB",
+                  flush=True)
+
+    srng = np.random.default_rng(95)
+    for kind, make, agree_l, agree_n in (
+            ("zinc", lambda: {PAD: [synthetic.zinc_batch(srng, GRAPHS, PAD)
+                                    for _ in range(N_STEPS + 1)]},
+             PAD, GRAPHS),
+            ("pattern", lambda: {l: sbm_requests("pattern", l, 1 + n,
+                                                 seed=96 + l)
+                                 for l, n in N_SBM_STEPS.items()},
+             192, SBM_AGREE),
+            ("tsp", lambda: {l: tsp_batches(l, 1 + n, TSP_BATCH, seed=97 + l)
+                             for l, n in N_TSP_STEPS.items()},
+             512, TSP_AGREE),
+            ("cifar10", lambda: {150: sp_requests("cifar10", 3, seed=98)},
+             150, GRAPHS),
+            ("mnist", lambda: {75: sp_requests("mnist", 3, seed=99)},
+             None, None)):
+        try:
+            batches = make()
+            train_simple(kind, batches, agree_l, agree_n)
+            if kind == "zinc":
+                loss_falls("zinc egt_simple", simple_raw[kind],
+                           simple_flat[kind], batches[PAD][0],
+                           path=simple["path"])
+        except Exception:                           # noqa: BLE001 - report
+            traceback.print_exc()
+            check(False, f"phase 5e: {kind} egt_simple training")
 
     # ---- 6. the engine: the CLI triple on synthetic ZINC at the ZINC-12k
     # split sizes, the flagship config as shipped (path A: K3; K4, K5)
@@ -1973,6 +2181,90 @@ def main() -> int:
         traceback.print_exc()
         check(False, "phase 6d: engine on TSP")
 
+    # ---- 6e. the engine on ZINC-full: the CLI triple of the `egt_simple`
+    # config (the `bias` channel: K1 forward, K2 backward) over synthetic
+    # ZINC-full graphs, cut from the published 220,011 / 24,445 / 5,000 to
+    # 10,000 / 1,000 / 1,000 and from 200 epochs to 1, resumed to 2,
+    # evaluated and finalized
+    def engine_zinc_full(tmp: Path):
+        path_k = SIMPLE_DIR / "zinc_full" / "500k" / "egt_simple.json"
+        raw_k = json.loads(path_k.read_text())
+        sizes = {"training": 10_000, "validation": 1_000, "test": 1_000}
+        erng = np.random.default_rng(9)
+        cache = tmp / "cache"
+        ds = GraphDataset(D.ZINC_FULL, str(tmp / "ZINC_full.h5"), str(cache),
+                          splits=list(sizes))
+        t = time.perf_counter()
+        for split, n in sizes.items():
+            ds.write_cache(split, synthetic.zinc_records(erng, n))
+        print(f"  engine (ZINC-full): wrote the cache of "
+              f"{sum(sizes.values())} synthetic ZINC-full graphs in "
+              f"{time.perf_counter() - t:.1f} s", flush=True)
+        bs = raw_k["batch_size"]
+        steps = math.ceil(sizes["training"] / bs)
+        val = math.ceil(sizes["validation"] / bs)
+        evals = sum(math.ceil(n / (2 * bs)) for n in sizes.values())
+        cfg = {**raw_k, "dataset_path": str(tmp / "ZINC_full.h5"),
+               "cache_dir": str(cache), "save_path": str(tmp / "run"),
+               "num_epochs": 1, "log_tensorboard": False}
+        path = tmp / "config.json"
+        layers = raw_k["model_height"]
+
+        def cli(main, **over):
+            path.write_text(json.dumps({**cfg, **over}))
+            return main([str(path)])
+
+        epoch = dict(K1=layers * (steps + val), K2=layers * steps)
+        s1, _ = counted(lambda: cli(run_training.main), epoch,
+                        f"engine (ZINC-full) run_training, 1 epoch of "
+                        f"{steps} steps and {val} validation batches")
+        s2, _ = counted(lambda: cli(run_training.main, num_epochs=2), epoch,
+                        "engine (ZINC-full) run_training, resumed to epoch 2")
+        check(s1.DATASET_SPEC.name == "ZINC_full" and s1.pad_len == PAD,
+              f"engine (ZINC-full): dataset {s1.DATASET_SPEC.name}, pad "
+              f"{s1.pad_len}")
+        check(s2.state["current_epoch"] == 2 and
+              s2.state["global_step"] == 2 * steps,
+              f"engine (ZINC-full): resumed to epoch 2 ({s2.state})")
+        counted(lambda: cli(do_evaluations.main, num_epochs=2,
+                            weight_file=""), dict(K1=layers * evals),
+                f"engine (ZINC-full) do_evaluations, {evals} batches")
+        counted(lambda: cli(end_training.main, num_epochs=2), {},
+                "engine (ZINC-full) end_training")
+        run_dir = tmp / "run"
+        for rel in (f"saved/{raw_k['model_name']}.npz", "logs/metrics.jsonl",
+                    "checkpoint/ckpt_2.pt"):
+            check((run_dir / rel).is_file(),
+                  f"engine (ZINC-full): run dir holds {rel}")
+        recs = [json.loads(x) for x in
+                (run_dir / "logs" / "metrics.jsonl").read_text().splitlines()]
+        keys = ("loss", "mae", "val_loss", "val_mae")
+        check(len(recs) == 2 and all(np.isfinite(r[k]) for r in recs
+                                     for k in keys),
+              "engine (ZINC-full): " + "; ".join(
+                  f"epoch {r['epoch']} " + ", ".join(
+                      f"{k} {r[k]:.5f}" for k in keys) for r in recs))
+        for split in ("trainset", "valset", "testset"):
+            text = (run_dir / "predictions" / f"{split}_evals.txt").read_text()
+            check(" MAE = " in text, f"engine (ZINC-full): {split}_evals.txt: "
+                  f"{text.strip()}")
+        for st in s1.epoch_stats + s2.epoch_stats:
+            print(f"  engine (ZINC-full) epoch {st['epoch']}: "
+                  f"{st['seconds']:.3f} s ({st['train_seconds']:.3f} s "
+                  f"training, {st['steps']} steps, "
+                  f"{1e3 * st['train_seconds'] / st['steps']:.2f} ms a step),"
+                  f" {st['graphs_per_s']:.1f} graphs/s, "
+                  f"{st['wait_share']:.4f} of the training time waiting for "
+                  f"the next batch (Prefetcher.waited) [{smi}]", flush=True)
+
+    try:
+        with tempfile.TemporaryDirectory(prefix="engine-zinc-full-",
+                                         dir=REPO / "build") as tmp:
+            engine_zinc_full(Path(tmp))
+    except Exception:                               # noqa: BLE001 - report
+        traceback.print_exc()
+        check(False, "phase 6e: engine on ZINC-full")
+
     # ---- 7. kernels line: the training-mode cases at the flagship shape,
     # bf16, each kernel's launches on its training path
     rows = []
@@ -2061,6 +2353,23 @@ def main() -> int:
             if r is None or n is None:
                 continue
             rows.append({"name": f"{Path(source).stem} (TSP, l {l})",
+                         "route": "cuda", "source": source,
+                         "replaces": replaces, "launches": n, **r,
+                         "library_ms": None})
+    # K1 and K2 at the `egt_simple` shapes: the bf16 training-mode cases of
+    # phase 3g, with the launches of phase 5e's timed steps at that shape
+    for fam, (kind, l) in SIMPLE_RUNS.items():
+        for key, part, source, replaces in (
+                ("K1", "fwd", "egt_torch/csrc/egt_attention_fwd.cu",
+                 "egt_tpu/ops/egt_pallas.py:116"),
+                ("K2", "bwd", "egt_torch/csrc/egt_attention_bwd.cu",
+                 "egt_tpu/ops/egt_pallas.py:184")):
+            r = results.get(("attention_simple", fam, torch.bfloat16, True),
+                            {}).get(part)
+            n = simple_launches.get(kind, {}).get(l, {}).get(key)
+            if r is None or n is None:
+                continue
+            rows.append({"name": f"{Path(source).stem} (egt_simple {fam})",
                          "route": "cuda", "source": source,
                          "replaces": replaces, "launches": n, **r,
                          "library_ms": None})

@@ -4,8 +4,8 @@ Port of the parts of `egt_tpu/models/features.py` the ported schemes run:
 Keras-style initialisers (drawn from an explicit `torch.Generator`), `dense`,
 the -1-masked token embedding, the masked dense embedding (MNIST / CIFAR10
 superpixel features), the clipped hop stack, the distance objective's
-targets, and the SVD and eigenvector positional encodings with their
-training-time sign flips.
+targets, the pairwise concatenation of the TSP edge readout, and the SVD
+and eigenvector positional encodings with their training-time sign flips.
 
 The flips are drawn from the port's Philox (`ops/rng.py`, draw index
 `PE_FLIP`) on the input tensor's device from an explicit seed: one uniform a
@@ -108,6 +108,16 @@ def distance_targets(adj, distance_target: int):
         hop = torch.clamp(torch.matmul(adj, hop), 0.0, 1.0)
         total = total + hop
     return torch.round(total).long()
+
+
+def pairwise_cat(row, col):
+    """PairwiseOp 'cat': (b, l, w), (b, m, w') -> (b, l, m, w + w'), the row
+    node's features then the column node's on every pair."""
+    b, l, w = row.shape
+    m = col.shape[1]
+    return torch.cat([row[:, :, None, :].expand(b, l, m, w),
+                      col[:, None, :, :].expand(b, l, m, col.shape[-1])],
+                     dim=-1)
 
 
 # --------------------------------------------------------------- positional encodings

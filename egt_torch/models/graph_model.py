@@ -5,12 +5,16 @@ TSP paths: token or dense (Keras-masked) node embeddings, the SVD or
 eigenvector positional encoding added to them (with its training-time sign
 flips), the edge channel from token or dense edge embeddings plus the
 adjacency-hop embedding (or, with `edge_input_kind="none"`, from the hop
-embedding alone), the layer stack (with the training draws and dropout when
-`training`), the final norms, the distance objective's head on the
-final-normed edge channel, and the masked mean-pool graph readout, the
-per-node readout or the per-pair edge readout on the final-normed edge
-channel. `GraphModelConfig` is redeclared with the JAX fields,
-defaults and checks (the JAX module imports jax). Parameters carry the JAX
+embedding alone; built only when something reads it), the layer stack of
+any of the four edge channels (with the training draws and dropout when
+`training`), the final norms, the distance objective's head on the edge
+channel, and the masked mean-pool graph readout, the per-node readout or
+the per-pair edge readout (on the edge channel, or in its pairwise-cat
+form on the two nodes' features and the edge channel). The residual and
+constrained channels hand the head and the edge readout the final-normed
+e, the `bias` and `none` channels the raw e. `GraphModelConfig` is
+redeclared with the JAX fields, defaults and checks (the JAX module
+imports jax). Parameters carry the JAX
 params-tree names, so a state-dict key such as
 `stack.layers.0.dense_qkv.kernel` is the flat npz key
 `stack/layers/0/dense_qkv/kernel` (see `egt_torch.weights`).
@@ -123,6 +127,14 @@ class GraphModelConfig:
             raise ValueError("scaler_type must be log or linear")
 
     @property
+    def needs_edge_embedding(self) -> bool:
+        """The edge embedding is built when something reads it: an edge
+        stream (every channel but `none`), the distance head or the edge
+        readout; with `none` the stack passes it through unchanged."""
+        return (self.edge_channel_type != "none" or self.distance_loss > 0
+                or self.readout_kind == "edge" or self.readout_edges)
+
+    @property
     def edge_residual(self) -> bool:
         return self.edge_channel_type in ("residual", "constrained")
 
@@ -130,8 +142,6 @@ class GraphModelConfig:
 def unsupported(cfg: GraphModelConfig) -> list[str]:
     """The model variants this slice of the port does not run yet."""
     out = []
-    if not cfg.edge_residual:
-        out.append(f"edge_channel_type {cfg.edge_channel_type!r}")
     if cfg.node2edge_xtalk > 0 or cfg.edge2node_xtalk > 0:
         out.append("FFN cross-talk")
     if cfg.node_normalization != "layer" or cfg.edge_normalization != "layer":
@@ -144,13 +154,11 @@ def unsupported(cfg: GraphModelConfig) -> list[str]:
                    f"{cfg.edge_input_kind!r}")
     if cfg.node_vocab_sizes is not None or cfg.edge_vocab_sizes is not None:
         out.append("multi-column tokens")
-    if cfg.edge_input_kind == "none" and not (cfg.use_adj
-                                              and cfg.upto_hop >= 1):
+    if cfg.needs_edge_embedding and cfg.edge_input_kind == "none" \
+            and not (cfg.use_adj and cfg.upto_hop >= 1):
         out.append("an edge channel with neither edge inputs nor hops")
     if cfg.readout_kind not in ("graph", "node", "edge") or cfg.readout_edges:
         out.append(f"readout {cfg.readout_kind!r} (edges={cfg.readout_edges})")
-    if cfg.use_node_embeddings:
-        out.append("the pairwise-cat edge readout (use_node_embeddings)")
     if cfg.readout_kind == "edge" and cfg.distance_loss > 0:
         # JAX's edge readout would read the distance head's logits
         out.append("the distance head with the edge readout")
@@ -217,18 +225,21 @@ class EGTGraphModel(nn.Module):
                                           generator)
         if cfg.use_eig and cfg.transform_eig:
             self.eig_emb = F.dense_params(cfg.sel_eig_features, w, generator)
-        if cfg.edge_input_kind == "tokens":
-            self.fm_emb = F.embedding_params(cfg.num_edge_features + 1, ew,
+        if cfg.needs_edge_embedding:
+            if cfg.edge_input_kind == "tokens":
+                self.fm_emb = F.embedding_params(cfg.num_edge_features + 1,
+                                                 ew, generator)
+            elif cfg.edge_input_kind == "dense":
+                self.fm_emb = F.dense_params(cfg.edge_feature_dim, ew,
                                              generator)
-        elif cfg.edge_input_kind == "dense":
-            self.fm_emb = F.dense_params(cfg.edge_feature_dim, ew, generator)
-        if cfg.use_adj and cfg.upto_hop >= 1:
-            self.adj_emb = F.dense_params(cfg.upto_hop, ew, generator)
+            if cfg.use_adj and cfg.upto_hop >= 1:
+                self.adj_emb = F.dense_params(cfg.upto_hop, ew, generator)
         stack = {"layers": nn.ModuleList(
             [L.EGTLayer(cfg, generator) for _ in range(cfg.model_height)])}
         if (not cfg.add_n_norm) and cfg.do_final_norm:
             stack["node_norm_final"] = L.norm_params(w)
-            stack["edge_norm_final"] = L.norm_params(ew)
+            if cfg.edge_residual:
+                stack["edge_norm_final"] = L.norm_params(ew)
         self.stack = nn.ModuleDict(stack)
         if cfg.distance_loss > 0:
             mlp, din = self._mlp_params(ew, generator)
@@ -236,12 +247,21 @@ class EGTGraphModel(nn.Module):
                 "mlp": nn.ModuleDict({"dense": mlp}),
                 "distance_target": F.dense_params(
                     din, cfg.distance_target + 1, generator)})
-        # the edge readout reads the edge channel (`_readout_in_dim` in JAX)
-        mlp, din = self._mlp_params(ew if cfg.readout_kind == "edge" else w,
-                                    generator)
+        mlp, din = self._mlp_params(self._readout_in_dim(), generator)
         self.mlp_out = nn.ModuleDict({"dense": mlp})
         self.target = F.dense_params(din, cfg.num_targets, generator)
         self.to(dev)
+
+    def _readout_in_dim(self) -> int:
+        """The readout MLP's input width (`_readout_in_dim` in JAX): the
+        edge readout reads the edge channel, in its pairwise-cat form the
+        two nodes' features before it."""
+        cfg = self.cfg
+        if cfg.readout_kind != "edge":
+            return cfg.model_width
+        if cfg.use_node_embeddings:
+            return 2 * cfg.model_width + cfg.edge_width
+        return cfg.edge_width
 
     def _mlp_params(self, din: int, generator):
         """The Dense layers of `mlp_layers` (widths f x model_width) from
@@ -267,7 +287,8 @@ class EGTGraphModel(nn.Module):
         """The batch keys the forward reads."""
         cfg = self.cfg
         keys = ["node_features"]
-        if cfg.edge_input_kind in ("tokens", "dense"):
+        if cfg.needs_edge_embedding and cfg.edge_input_kind in ("tokens",
+                                                                "dense"):
             keys.append("feature_matrix")
         keys.append("graph_matrix")
         if cfg.use_svd:
@@ -373,22 +394,26 @@ class EGTGraphModel(nn.Module):
         adj = torch.as_tensor(batch["graph_matrix"], device=dev).float()
         node_mask = self.node_valid(batch)
         h = self.embed_nodes(batch, training, pe_seed)
-        e = self._embed_edges(batch, adj)
+        e = self._embed_edges(batch, adj) if cfg.needs_edge_embedding \
+            else None
         edge_mask = adj if cfg.edge_channel_type == "constrained" else None
 
         dtype = self.compute_dtype
         h = h.to(dtype)
-        e = e.to(dtype)
+        if e is not None:
+            e = e.to(dtype)
         for i, layer in enumerate(self.stack["layers"]):
             h, e = layer(h, e, node_mask, edge_mask, training,
                          None if seeds is None else seeds[i])
         # the graph and node readouts read no edges: the final edge norm
-        # runs for the edge readout, and for the distance head when the
-        # caller takes the side outputs
+        # of the residual / constrained channels runs for the edge readout,
+        # and for the distance head when the caller takes the side outputs;
+        # the `bias` and `none` channels hand them the raw e
         distance = with_context and cfg.distance_loss > 0
         if (not cfg.add_n_norm) and cfg.do_final_norm:
             h = L.layer_norm(self.stack["node_norm_final"], h)
-            if distance or cfg.readout_kind == "edge":
+            if cfg.edge_residual and (distance or
+                                      cfg.readout_kind == "edge"):
                 e = L.layer_norm(self.stack["edge_norm_final"], e)
         ctx = ModelContext()
         if distance:
@@ -400,7 +425,7 @@ class EGTGraphModel(nn.Module):
 
     def _distance_loss(self, e, adj):
         """The distance objective in f32: the head's (b, l, l,
-        distance_target + 1) logits on the final-normed edge channel, the
+        distance_target + 1) logits on the edge channel, the
         cross-entropy to the k-hop reachability count on the pairs it is
         positive, summed a graph and averaged over the batch. (A count past
         the last class, which the data never gives, is clamped to it.)"""
@@ -424,11 +449,16 @@ class EGTGraphModel(nn.Module):
 
     def _readout(self, h, e, node_mask):
         """Graph: masked mean-pool over valid nodes -> MLP -> target. Node:
-        the MLP on every node; edge: on every pair of the final-normed edge
-        channel (padding included; the loss masks it). In f32."""
+        the MLP on every node; edge: on every pair of the edge channel
+        (final-normed for the residual / constrained channels; padding
+        included, the loss masks it), with `use_node_embeddings` preceded
+        by the pair's two node features (pairwise cat). In f32."""
         if self.cfg.readout_kind == "node":
             return self._mlp_out(h)
         if self.cfg.readout_kind == "edge":
+            if self.cfg.use_node_embeddings:
+                hf = h.float()
+                e = torch.cat([F.pairwise_cat(hf, hf), e.float()], dim=-1)
             return self._mlp_out(e)
         m = node_mask.float()[..., None]
         s = torch.sum(h.float() * m, dim=1)

@@ -1,18 +1,21 @@
 """The dual-stream (node + edge channel) EGT layer.
 
-Port of `egt_tpu/models/layers.py` for the residual / constrained edge
-channels with LayerNorm and no cross-talk: `layer_norm` (eps 1e-3, f32
-island), `activation`, `dropout`, `_attention`, `_mha_block`, `edge_update`,
+Port of `egt_tpu/models/layers.py` for the four edge channels with
+LayerNorm and no cross-talk: `layer_norm` (eps 1e-3, f32 island),
+`activation`, `dropout`, `_attention`, `_mha_block`, `edge_update`,
 `ffn_block`, `can_fuse_edge_block` and `layer_forward` with its whole-layer
-and edge-block branches. A layer is an
-`nn.ModuleDict` whose keys are the JAX parameter names, so the functions below
-read it as they read the JAX params tree.
+and edge-block branches. The residual and constrained channels update e
+(pre-LN, edge bias and gates, dense_edge_r, residual, edge FFN); the
+`bias` channel feeds the raw e to the edge bias and the gates and passes
+it through unchanged; the `none` channel has no edge bias and no gates. A
+layer is an `nn.ModuleDict` whose keys are the JAX parameter names, so the
+functions below read it as they read the JAX params tree.
 
-Dispatch per layer: the whole-layer kernel when `can_fuse_layer` holds; else
-the attention kernel when `cfg.fused_attention` is on, or the plain
-`egt_attention_core`, followed by the edge-block kernel for the edge tail
-when `can_fuse_edge_block` holds. Each kernel wrapper takes its plain
-version on CPU tensors.
+Dispatch per layer: the whole-layer kernel when `can_fuse_layer` holds
+(residual / constrained only); else the attention kernel when
+`cfg.fused_attention` is on, or the plain `egt_attention_core`, followed by
+the edge-block kernel for the edge tail when `can_fuse_edge_block` holds.
+Each kernel wrapper takes its plain version on CPU tensors.
 
 Training: one seed per layer and step (`seed`). It keys the attention
 draws (the random mask and attention dropout, `ops/rng.py`) directly, and
@@ -103,6 +106,14 @@ def _attention(p, cfg, h_n, e_bias_raw, gates_raw, node_mask, edge_mask,
     )
     qkv = dense(p["dense_qkv"], h_n)
     if cfg.fused_attention:
+        if e_bias_raw is None:
+            # JAX's kernel path fails here too: `egt_attention_fused` casts
+            # its edge bias (`egt_tpu/ops/egt_pallas.py:538`)
+            raise ValueError(
+                "the attention kernel needs an edge bias, and the 'none' "
+                "edge channel has none (as in JAX, egt_tpu/ops/egt_pallas.py"
+                ":538); set use_pallas: false to run it on the plain "
+                "attention core")
         b, l, f = qkv.shape
         d = f // (3 * cfg.num_heads)
         qkv_hm = qkv.reshape(b, l, 3, d, cfg.num_heads)
@@ -142,19 +153,24 @@ def _edge_bias(p, cfg, e):
 
 def edge_update(p, cfg, h, e, node_mask, edge_mask, training=False,
                 seed=None, defer_edge_tail: bool = False):
-    """The attention sub-layer of the residual / constrained edge channels.
-    Returns (h, e); with `defer_edge_tail`, the edge tail is left to the
-    edge-block kernel and `e` comes back as the pair (h_hat, e_residual)."""
-    if cfg.edge_channel_type not in ("residual", "constrained"):
-        raise NotImplementedError(f"edge_channel_type "
-                                  f"{cfg.edge_channel_type!r} is not ported yet")
+    """The attention sub-layer of each edge channel. Returns (h, e); with
+    `defer_edge_tail` (residual / constrained), the edge tail is left to the
+    edge-block kernel and `e` comes back as the pair (h_hat, e_residual).
+    `none` and `bias` pass e through unchanged: `none` attends with no edge
+    bias and no gates, `bias` takes both from the raw e."""
+    if cfg.edge_channel_type == "none":
+        h, _ = _mha_block(p, cfg, h, None, None, node_mask, edge_mask,
+                          training, seed)
+        return h, e
     y_e = e
-    if not cfg.add_n_norm:
+    if cfg.edge_residual and not cfg.add_n_norm:
         e = layer_norm(p["norm_edge"], e)
     gates = dense(p["attention_gates"], e) if cfg.gate_attention else None
     eb = _edge_bias(p, cfg, e)
     h, h_hat = _mha_block(p, cfg, h, eb, gates, node_mask, edge_mask,
                           training, seed)
+    if not cfg.edge_residual:
+        return h, y_e
     if defer_edge_tail:
         return h, (h_hat, y_e)
     e = dropout(dense(p["dense_edge_r"], h_hat), cfg.edge_dropout, training,
@@ -212,16 +228,19 @@ class EGTLayer(nn.ModuleDict):
                 "norm": norm_params(w, device),
                 "lr1": dense_params(w, hn, generator, device),
                 "lr2": dense_params(hn, w, generator, device)}),
-            "dense_edge_b": dense_params(ew, h, generator, device),
         }
-        if cfg.gate_attention:
-            mods["attention_gates"] = dense_params(ew, h, generator, device)
-        mods["norm_edge"] = norm_params(ew, device)
-        mods["dense_edge_r"] = dense_params(h, ew, generator, device)
-        mods["edge_ffn"] = nn.ModuleDict({
-            "norm": norm_params(ew, device),
-            "lr1": dense_params(ew, he, generator, device),
-            "lr2": dense_params(he, ew, generator, device)})
+        if cfg.edge_channel_type != "none":
+            mods["dense_edge_b"] = dense_params(ew, h, generator, device)
+            if cfg.gate_attention:
+                mods["attention_gates"] = dense_params(ew, h, generator,
+                                                       device)
+        if cfg.edge_residual:
+            mods["norm_edge"] = norm_params(ew, device)
+            mods["dense_edge_r"] = dense_params(h, ew, generator, device)
+            mods["edge_ffn"] = nn.ModuleDict({
+                "norm": norm_params(ew, device),
+                "lr1": dense_params(ew, he, generator, device),
+                "lr2": dense_params(he, ew, generator, device)})
         super().__init__(mods)
         self.cfg = cfg
 

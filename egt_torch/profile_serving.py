@@ -2,7 +2,7 @@
 
     python -m egt_torch.profile_serving [--path A|B|C] [--requests N]
         [--scheme zinc|pattern|cluster|mnist|cifar10|tsp] [--pad L]
-        [--graphs N]
+        [--config PATH] [--graphs N]
 
 Serves the 500k config of a scheme (the flagship ZINC by default; for
 MNIST and CIFAR10 the 100k `egt_spe_do` config: the SVD PE and the
@@ -11,7 +11,10 @@ distance head) with seeded weights on synthetic requests (see
 ZINC padded to 40, PATTERN / CLUSTER graphs of one length bucket, `--pad`
 192 by default, 128 the other, MNIST / CIFAR10 superpixel graphs with
 their SVD PE at their pads, 75 and 150, TSP graphs of one length bucket,
-`--pad` 512 by default, 128 or 256 the others) under `torch.profiler` and
+`--pad` 512 by default, 128 or 256 the others; `--config` serves another
+config on the scheme's requests, for example `--scheme tsp --config
+configs/ablation/egt_simple/tsp/500k/egt_simple.json`) under
+`torch.profiler` and
 prints the wall time per request, the device-busy time per request and
 the device's idle share, then the operators ranked by device time. Path A
 is the config as shipped (whole-layer kernel); path B sets use_pallas true
@@ -56,13 +59,15 @@ def device_kernels(prof) -> dict[str, tuple[float, int]]:
     return out
 
 
-def workload(scheme: str, path: str, pad: int | None):
+def workload(scheme: str, path: str, pad: int | None,
+             config: str | None = None):
     """(run config, fn(rng, n, graphs) -> batches) of a scheme's config
-    (`CONFIGS`) on a path: ZINC padded to `pad` (40), PATTERN / CLUSTER
-    (TSP) graphs of the length bucket `pad` (192; TSP 512), more nodes than
-    the next smaller bucket, or MNIST / CIFAR10 superpixel graphs at their
-    pad."""
-    raw = {**json.loads(CONFIGS[scheme].read_text()), **PATHS[path]}
+    (`CONFIGS`, or the file `config`) on a path: ZINC padded to `pad` (40),
+    PATTERN / CLUSTER (TSP) graphs of the length bucket `pad` (192; TSP
+    512), more nodes than the next smaller bucket, or MNIST / CIFAR10
+    superpixel graphs at their pad."""
+    path_k = Path(config) if config else CONFIGS[scheme]
+    raw = {**json.loads(path_k.read_text()), **PATHS[path]}
     if scheme in synthetic.SUPERPIXEL:
         return raw, lambda rng, n, graphs: [
             synthetic.superpixel_batch(rng, graphs, scheme)
@@ -88,6 +93,9 @@ def add_workload_args(ap) -> None:
                     help="pad length (zinc 40; pattern, cluster: the length "
                          "bucket, 192 or 128; tsp: 512, 256 or 128; mnist, "
                          "cifar10: theirs)")
+    ap.add_argument("--config", default=None,
+                    help="run config to use in place of the scheme's (the "
+                         "scheme still makes the batches)")
 
 
 def main(argv=None) -> int:
@@ -100,7 +108,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving needs a CUDA device")
 
-    raw, make = workload(args.scheme, args.path, args.pad)
+    raw, make = workload(args.scheme, args.path, args.pad, args.config)
     if args.graphs is None:
         # TSP's prediction batch (batch size 8 x prediction_bmult 3)
         c = schemes.resolve_config(raw)
@@ -122,7 +130,7 @@ def main(argv=None) -> int:
         wall = (time.perf_counter() - t0) / args.requests
     kernels = device_kernels(prof)
     busy = sum(us for us, _ in kernels.values()) / 1e6 / args.requests
-    print(f"{args.scheme} path {args.path}, pad "
+    print(f"{args.config or args.scheme} path {args.path}, pad "
           f"{reqs[0]['graph_matrix'].shape[1]}: {args.requests} requests x "
           f"{args.graphs} graphs, wall {wall * 1e3:.3f} ms/request, device busy "
           f"{busy * 1e3:.3f} ms/request, device idle share "

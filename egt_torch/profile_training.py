@@ -2,6 +2,7 @@
 
     python -m egt_torch.profile_training [--path A|B|C]
         [--scheme zinc|pattern|cluster|mnist|cifar10|tsp] [--pad L]
+        [--config PATH]
 
 Trains the config of a scheme (the flagship ZINC 500k by default; the SBM
 and TSP 500k, the superpixel 100k `egt_spe_do`; seeded weights, STEPS
@@ -9,7 +10,9 @@ synthetic batches of the config's batch size, 128 graphs, TSP's 8: ZINC
 padded to 40, PATTERN / CLUSTER graphs of one length bucket, `--pad` 192
 by default, MNIST / CIFAR10 at 75 / 150, TSP graphs of one length
 bucket, `--pad` 512 by default; see `egt_torch.synthetic` and
-`profile_serving.workload`) and prints the wall time per step (without
+`profile_serving.workload`; `--config` trains another config on the
+scheme's batches, for example `--scheme zinc --config
+configs/ablation/egt_simple/zinc/500k/egt_simple.json`) and prints the wall time per step (without
 the profiler, which slows the host), the device-busy time per step under
 `torch.profiler` and the device's idle share (1 - busy / wall), then the
 operators ranked by device time. Path A is the config as shipped
@@ -43,7 +46,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_training needs a CUDA device")
 
-    raw, make = workload(args.scheme, args.path, args.pad)
+    raw, make = workload(args.scheme, args.path, args.pad, args.config)
     flat = synthetic.random_flat_params(schemes.model_config_from_config(raw))
     trainer = load_trainer(raw, flat)
     graphs = schemes.resolve_config(raw).batch_size
@@ -65,7 +68,7 @@ def main(argv=None) -> int:
         wall_prof = run()
     kernels = device_kernels(prof)
     busy = sum(us for us, _ in kernels.values()) / 1e6 / STEPS
-    print(f"{args.scheme} path {args.path}, pad "
+    print(f"{args.config or args.scheme} path {args.path}, pad "
           f"{batches[0]['graph_matrix'].shape[1]} (whole-layer backward "
           f"{fused_layer.BWD_IMPL}): {STEPS} steps x {graphs} graphs, "
           f"wall {wall * 1e3:.3f} ms/step ({wall_prof * 1e3:.3f} under the "

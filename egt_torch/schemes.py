@@ -4,9 +4,9 @@
 Port of the serving side of the JAX package's config chain: the trainer
 defaults (`egt_tpu/training/trainer.py::TrainingBase.get_default_config`),
 the scheme defaults and `model_config_kwargs` of `schemes/base.py`, the
-dataset bindings of `schemes/zinc.py`, `pattern.py`, `cluster.py`,
-`mnist.py`, `cifar10.py` and `tsp.py` (`DATASETS`: their defaults, model
-inputs and readout, and loss), and the
+dataset bindings of `schemes/zinc.py`, `zinc_full.py`, `pattern.py`,
+`cluster.py`, `mnist.py`, `cifar10.py` and `tsp.py` (`DATASETS`: their
+defaults, model inputs and readout, and loss), and the
 dispatch-knob copy of `TrainingBase.load_model`. The default tables carry the
 whole key surface of the trainer and the scheme, so the strict unknown-key
 check accepts every key a config of a ported scheme may hold, including those
@@ -213,14 +213,21 @@ def _tsp_model(c: HParams) -> dict:
 _SBM_DEFAULTS = dict(length_buckets=[128, 192], rlr_monitor="val_xent",
                      save_best_monitor="val_xent")
 
-DATASETS = {
-    # `schemes/zinc.py:26-41`; ZINC's declared pad length is 40
-    "zinc": DatasetBinding(
-        defaults=dict(dataset_name="zinc", num_virtual_nodes=0,
+def _zinc(dataset_name: str) -> DatasetBinding:
+    """`schemes/zinc.py:26-41` under a dataset name: ZINC and ZINC-full
+    share the tokens, the pad length of 40, the MAE loss and the monitors
+    (`schemes/zinc_full.py` binds the ZINC mixin to the full dataset)."""
+    return DatasetBinding(
+        defaults=dict(dataset_name=dataset_name, num_virtual_nodes=0,
                       rlr_monitor="val_mae", save_best_monitor="val_mae"),
         model=dict(edge_input_kind="tokens", num_node_features=28,
                    num_edge_features=4, num_targets=1, readout_kind="graph"),
-        max_length=40, loss=lambda c: loss_and_metrics),
+        max_length=40, loss=lambda c: loss_and_metrics)
+
+
+DATASETS = {
+    "zinc": _zinc("zinc"),
+    "zinc_full": _zinc("zinc_full"),
     # `schemes/pattern.py:17-42`
     "pattern": DatasetBinding(
         defaults=dict(_SBM_DEFAULTS, dataset_name="sbm_pattern",

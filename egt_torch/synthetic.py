@@ -10,7 +10,9 @@ ring closures (symmetric), -1 padding, a self-looped uint8 adjacency, and a
 standard-normal f32 regression `target (b, 1)`. `zinc_records` draws the
 same molecules as records of a dataset split (the form of
 `data/hdf5_io.write_records`), each bond in both directions, with the
-learnable target n/10 + mean(token)/30 of `tests/synth.py::make_zinc_like`.
+learnable target n/10 + mean(token)/30 of `tests/synth.py::make_zinc_like`;
+they serve ZINC-full as well, which shares ZINC's tokens, atom range and
+schema (its splits are larger).
 
 `sbm_records` and `sbm_batch` draw the two stochastic-block-model datasets
 as Dwivedi et al., *Benchmarking Graph Neural Networks* (JMLR 2023),

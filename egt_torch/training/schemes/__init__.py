@@ -2,8 +2,8 @@
 
 Port of `egt_tpu/training/schemes/__init__.py` (the reference's
 `lib/training/importer.py:4-12`) for the schemes ported so far: zinc,
-pattern and cluster, each .svd and .eig, and mnist.svd, cifar10.svd and
-tsp.svd.
+zinc_full, pattern and cluster, each .svd and .eig, and mnist.svd,
+cifar10.svd and tsp.svd.
 The others raise NotImplementedError (ROADMAP §A item 6).
 """
 
@@ -18,6 +18,7 @@ from ...utils.hparams import read_config_from_file
 
 _MODULES = {
     "zinc": ".zinc",
+    "zinc_full": ".zinc_full",
     "pattern": ".pattern",
     "cluster": ".cluster",
     "mnist": ".mnist",

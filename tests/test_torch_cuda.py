@@ -69,6 +69,10 @@ ATT_SHAPES = {
     "lk80": (2, 4, 30, 80, 8, (-5.0, 5.0)),
     # the PATTERN / CLUSTER tile: 8 heads of 8 at their longer bucket
     "sbm_l192": (2, 8, 192, 192, 8, (-5.0, 5.0)),
+    # the `egt_simple` main path: ZINC's 8 heads of 10 at pad 40 (the
+    # tensor-core bodies on 20-byte rows), TSP's longest bucket
+    "simple_zinc_d10": (4, 8, 40, 40, 10, (-5.0, 5.0)),
+    "tsp_l512": (2, 8, 512, 512, 8, (-5.0, 5.0)),
 }
 
 
@@ -347,7 +351,8 @@ def test_attention_training_kernels_general_qk(dev, shape):
             _close(o, r, dtype, scaled=i in (1, 2))
 
 
-@pytest.mark.parametrize("shape", ["flagship", "d10", "l37", "rows"])
+@pytest.mark.parametrize("shape", ["flagship", "d10", "l37", "rows",
+                                   "tsp_l512"])
 @pytest.mark.parametrize("gated,hard", [(True, False), (False, True)])
 def test_attention_bwd_bf16_bit_identical_across_launches(dev, gated, hard,
                                                           shape):
@@ -360,6 +365,69 @@ def test_attention_bwd_bf16_bit_identical_across_launches(dev, gated, hard,
         assert (o is None) == (r is None)
         if r is not None:
             assert torch.equal(o, r)
+
+
+def test_attention_bodies_at_egt_simple_shapes(dev):
+    """The bodies the `egt_simple` configs take: the tensor cores at ZINC's
+    d 10 and l 40 in bf16; past 64 keys the CUDA cores, K2's block at TSP's
+    l 512 holding 164,608 B (4 warps of 2 (l, d) sums and 4 l-rows of f32),
+    which fits one block a SM."""
+    for dtype in (torch.float32, torch.bfloat16):
+        fwd, bwd = att.fwd_geometry(dtype, 40, 40, 10), \
+            att.bwd_geometry(dtype, 40, 40, 10)
+        assert fwd["tensor_cores"] == bwd["tensor_cores"] == \
+            int(dtype == torch.bfloat16)
+        for l in (75, 128, 150, 192, 256, 512):
+            assert att.fwd_geometry(dtype, l, l, 8)["tensor_cores"] == 0
+            assert att.bwd_geometry(dtype, l, l, 8)["tensor_cores"] == 0
+        assert att.bwd_geometry(dtype, 512, 512, 8)["smem"] == 164_608
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bias_model_kernel_path_matches_plain_path(dev, dtype):
+    """A 2-layer `bias` model (the `egt_simple` ablations' channel), one
+    training forward and backward with the draws live: the attention
+    kernel's path (K1, K2 once each a layer; never K3) against the plain
+    path, in outputs, loss and every gradient, the edge embeddings' (every
+    layer's de and dg summed) among them."""
+    cfg = GraphModelConfig(model_width=40, edge_width=8, num_heads=4,
+                           model_height=2, upto_hop=3, random_mask_prob=0.1,
+                           attn_dropout=0.1, edge_channel_type="bias",
+                           compute_dtype=str(dtype)[6:])
+    base = EGTGraphModel(cfg, device=dev)
+    flat = {k: p.detach().cpu().numpy()
+            for k, p in weights.flat_names(base).items()}
+    fast = weights.load_flat_params(EGTGraphModel(
+        dataclasses.replace(cfg, fused_attention=True, fused_layer=True),
+        device=dev), flat)
+    rng = np.random.default_rng(1)
+    b, l = 4, 40
+    n = rng.integers(9, l + 1, size=b)
+    nf = np.where(np.arange(l)[None] < n[:, None], rng.integers(0, 28, (b, l)),
+                  -1)
+    valid = (nf[:, :, None] >= 0) & (nf[:, None, :] >= 0)
+    adj = ((rng.random((b, l, l)) < 0.1) & valid).astype(np.uint8)
+    fm = np.where(adj > 0, rng.integers(0, 4, (b, l, l)), -1)
+    batch = {"node_features": nf, "feature_matrix": fm, "graph_matrix": adj}
+    target = torch.randn((b, 1), device=dev)
+    before = (att.KERNEL.launches, att.BWD_KERNEL.launches, fl.KERNEL.launches)
+    outs, grads = [], []
+    for model in (fast, base):
+        out = model(batch, training=True, seeds=[3, 4])
+        (out - target).abs().mean().backward()
+        outs.append(out.detach())
+        grads.append({k: p.grad for k, p in weights.flat_names(model).items()})
+    assert (att.KERNEL.launches, att.BWD_KERNEL.launches,
+            fl.KERNEL.launches) == (before[0] + 2, before[1] + 2, before[2])
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(outs[0], outs[1], atol=tol, rtol=tol)
+    top = max(float(g.abs().max()) for g in grads[1].values())
+    for k, r in grads[1].items():
+        err = float((grads[0][k] - r).abs().max()) / max(
+            float(r.abs().max()), 1e-2 * top)
+        assert err <= (1e-3 if dtype == torch.float32 else 5e-2), (k, err)
+    for k in ("fm_emb/table", "adj_emb/kernel"):
+        assert float(grads[0][k].abs().max()) > 0, k
 
 
 @pytest.mark.parametrize("knobs", [dict(fused_layer=True),

@@ -284,7 +284,7 @@ def test_shipped_config_builds_the_model(kind):
 def test_positional_encodings_build(kind):
     """`<kind>.svd` with `use_svd` and `<kind>.eig` build and serve node
     logits from their PE arrays; what still raises names only what is
-    missing (here the `bias` edge channel), not the PEs."""
+    missing (here virtual nodes), not the PEs."""
     raw = json.loads((REPO / f"configs/main/{kind}/500k/egt.json").read_text())
     raw.update(model_height=1, compute_dtype="float32")
     eig = {k: v for k, v in raw.items() if k != "use_svd"}
@@ -307,11 +307,12 @@ def test_positional_encodings_build(kind):
         # the PE reaches the outputs
         batch[key] = batch[key] * 2.0
         assert not np.allclose(predict(batch), out)
-    bias = schemes.model_config_from_config(
-        {**raw, "use_svd": True, "edge_channel_type": "bias"})
+    vn = dataclasses.replace(
+        schemes.model_config_from_config({**raw, "use_svd": True}),
+        num_virtual_nodes=1)
     with pytest.raises(NotImplementedError, match="ROADMAP") as exc:
-        TModel(bias, device="cpu")
-    assert "bias" in str(exc.value)
+        TModel(vn, device="cpu")
+    assert "virtual nodes" in str(exc.value)
     assert "SVD" not in str(exc.value) and "eigen" not in str(exc.value)
 
 

@@ -17,7 +17,8 @@ lengths 24 and 28):
 - config resolution of every shipped MNIST / CIFAR10 config and every
   `_spe` / `_epe` / `_spe_do` config of ZINC, PATTERN and CLUSTER against
   JAX's `get_model_config` plus the dispatch-knob copy; each builds a
-  model, except the `bias` edge channel, which raises naming ROADMAP;
+  model with JAX's parameter names and shapes (the `bias` edge channel's
+  without the edge tail);
 - `load_predictor` on dense inputs with the SVD PE.
 """
 
@@ -288,10 +289,6 @@ def test_pe_config_resolution_matches_jax(path):
     assert timport(raw["scheme"])(raw, device="cpu").config.resolved() \
         == c.resolved()
     port.model_height = 1
-    if port.edge_channel_type == "bias":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TModel(port, device="cpu")
-        return
     model = TModel(port, device="cpu")
     shapes = jax.eval_shape(JModel(dataclasses.replace(ref, model_height=1))
                             .init, jax.random.PRNGKey(0))

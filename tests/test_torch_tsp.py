@@ -14,8 +14,9 @@ lengths 24 and 28):
   flips);
 - config resolution of all nine shipped TSP configs against JAX's
   `get_model_config` plus the dispatch-knob copy (`include_xpose` accepted,
-  not forwarded); each builds a model, except the two `egt_simple` ones
-  (the `bias` edge channel), which raise naming ROADMAP;
+  not forwarded); each builds a model with JAX's parameter names and
+  shapes, the two `egt_simple` ones (the `bias` edge channel) with the
+  pairwise-cat edge readout;
 - `tsp_eval` against scikit-learn's binary scores, with no predicted and
   no true positives among the cases;
 - the synthetic TSP graphs' shape (`synthetic.tsp_records`) and
@@ -206,13 +207,9 @@ def test_tsp_config_resolution_matches_jax(path):
     assert timport(raw["scheme"])(raw, device="cpu").config.resolved() \
         == c.resolved()
     port.model_height = 1
-    if port.edge_channel_type == "bias":
-        with pytest.raises(NotImplementedError, match="ROADMAP") as exc:
-            TModel(port, device="cpu")
-        assert "'bias'" in str(exc.value)
-        assert "use_node_embeddings" in str(exc.value)
-        return
     model = TModel(port, device="cpu")
+    # the channels without an edge residual read both nodes' features
+    assert port.use_node_embeddings == (port.edge_channel_type == "bias")
     shapes = jax.eval_shape(JModel(dataclasses.replace(ref, model_height=1))
                             .init, jax.random.PRNGKey(0))
     assert {k: tuple(p.shape) for k, p in weights.flat_names(model).items()} \
