@@ -65,7 +65,13 @@ final result line):
      128 / 192 at 128 graphs and the TSP buckets at 8, d 8 (the CUDA-core
      bodies, asserted; K2's block 164,608 B at l 512), f32 and bf16, timed
      beside their bounds, K2's dk and dv bit-identical across two launches
-     at l 512, and a general-valued bf16 case there;
+     at l 512, and a general-valued bf16 case there; then (3h) K1
+     (inference and training) and K2 at the PCQM4Mv2 EGT-Large tile: 128
+     graphs, 32 heads of 24 (the CUDA-core bodies, asserted), l 36 (pad 32
+     and 4 virtual nodes) and l 60 (pad 56, the real data's largest
+     molecules), attention dropout 0.3 live, gated with the degree output,
+     f32 and bf16, timed beside their bounds, K2's dk and dv bit-identical
+     across two launches at l 60;
   4. serving paths: `load_predictor` on configs/main/zinc/500k/egt.json with
      seeded weights under the JAX names answers 4 requests of 128 synthetic
      ZINC-shaped graphs, checked against the model's plain path (bf16 and
@@ -88,7 +94,13 @@ final result line):
      `egt_simple` configs as shipped, through K1 (one launch a layer a
      request, K3 none): ZINC 4 x 128 graphs (predictions within 5e-2 of
      the plain path), PATTERN 2 x 128 at l 128 and 192, TSP 2 x 24 in each
-     bucket (the pairwise-cat edge readout);
+     bucket (the pairwise-cat edge readout); then (4f)
+     configs/pcqm4mv2/egt_large.json (30 layers, width 768) with `use_pallas`
+     true, through K1 (30 launches a request), 4 requests of the shipped
+     1,024 synthetic molecules at l 36 and 2 at l 60, the (b, 1)
+     predictions within 5e-4 of the plain path (as shipped) in f32, and in
+     bf16 at most 1.5 times as far from the f32 plain path as the bf16
+     plain path;
   5. training paths: `load_trainer` on the same config and weights takes a
      warm-up step, then 4 timed steps on 128-graph batches (bf16, random
      mask 0.1 live); each path's launches a step are checked, its
@@ -129,7 +141,15 @@ final result line):
      layer a step and K3-K9 none; agreement with the plain path (3 losses,
      every step-1 gradient, f32 and bf16) at ZINC, PATTERN l 192 on 32
      graphs, TSP l 512 on 8 and CIFAR10 l 150, the edge embeddings'
-     gradients non-zero on both paths; a falling ZINC loss;
+     gradients non-zero on both paths; a falling ZINC loss; then (5f)
+     EGT-Large with `use_pallas` true: 1 + 4 optimizer steps of 8
+     micro-batches of 128 at l 36 (the shipped batch of 1,024), K1 / K2 30
+     each a micro-batch and K3-K9 never, one micro-batch at l 60, the peak
+     device memory at micro-batches of 128 and 256, the 3 losses and
+     step-1 gradients of 3 micro-batch steps against the plain path's (f32
+     and bf16), 20 steps on one micro-batch lowering the loss under a
+     10-step warmup; and ZINC `egt.json` with a virtual node through K3 /
+     K4 / K5 (10 each a step) against its plain path;
   6. the engine: the CLI triple on the flagship ZINC config over 10,000 /
      1,000 / 1,000 synthetic ZINC graphs (2 epochs, a resume to 3,
      evaluation, final weights; launches counted, the saved weights
@@ -157,14 +177,21 @@ final result line):
      1,000 / 1,000 synthetic ZINC-full graphs (of the published 220,011 /
      24,445 / 5,000), 1 epoch of the shipped 200 and a resume to 2, K1 /
      K2 launches = 10 x steps (K1 also 10 x validation and evaluation
+     batches), the MAE lines, the epoch lines and their wait share; then
+     (6f) the CLI triple of EGT-Large (`use_pallas` true, micro-batches of
+     128, 8 a step) over 8,192 / 1,024 / 1,024 synthetic PCQM4Mv2 molecules
+     (`synthetic.pcqm_records`; of the published 3,378,606 / 73,545 /
+     147,037), 1 epoch of the shipped 300 and a resume to 2, K1 / K2
+     launches = 30 x micro-batches (K1 also 30 x validation and evaluation
      batches), the MAE lines, the epoch lines and their wait share;
   7. one JSON line listing every kernel with its launches on its training
      path, its times and its bound, and K3, K4 and K5 again at the SBM
      shapes (bf16, training) with PATTERN's launches in each bucket and at
      the superpixel pads with MNIST's (l 75) and CIFAR10's (l 150)
      launches, at the TSP pads with TSP 500k's launches in each
-     bucket, and K1 and K2 at the `egt_simple` shapes with the launches of
-     phase 5e's timed steps there;
+     bucket, K1 and K2 at the `egt_simple` shapes with the launches of
+     phase 5e's timed steps there, and at the PCQM4Mv2 tile with phase
+     5f's;
   8. last line: {"ok": true, "device": {...}}.
 TF32 is off for matrix products and convolutions (full f32 references).
 Exits non-zero without a result when no CUDA device is present or when run
@@ -247,6 +274,23 @@ SIMPLE_RUNS = {"ZINC": ("zinc", PAD), "SP l 75": ("mnist", 75),
                "SP l 150": ("cifar10", 150),
                **{f"SBM l {l}": ("pattern", l) for l in SBM_BUCKETS},
                **{f"TSP l {l}": ("tsp", l) for l in TSP_BUCKETS}}
+# PCQM4Mv2 EGT-Large (30 layers, width 768, edge width 64, 32 heads of 24, 4
+# virtual nodes, the degree scaler, attention dropout 0.3): with the kernel
+# knob on, K1 forward and K2 backward in every layer (the scaler refuses the
+# whole-layer kernel). Its attention lengths with the virtual rows: l 36 (the
+# synthetic corpus pads to 32, as the reader pads it) and l 60 (the real
+# data's largest molecules, about 51 atoms, pad 56), each with the valid
+# rows' range (virtual nodes and atoms) and the molecules' largest size
+PCQM_CONFIG = REPO / "configs" / "pcqm4mv2" / "egt_large.json"
+PCQM_HEADS, PCQM_D, PCQM_K, PCQM_DROP = 32, 24, 4, 0.3
+PCQM_PADS = {36: ((8, 36), 32), 60: ((37, 55), 51)}
+# a training micro-batch and the micro-batches an optimizer step: the
+# shipped batch of 1,024 as JAX's own rehearsal runs it (one micro-batch of
+# 1,024 would not fit the card); a request is the shipped batch
+PCQM_MICRO, PCQM_ACCUM, PCQM_REQUEST = 128, 8, 1024
+# the falling-loss run's warmup, in place of the shipped 15,000 steps, whose
+# rate stays near zero through it
+PCQM_FALL_WARMUP = 10
 # a kernel call past SLOW_MS is timed over SLOW_ITERS launches, not 30
 SLOW_MS, SLOW_ITERS = 100.0, 5
 SOURCES = ("fused_layer_fwd", "egt_attention_fwd", "fused_layer_bwd_tail",
@@ -324,6 +368,7 @@ def main() -> int:
     from egt_torch.ops import egt_attention as att
     from egt_torch.ops import fused_layer as fl
     from egt_torch.training import metrics as M
+    from egt_torch.training import schedules
     from egt_torch.training.steps import load_trainer
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -475,7 +520,7 @@ def main() -> int:
     # ---- 3a. attention kernels (K1 forward, K2 backward)
     def attention_case(b, h, l, d, dtype, gated=True, hard=False,
                        training=False, timing=True, qk_scale=2.0, grid=True,
-                       nodes=(9, 38), rerun=False):
+                       nodes=(9, 38), rerun=False, drops=(0.1, 0.1)):
         # q and k scaled so that the clip binds on a share of pairs; with
         # `grid`, on a 1/8 grid: q.k is then exact in f32 in any summation
         # order, and K2's inclusive clip test on the recomputed raw logit
@@ -496,7 +541,8 @@ def main() -> int:
                 - 1.0) * 1e9
         maddf = ((torch.rand((b, l, l), generator=gen, device=dev) < 0.6)
                  .float() - 1.0) * 1e9 if hard else None
-        draws = att.Draws(123, 0.1, 0.1) if training else att.OFF
+        # the random mask's and dropout's rates in training mode
+        draws = att.Draws(123, *drops) if training else att.OFF
         args = (q, k, v, e, g, madd, maddf, (-5.0, 5.0), draws)
         out = att._egt_core_fwd_cuda(*args)
         ref = att.egt_core_fwd_plain(*args)
@@ -1041,6 +1087,36 @@ def main() -> int:
         check(False, "phase 3g: the attention kernels at the egt_simple "
               "shapes")
 
+    # ---- 3h. the PCQM4Mv2 tile: K1 (inference and training) and K2 at
+    # EGT-Large's attention shape, a micro-batch of 128 graphs, 32 heads of
+    # 24 (the CUDA-core bodies, asserted: d 24 is past the tensor-core
+    # bodies' 16), l 36 and l 60, gated with the degree output, the shipped
+    # draws (attention dropout 0.3, no random mask), f32 and bf16, each held
+    # to its plain version and timed beside its bound; K2's dk and dv
+    # bit-identical across two launches at l 60
+    try:
+        for l, (nodes, _) in PCQM_PADS.items():
+            geo = {dt: (att.fwd_geometry(dt, l, l, PCQM_D),
+                        att.bwd_geometry(dt, l, l, PCQM_D))
+                   for dt in (torch.float32, torch.bfloat16)}
+            print(f"  pcqm4mv2 l {l} (b {PCQM_MICRO}, h {PCQM_HEADS}, d "
+                  f"{PCQM_D}): " + "; ".join(
+                      f"{str(dt)[6:]} fwd_geometry {f}, bwd_geometry {g}"
+                      for dt, (f, g) in geo.items()), flush=True)
+            check(all(x is not None and not x["tensor_cores"]
+                      for pair in geo.values() for x in pair),
+                  f"pcqm4mv2 l {l}: K1 and K2 take their CUDA-core bodies")
+            for dtype in (torch.float32, torch.bfloat16):
+                for training in (False, True):
+                    results[("attention_pcqm", l, dtype, training)] = \
+                        attention_case(PCQM_MICRO, PCQM_HEADS, l, PCQM_D,
+                                       dtype, training=training, nodes=nodes,
+                                       rerun=training and l == 60,
+                                       drops=(0.0, PCQM_DROP))
+    except Exception:                               # noqa: BLE001 - report
+        traceback.print_exc()
+        check(False, "phase 3h: the attention kernels at the PCQM4Mv2 tile")
+
     # ---- 4. the serving paths
     raw = json.loads(CONFIG.read_text())
     # seeded weights under the JAX flat names: loading them exercises the
@@ -1147,14 +1223,18 @@ def main() -> int:
                    for o, r, q in zip(outs, refs, reqs))
 
     def serve_buckets(kind, raw_k, flat_k, buckets, requests_of, valid, what,
-                      kernel="K3", path="path A", out_shape=None, rtol=None):
+                      kernel="K3", path="path A", out_shape=None, rtol=None,
+                      drift_ratio=None):
         """Serve the config as shipped on the requests `requests_of(l)` in
         each length bucket: `kernel`'s launches, one a layer a request (K3
         on path A), and no other kernel's; finite logits of the targets'
         shape (`out_shape`: a graph readout's); agreement with the plain
         path on the valid nodes or pairs (`what`), in bf16 each within the
         kernels' tolerance, atol + rtol |plain| (`rtol` 0: ZINC's absolute
-        one)."""
+        one), or, with `drift_ratio`, the bf16 kernel path at most that
+        many times as far from the f32 plain path as the bf16 plain path
+        (a model whose bf16 rounding alone moves its outputs past the
+        kernels' tolerance)."""
         layers, classes = raw_k["model_height"], \
             schemes.model_config_from_config(raw_k).num_targets
         plain_k = {**raw_k, "use_pallas": False, "use_pallas_layer": False}
@@ -1194,10 +1274,20 @@ def main() -> int:
             diff = valid_diff(outs, refs, reqs, valid)
             excess = valid_diff(outs, refs, reqs, valid, rtol)
             big = max(float(np.abs(r).max()) for r in refs)
-            check(excess <= atol,
-                  f"{tag}: bf16 max |kernel path - plain path| on the valid "
-                  f"{what} {diff:.4g}, every logit within {atol} + {rtol} "
-                  f"|plain| (|plain| max {big:.3g})")
+            if drift_ratio is None:
+                check(excess <= atol,
+                      f"{tag}: bf16 max |kernel path - plain path| on the "
+                      f"valid {what} {diff:.4g}, every logit within {atol} + "
+                      f"{rtol} |plain| (|plain| max {big:.3g})")
+            else:
+                refs32 = [pf32(r) for r in reqs]
+                dk = valid_diff(outs, refs32, reqs, valid)
+                dp = valid_diff(refs, refs32, reqs, valid)
+                check(dk <= drift_ratio * dp,
+                      f"{tag}: bf16 max distance from the f32 plain path on "
+                      f"the valid {what}: kernel path {dk:.4g}, plain path "
+                      f"{dp:.4g} (at most {drift_ratio}x); max |kernel path "
+                      f"- plain path| {diff:.4g} (|plain| max {big:.3g})")
             ref32 = pf32(reqs[1])
             d32 = valid_diff([f32(reqs[1])], [ref32], reqs[1:], valid)
             check(d32 <= MODEL_TOL["float32"],
@@ -1355,6 +1445,36 @@ def main() -> int:
         except Exception:                           # noqa: BLE001 - report
             traceback.print_exc()
             check(False, f"phase 4e: {kind} egt_simple serving")
+
+    # ---- 4f. PCQM4Mv2 EGT-Large serving at full width and depth, in bf16,
+    # with the kernel knob on (`use_pallas` true: K1 one launch a layer a
+    # request, K3 none): 4 requests of the shipped batch of 1,024 synthetic
+    # molecules at l 36 and 2 at l 60 (molecules of up to 51 atoms), the
+    # (b, 1) predictions in f32 within 5e-4 of the plain path (`use_pallas`
+    # false, as shipped); in bf16 the kernel path at most 1.5 times as far
+    # from the f32 plain path as the bf16 plain path is. Through 30 layers
+    # of width 768 the bf16 rounding alone moves each path 0.063-0.076
+    # from f32 at predictions up to 2, and the two paths, which round at
+    # other points, 0.072-0.080 from each other: past ZINC's 5e-2 (10
+    # layers) and the logits' 5e-2 + 2e-2 |plain|
+    pcqm_raw = json.loads(PCQM_CONFIG.read_text())
+    pcqm_flat = synthetic.random_flat_params(
+        schemes.model_config_from_config(pcqm_raw), seed=8)
+
+    def pcqm_requests(l):
+        prng = np.random.default_rng(100 + l)
+        return [synthetic.pcqm_batch(prng, PCQM_REQUEST, PCQM_PADS[l][1])
+                for _ in range(N_REQUESTS if l == min(PCQM_PADS) else 2)]
+
+    try:
+        serve_buckets("pcqm4mv2 egt_large", {**pcqm_raw, "use_pallas": True},
+                      pcqm_flat, PCQM_PADS, pcqm_requests,
+                      lambda q: np.ones((len(q["target"]), 1), bool),
+                      "graphs", kernel="K1", path="(use_pallas, K1)",
+                      out_shape=(PCQM_REQUEST, 1), drift_ratio=1.5)
+    except Exception:                               # noqa: BLE001 - report
+        traceback.print_exc()
+        check(False, "phase 4f: pcqm4mv2 serving")
 
     # ---- 5. the training paths
     trng = np.random.default_rng(1)
@@ -1799,6 +1919,116 @@ def main() -> int:
             traceback.print_exc()
             check(False, f"phase 5e: {kind} egt_simple training")
 
+    # ---- 5f. PCQM4Mv2 EGT-Large training at full width and depth, in bf16,
+    # with the kernel knob on (K1 forward, K2 backward in every layer, K3-K9
+    # never): micro-batches of 128 at l 36, 8 an optimizer step (the shipped
+    # batch of 1,024); a warm-up step and 4 timed, K1 / K2 30 each a
+    # micro-batch; one micro-batch at l 60; the peak device memory of a
+    # micro-batch of 128 and of 256; the 3 losses and step-1 gradients of 3
+    # micro-batch steps against the plain path's (f32 and bf16); 20 steps on
+    # one micro-batch lower the loss under the warmup-cosine schedule with a
+    # 10-step warmup (the shipped 15,000 keep the rate near zero for all
+    # 20). Then agreement only: ZINC `egt.json` with a virtual node, whose
+    # rows ride the whole-layer kernels K3 / K4 / K5 (no degree scaler)
+    pcqm_launches = {}
+    pcqm_train = {**pcqm_raw, "use_pallas": True, "batch_size": PCQM_MICRO,
+                  "grad_accum_steps": PCQM_ACCUM}
+    pcqm_tag = "pcqm4mv2 egt_large training (use_pallas, K1; K2)"
+
+    def peak(what):
+        print(f"  {pcqm_tag}: peak device memory {what} "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+              f"({torch.cuda.max_memory_allocated()} B) [{smi}]", flush=True)
+
+    def train_pcqm():
+        layers, A = pcqm_raw["model_height"], PCQM_ACCUM
+        prng = np.random.default_rng(110)
+        micro = [synthetic.pcqm_batch(prng, PCQM_MICRO)
+                 for _ in range((1 + N_STEPS) * A)]
+        groups = [micro[i * A:(i + 1) * A] for i in range(1 + N_STEPS)]
+        torch.cuda.reset_peak_memory_stats()
+        tr = load_trainer(pcqm_train, pcqm_flat)
+        acc = M.DeviceAccumulator()
+        tr.train_into(acc, groups[0])               # warm-up
+        torch.cuda.synchronize()
+
+        def run():
+            times = []
+            for g in groups[1:]:
+                t = time.perf_counter()
+                tr.train_into(acc, g)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t)
+            return times
+
+        n = layers * A * N_STEPS
+        times, pcqm_launches[36] = counted(
+            run, {"K1": n, "K2": n},
+            f"{pcqm_tag}, l 36, {N_STEPS} steps of {A} x {PCQM_MICRO} graphs")
+        res = acc.result()
+        check(all(np.isfinite(v) for v in res.values()),
+              f"{pcqm_tag}: {1 + N_STEPS} steps, mean loss {res['loss']:.5f}, "
+              f"mae {res['mae']:.5f}")
+        med = statistics.median(times)
+        print(f"  {pcqm_tag}, l 36: step ms {[round(x * 1e3, 3) for x in times]}"
+              f", median {med * 1e3:.3f} ms ({med * 1e3 / A:.3f} ms a "
+              f"micro-batch), {A * PCQM_MICRO / med:.1f} graphs/s (batch {A} "
+              f"x {PCQM_MICRO}, {layers} layers, bf16) [{smi}]", flush=True)
+        peak(f"of {1 + N_STEPS} steps of micro-batches of {PCQM_MICRO}, "
+             "model and optimizer state included,")
+        long = synthetic.pcqm_batch(prng, PCQM_MICRO, PCQM_PADS[60][1])
+        tr.train_step(long)                         # warm-up at l 60
+        torch.cuda.synchronize()
+        _, pcqm_launches[60] = counted(
+            lambda: tr.train_step(long)["loss"], {"K1": layers, "K2": layers},
+            f"{pcqm_tag}, l 60, one micro-batch of {PCQM_MICRO}")
+        big = synthetic.pcqm_batch(prng, 2 * PCQM_MICRO)
+        torch.cuda.reset_peak_memory_stats()
+        tr.train_step(big)
+        peak(f"of one micro-batch of {2 * PCQM_MICRO} at l 36,")
+        del tr
+        for dtype in ("float32", "bfloat16"):
+            torch.cuda.reset_peak_memory_stats()
+            agreement(f"{pcqm_tag}, l 36, {PCQM_MICRO} graphs",
+                      {"use_pallas": True}, dtype, kind="pcqm",
+                      base={**pcqm_raw, "batch_size": PCQM_MICRO},
+                      weights=pcqm_flat, batches=micro[:3])
+            peak(f"of the {dtype} agreement (both paths, 3 steps each),")
+        fall = load_trainer(pcqm_train, pcqm_flat)
+        losses = []
+        for i in range(N_FALL):
+            lr, _ = schedules.warmup_cosine_lr(
+                i, warmup_steps=PCQM_FALL_WARMUP,
+                max_lr=float(pcqm_raw["initial_lr"]),
+                total_steps=int(pcqm_raw["total_steps"]))
+            fall.set_learning_rate(lr)
+            losses.append(fall.train_step(micro[0])["loss"])
+        first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+        check(last < first, f"{pcqm_tag}: {N_FALL} steps on one micro-batch "
+              f"with a {PCQM_FALL_WARMUP}-step warmup (the shipped "
+              f"{pcqm_raw['warmup_steps']} hold the rate near zero), mean "
+              f"loss of the first 5 {first:.5f} -> last 5 {last:.5f}")
+
+    def agree_zinc_vn():
+        raw_k = {**raw, "num_virtual_nodes": 1}
+        flat_k = synthetic.random_flat_params(
+            schemes.model_config_from_config(raw_k), seed=9)
+        tag = "zinc egt.json with a virtual node, training path A"
+        tr = load_trainer(raw_k, flat_k)
+        counted(lambda: tr.train_step(train_batches[0])["loss"],
+                dict(K3=10, K4=10, K5=10), f"{tag}, one step at l {PAD + 1}")
+        for dtype in ("float32", "bfloat16"):
+            agreement(tag, {}, dtype, kind="zinc-vn", base=raw_k,
+                      weights=flat_k)
+
+    for what, fn in (("pcqm4mv2 training", train_pcqm),
+                     ("zinc virtual-node agreement", agree_zinc_vn)):
+        try:
+            fn()
+        except Exception:                           # noqa: BLE001 - report
+            traceback.print_exc()
+            check(False, f"phase 5f: {what}")
+
     # ---- 6. the engine: the CLI triple on synthetic ZINC at the ZINC-12k
     # split sizes, the flagship config as shipped (path A: K3; K4, K5)
     from egt_torch import do_evaluations, end_training, native, run_training
@@ -2181,81 +2411,101 @@ def main() -> int:
         traceback.print_exc()
         check(False, "phase 6d: engine on TSP")
 
-    # ---- 6e. the engine on ZINC-full: the CLI triple of the `egt_simple`
-    # config (the `bias` channel: K1 forward, K2 backward) over synthetic
-    # ZINC-full graphs, cut from the published 220,011 / 24,445 / 5,000 to
-    # 10,000 / 1,000 / 1,000 and from 200 epochs to 1, resumed to 2,
-    # evaluated and finalized
-    def engine_zinc_full(tmp: Path):
-        path_k = SIMPLE_DIR / "zinc_full" / "500k" / "egt_simple.json"
-        raw_k = json.loads(path_k.read_text())
-        sizes = {"training": 10_000, "validation": 1_000, "test": 1_000}
-        erng = np.random.default_rng(9)
-        cache = tmp / "cache"
-        ds = GraphDataset(D.ZINC_FULL, str(tmp / "ZINC_full.h5"), str(cache),
-                          splits=list(sizes))
-        t = time.perf_counter()
-        for split, n in sizes.items():
-            ds.write_cache(split, synthetic.zinc_records(erng, n))
-        print(f"  engine (ZINC-full): wrote the cache of "
-              f"{sum(sizes.values())} synthetic ZINC-full graphs in "
-              f"{time.perf_counter() - t:.1f} s", flush=True)
-        bs = raw_k["batch_size"]
-        steps = math.ceil(sizes["training"] / bs)
-        val = math.ceil(sizes["validation"] / bs)
-        evals = sum(math.ceil(n / (2 * bs)) for n in sizes.values())
-        cfg = {**raw_k, "dataset_path": str(tmp / "ZINC_full.h5"),
-               "cache_dir": str(cache), "save_path": str(tmp / "run"),
-               "num_epochs": 1, "log_tensorboard": False}
+    def engine_triple(tag, tmp, cfg, name, pad, steps, val, evals, layers,
+                      micro=1):
+        """The CLI triple of `cfg` (its reader's cache written in `tmp`):
+        run_training for 1 epoch of `steps` optimizer steps of `micro`
+        micro-batches and `val` validation batches, again to epoch 2
+        (resume), do_evaluations (`evals` batches) and end_training; K1 /
+        K2 launches one a layer a micro-batch (K1 also a validation and
+        evaluation batch); the dataset and pad, the resumed state, the run
+        directory, finite metrics, the MAE lines and each epoch's seconds,
+        graphs/s and wait share."""
         path = tmp / "config.json"
-        layers = raw_k["model_height"]
 
         def cli(main, **over):
             path.write_text(json.dumps({**cfg, **over}))
             return main([str(path)])
 
-        epoch = dict(K1=layers * (steps + val), K2=layers * steps)
+        n = steps * micro
+        epoch = dict(K1=layers * (n + val), K2=layers * n)
         s1, _ = counted(lambda: cli(run_training.main), epoch,
-                        f"engine (ZINC-full) run_training, 1 epoch of "
-                        f"{steps} steps and {val} validation batches")
+                        f"engine ({tag}) run_training, 1 epoch of {steps} "
+                        f"steps of {micro} x {cfg['batch_size']} graphs and "
+                        f"{val} validation batches")
         s2, _ = counted(lambda: cli(run_training.main, num_epochs=2), epoch,
-                        "engine (ZINC-full) run_training, resumed to epoch 2")
-        check(s1.DATASET_SPEC.name == "ZINC_full" and s1.pad_len == PAD,
-              f"engine (ZINC-full): dataset {s1.DATASET_SPEC.name}, pad "
+                        f"engine ({tag}) run_training, resumed to epoch 2")
+        check(s1.DATASET_SPEC.name == name and s1.pad_len == pad,
+              f"engine ({tag}): dataset {s1.DATASET_SPEC.name}, pad "
               f"{s1.pad_len}")
         check(s2.state["current_epoch"] == 2 and
               s2.state["global_step"] == 2 * steps,
-              f"engine (ZINC-full): resumed to epoch 2 ({s2.state})")
+              f"engine ({tag}): resumed to epoch 2 ({s2.state})")
         counted(lambda: cli(do_evaluations.main, num_epochs=2,
                             weight_file=""), dict(K1=layers * evals),
-                f"engine (ZINC-full) do_evaluations, {evals} batches")
+                f"engine ({tag}) do_evaluations, {evals} batches")
         counted(lambda: cli(end_training.main, num_epochs=2), {},
-                "engine (ZINC-full) end_training")
-        run_dir = tmp / "run"
-        for rel in (f"saved/{raw_k['model_name']}.npz", "logs/metrics.jsonl",
+                f"engine ({tag}) end_training")
+        run_dir = Path(cfg["save_path"])
+        for rel in (f"saved/{cfg['model_name']}.npz", "logs/metrics.jsonl",
                     "checkpoint/ckpt_2.pt"):
             check((run_dir / rel).is_file(),
-                  f"engine (ZINC-full): run dir holds {rel}")
+                  f"engine ({tag}): run dir holds {rel}")
         recs = [json.loads(x) for x in
                 (run_dir / "logs" / "metrics.jsonl").read_text().splitlines()]
         keys = ("loss", "mae", "val_loss", "val_mae")
         check(len(recs) == 2 and all(np.isfinite(r[k]) for r in recs
                                      for k in keys),
-              "engine (ZINC-full): " + "; ".join(
+              f"engine ({tag}): " + "; ".join(
                   f"epoch {r['epoch']} " + ", ".join(
                       f"{k} {r[k]:.5f}" for k in keys) for r in recs))
         for split in ("trainset", "valset", "testset"):
             text = (run_dir / "predictions" / f"{split}_evals.txt").read_text()
-            check(" MAE = " in text, f"engine (ZINC-full): {split}_evals.txt: "
+            check(" MAE = " in text, f"engine ({tag}): {split}_evals.txt: "
                   f"{text.strip()}")
         for st in s1.epoch_stats + s2.epoch_stats:
-            print(f"  engine (ZINC-full) epoch {st['epoch']}: "
+            print(f"  engine ({tag}) epoch {st['epoch']}: "
                   f"{st['seconds']:.3f} s ({st['train_seconds']:.3f} s "
                   f"training, {st['steps']} steps, "
                   f"{1e3 * st['train_seconds'] / st['steps']:.2f} ms a step),"
                   f" {st['graphs_per_s']:.1f} graphs/s, "
                   f"{st['wait_share']:.4f} of the training time waiting for "
                   f"the next batch (Prefetcher.waited) [{smi}]", flush=True)
+
+    def write_caches(tag, tmp, spec, sizes, records):
+        """The reader's cache of each split, written from `records(n)`."""
+        ds = GraphDataset(spec, str(tmp / f"{spec.name}.h5"),
+                          str(tmp / "cache"), splits=list(sizes))
+        t = time.perf_counter()
+        for split, n in sizes.items():
+            ds.write_cache(split, records(n))
+        print(f"  engine ({tag}): wrote the cache of {sum(sizes.values())} "
+              f"synthetic graphs in {time.perf_counter() - t:.1f} s",
+              flush=True)
+        return {"dataset_path": str(tmp / f"{spec.name}.h5"),
+                "cache_dir": str(tmp / "cache"),
+                "save_path": str(tmp / "run"), "log_tensorboard": False,
+                "num_epochs": 1}
+
+    # ---- 6e. the engine on ZINC-full: the CLI triple of the `egt_simple`
+    # config (the `bias` channel: K1 forward, K2 backward) over synthetic
+    # ZINC-full graphs, cut from the published 220,011 / 24,445 / 5,000 to
+    # 10,000 / 1,000 / 1,000 and from 200 epochs to 1, resumed to 2,
+    # evaluated and finalized
+    def engine_zinc_full(tmp: Path):
+        raw_k = json.loads((SIMPLE_DIR / "zinc_full" / "500k" /
+                            "egt_simple.json").read_text())
+        sizes = {"training": 10_000, "validation": 1_000, "test": 1_000}
+        erng = np.random.default_rng(9)
+        paths = write_caches("ZINC-full", tmp, D.ZINC_FULL, sizes,
+                             lambda n: synthetic.zinc_records(erng, n))
+        bs = raw_k["batch_size"]
+        engine_triple(
+            "ZINC-full", tmp, {**raw_k, **paths}, "ZINC_full", PAD,
+            math.ceil(sizes["training"] / bs),
+            math.ceil(sizes["validation"] / bs),
+            sum(math.ceil(n / (2 * bs)) for n in sizes.values()),
+            raw_k["model_height"])
 
     try:
         with tempfile.TemporaryDirectory(prefix="engine-zinc-full-",
@@ -2264,6 +2514,32 @@ def main() -> int:
     except Exception:                               # noqa: BLE001 - report
         traceback.print_exc()
         check(False, "phase 6e: engine on ZINC-full")
+
+    # ---- 6f. the engine on PCQM4Mv2: the CLI triple of EGT-Large with the
+    # kernel knob on, micro-batches of 128, 8 an optimizer step, over
+    # synthetic molecules cut from the published 3,378,606 / 73,545 / 147,037
+    # to 8,192 / 1,024 / 1,024 and from 300 epochs to 1, resumed to 2,
+    # evaluated and finalized
+    def engine_pcqm(tmp: Path):
+        sizes = {"training": 8_192, "validation": 1_024, "test": 1_024}
+        erng = np.random.default_rng(12)
+        paths = write_caches("PCQM4Mv2", tmp, D.PCQM4MV2, sizes,
+                             lambda n: synthetic.pcqm_records(erng, n))
+        bs, A = PCQM_MICRO, PCQM_ACCUM
+        engine_triple(
+            "PCQM4Mv2", tmp, {**pcqm_train, **paths}, "PCQM4MV2",
+            synthetic.PCQM_NODES[1], sizes["training"] // (bs * A),
+            math.ceil(sizes["validation"] / bs),
+            sum(math.ceil(n / (2 * bs)) for n in sizes.values()),
+            pcqm_raw["model_height"], micro=A)
+
+    try:
+        with tempfile.TemporaryDirectory(prefix="engine-pcqm-",
+                                         dir=REPO / "build") as tmp:
+            engine_pcqm(Path(tmp))
+    except Exception:                               # noqa: BLE001 - report
+        traceback.print_exc()
+        check(False, "phase 6f: engine on PCQM4Mv2")
 
     # ---- 7. kernels line: the training-mode cases at the flagship shape,
     # bf16, each kernel's launches on its training path
@@ -2370,6 +2646,24 @@ def main() -> int:
             if r is None or n is None:
                 continue
             rows.append({"name": f"{Path(source).stem} (egt_simple {fam})",
+                         "route": "cuda", "source": source,
+                         "replaces": replaces, "launches": n, **r,
+                         "library_ms": None})
+    # K1 and K2 at the PCQM4Mv2 tile: the bf16 training-mode cases of phase
+    # 3h, with the launches of phase 5f's timed steps (l 36) and of its
+    # micro-batch at l 60
+    for l in PCQM_PADS:
+        for key, part, source, replaces in (
+                ("K1", "fwd", "egt_torch/csrc/egt_attention_fwd.cu",
+                 "egt_tpu/ops/egt_pallas.py:116"),
+                ("K2", "bwd", "egt_torch/csrc/egt_attention_bwd.cu",
+                 "egt_tpu/ops/egt_pallas.py:184")):
+            r = results.get(("attention_pcqm", l, torch.bfloat16, True),
+                            {}).get(part)
+            n = pcqm_launches.get(l, {}).get(key)
+            if r is None or n is None:
+                continue
+            rows.append({"name": f"{Path(source).stem} (PCQM4Mv2, l {l})",
                          "route": "cuda", "source": source,
                          "replaces": replaces, "launches": n, **r,
                          "library_ms": None})

@@ -2,10 +2,12 @@
 
 Port of the parts of `egt_tpu/models/features.py` the ported schemes run:
 Keras-style initialisers (drawn from an explicit `torch.Generator`), `dense`,
-the -1-masked token embedding, the masked dense embedding (MNIST / CIFAR10
+the -1-masked token embedding and its multi-column form (the OGB atom and
+bond features of PCQM4Mv2), the masked dense embedding (MNIST / CIFAR10
 superpixel features), the clipped hop stack, the distance objective's
-targets, the pairwise concatenation of the TSP edge readout, and the SVD
-and eigenvector positional encodings with their training-time sign flips.
+targets, the pairwise concatenation of the TSP edge readout, the virtual
+nodes' rows, edge blocks and hard-mask extension, and the SVD and
+eigenvector positional encodings with their training-time sign flips.
 
 The flips are drawn from the port's Philox (`ops/rng.py`, draw index
 `PE_FLIP`) on the input tensor's device from an explicit seed: one uniform a
@@ -76,6 +78,29 @@ def token_embed(p, ids):
     return table[idx]
 
 
+def multi_token_embed(p, ids, vocab_sizes):
+    """Multi-column tokens (the OGB atom and bond features): each column's
+    lookup in one offset-concatenated table (row 0 the shared mask row),
+    summed over the columns. A node or edge is padding when its column 0 is
+    -1; its every column then takes row 0. The lookup is the rows' counts
+    times the table (JAX's one-hot product, which it takes up to 64 rows
+    and gathers past them; in f32 the two agree), so the table's gradient
+    is a product too. A gather's backward accumulates the rows one index
+    at a time: on an H100 it took 11 ms of a 215 ms EGT-Large micro-batch
+    for the 175-row atom table, whose mask row every padding node hits in
+    all 9 columns (PERF.md)."""
+    offsets = [0]
+    for s in vocab_sizes[:-1]:
+        offsets.append(offsets[-1] + int(s))
+    idx = ids.long() + 1 + torch.tensor(offsets, device=ids.device)
+    idx = torch.where(ids[..., :1] >= 0, idx, 0)
+    table = p["table"]
+    counts = torch.zeros(idx.shape[:-1] + (table.shape[0],),
+                         dtype=table.dtype, device=idx.device)
+    counts.scatter_add_(-1, idx, torch.ones_like(idx, dtype=table.dtype))
+    return counts @ table
+
+
 def masked_dense_embed(p, x, mask_value: float = -1.0):
     """Keras Masking + Dense: rows whose features all equal `mask_value` are
     zeroed before the projection."""
@@ -118,6 +143,40 @@ def pairwise_cat(row, col):
     return torch.cat([row[:, :, None, :].expand(b, l, m, w),
                       col[:, None, :, :].expand(b, l, m, col.shape[-1])],
                      dim=-1)
+
+
+# --------------------------------------------------------------------- virtual nodes
+
+
+def prepend_virtual_nodes(h, vn_emb):
+    """(b, l, w) -> (b, k + l, w): the k learned virtual-node rows first."""
+    b = h.shape[0]
+    tiled = vn_emb.to(h.dtype)[None].expand((b,) + tuple(vn_emb.shape))
+    return torch.cat([tiled, h], dim=1)
+
+
+def prepend_virtual_edges(e, ve_emb):
+    """(b, l, l, w) -> (b, k + l, k + l, w): virtual row i's pairs take row
+    embedding i, virtual column j's take embedding j, and the k x k box
+    between virtual nodes 0.5 (r_i + c_j), in e's dtype."""
+    b, l, _, w = e.shape
+    k = ve_emb.shape[0]
+    emb = ve_emb.to(e.dtype)
+    emb_r, emb_c = emb[None, :, None, :], emb[None, None, :, :]
+    rows = emb_r.expand(b, k, l, w)
+    cols = emb_c.expand(b, l, k, w)
+    box = (0.5 * (emb_r + emb_c)).expand(b, k, k, w)
+    return torch.cat([torch.cat([box, cols], dim=1),
+                      torch.cat([rows, e], dim=1)], dim=2)
+
+
+def extend_edge_mask_for_vn(edge_mask, num_virtual_nodes: int):
+    """A (b, l, l, h) hard attention mask with the k virtual rows and
+    columns always on: (b, k + l, k + l, h)."""
+    b, l, _, h = edge_mask.shape
+    k = num_virtual_nodes
+    m = torch.cat([edge_mask.new_ones((b, k, l, h)), edge_mask], dim=1)
+    return torch.cat([edge_mask.new_ones((b, l + k, k, h)), m], dim=2)
 
 
 # --------------------------------------------------------------- positional encodings

@@ -1,23 +1,26 @@
 """EGTGraphModel: config + `nn.Module` with the forward pass.
 
-Port of `egt_tpu/models/graph_model.py` for the ZINC, SBM, superpixel and
-TSP paths: token or dense (Keras-masked) node embeddings, the SVD or
-eigenvector positional encoding added to them (with its training-time sign
-flips), the edge channel from token or dense edge embeddings plus the
-adjacency-hop embedding (or, with `edge_input_kind="none"`, from the hop
-embedding alone; built only when something reads it), the layer stack of
-any of the four edge channels (with the training draws and dropout when
-`training`), the final norms, the distance objective's head on the edge
-channel, and the masked mean-pool graph readout, the per-node readout or
-the per-pair edge readout (on the edge channel, or in its pairwise-cat
-form on the two nodes' features and the edge channel). The residual and
-constrained channels hand the head and the edge readout the final-normed
-e, the `bias` and `none` channels the raw e. `GraphModelConfig` is
-redeclared with the JAX fields, defaults and checks (the JAX module
-imports jax). Parameters carry the JAX
-params-tree names, so a state-dict key such as
-`stack.layers.0.dense_qkv.kernel` is the flat npz key
-`stack/layers/0/dense_qkv/kernel` (see `egt_torch.weights`).
+Port of `egt_tpu/models/graph_model.py` for the ZINC, SBM, superpixel,
+TSP and PCQM4Mv2 paths: token (one column, or the multi-column OGB atom
+features) or dense (Keras-masked) node embeddings, the SVD or eigenvector
+positional encoding added to them (with its training-time sign flips), the
+edge channel from token (one column or several) or dense edge embeddings
+plus the adjacency-hop embedding (or, with `edge_input_kind="none"`, from
+the hop embedding alone; built only when something reads it), the learned
+virtual nodes (rows prepended to h, row / column / box blocks to e, the
+node mask and a hard mask extended), the layer stack of any of the four
+edge channels (with the training draws and dropout when `training`), the
+final norms, the distance objective's head on the edge channel, and the
+graph readout (the masked mean-pool, or the virtual nodes' rows), the
+per-node readout or the per-pair edge readout (on the edge channel, or in
+its pairwise-cat form on the two nodes' features and the edge channel);
+the head and the node and edge readouts leave the virtual nodes out. The
+residual and constrained channels hand the head and the edge readout the
+final-normed e, the `bias` and `none` channels the raw e.
+`GraphModelConfig` is redeclared with the JAX fields, defaults and checks
+(the JAX module imports jax). Parameters carry the JAX params-tree names,
+so a state-dict key such as `stack.layers.0.dense_qkv.kernel` is the flat
+npz key `stack/layers/0/dense_qkv/kernel` (see `egt_torch.weights`).
 
 The forward's side outputs, the JAX `ModelContext.losses` / `.metrics`,
 come back in a `ModelContext` beside the predictions when the caller asks
@@ -146,14 +149,10 @@ def unsupported(cfg: GraphModelConfig) -> list[str]:
         out.append("FFN cross-talk")
     if cfg.node_normalization != "layer" or cfg.edge_normalization != "layer":
         out.append("BatchNorm")
-    if cfg.num_virtual_nodes > 0:
-        out.append("virtual nodes")
     if cfg.node_input_kind not in ("tokens", "dense") \
             or cfg.edge_input_kind not in ("tokens", "dense", "none"):
         out.append(f"inputs {cfg.node_input_kind!r} / "
                    f"{cfg.edge_input_kind!r}")
-    if cfg.node_vocab_sizes is not None or cfg.edge_vocab_sizes is not None:
-        out.append("multi-column tokens")
     if cfg.needs_edge_embedding and cfg.edge_input_kind == "none" \
             and not (cfg.use_adj and cfg.upto_hop >= 1):
         out.append("an edge channel with neither edge inputs nor hops")
@@ -185,6 +184,19 @@ class ModelContext:
 PE_TAGS = {"svd": 101, "eig": 102}
 
 
+def _vocab(vocab_sizes, num_features: int) -> int:
+    """Rows of a token table: the multi-column table's columns end to end,
+    or one column's `num_features`, plus the mask row."""
+    return (num_features if vocab_sizes is None
+            else int(sum(vocab_sizes))) + 1
+
+
+def _token_embed(p, ids, vocab_sizes):
+    if vocab_sizes is None:
+        return F.token_embed(p, ids)
+    return F.multi_token_embed(p, ids, vocab_sizes)
+
+
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller names one.
     With no GPU present and no device given, raise."""
@@ -209,15 +221,16 @@ class EGTGraphModel(nn.Module):
         missing = unsupported(cfg)
         if missing:
             raise NotImplementedError("not ported yet: " + ", ".join(missing)
-                                      + " (ROADMAP §A item 5)")
+                                      + " (ROADMAP §A item 3)")
         self.cfg = cfg
         dev = resolve_device(device)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         w, ew = cfg.model_width, cfg.edge_width
         if cfg.node_input_kind == "tokens":
-            self.node_emb = F.embedding_params(cfg.num_node_features + 1, w,
-                                               generator)
+            self.node_emb = F.embedding_params(
+                _vocab(cfg.node_vocab_sizes, cfg.num_node_features), w,
+                generator)
         else:
             self.node_emb = F.dense_params(cfg.node_feature_dim, w, generator)
         if cfg.use_svd and cfg.transform_svd:
@@ -227,13 +240,22 @@ class EGTGraphModel(nn.Module):
             self.eig_emb = F.dense_params(cfg.sel_eig_features, w, generator)
         if cfg.needs_edge_embedding:
             if cfg.edge_input_kind == "tokens":
-                self.fm_emb = F.embedding_params(cfg.num_edge_features + 1,
-                                                 ew, generator)
+                self.fm_emb = F.embedding_params(
+                    _vocab(cfg.edge_vocab_sizes, cfg.num_edge_features), ew,
+                    generator)
             elif cfg.edge_input_kind == "dense":
                 self.fm_emb = F.dense_params(cfg.edge_feature_dim, ew,
                                              generator)
             if cfg.use_adj and cfg.upto_hop >= 1:
                 self.adj_emb = F.dense_params(cfg.upto_hop, ew, generator)
+        k = cfg.num_virtual_nodes
+        if k > 0:
+            # raw arrays under the JAX names, drawn as JAX draws them
+            self.virtual_node_embeddings = nn.Parameter(
+                F.uniform_05((k, w), generator))
+            if cfg.needs_edge_embedding:
+                self.virtual_edge_embeddings = nn.Parameter(
+                    F.uniform_05((k, ew), generator))
         stack = {"layers": nn.ModuleList(
             [L.EGTLayer(cfg, generator) for _ in range(cfg.model_height)])}
         if (not cfg.add_n_norm) and cfg.do_final_norm:
@@ -254,10 +276,14 @@ class EGTGraphModel(nn.Module):
 
     def _readout_in_dim(self) -> int:
         """The readout MLP's input width (`_readout_in_dim` in JAX): the
-        edge readout reads the edge channel, in its pairwise-cat form the
-        two nodes' features before it."""
+        graph readout reads the k virtual nodes' rows side by side (or the
+        mean node), the edge readout the edge channel, in its pairwise-cat
+        form the two nodes' features before it."""
         cfg = self.cfg
-        if cfg.readout_kind != "edge":
+        if cfg.readout_kind == "graph":
+            # with virtual nodes, the graph is read from their k rows
+            return cfg.model_width * max(1, cfg.num_virtual_nodes)
+        if cfg.readout_kind == "node":
             return cfg.model_width
         if cfg.use_node_embeddings:
             return 2 * cfg.model_width + cfg.edge_width
@@ -298,19 +324,19 @@ class EGTGraphModel(nn.Module):
         return tuple(keys)
 
     def node_valid(self, batch) -> torch.Tensor:
-        """(b, l) bool: a token >= 0, or a dense row with a feature other
-        than `mask_value`."""
+        """(b, l) bool: a token >= 0 (column 0's of multi-column tokens), or
+        a dense row with a feature other than `mask_value`."""
         nf = torch.as_tensor(batch["node_features"], device=self.device)
         if self.cfg.node_input_kind == "tokens":
-            return nf >= 0
+            return (nf if nf.dim() == 2 else nf[..., 0]) >= 0
         return torch.any(nf != self.cfg.mask_value, dim=-1)
 
     def edge_valid(self, batch) -> torch.Tensor:
-        """(b, l, l) bool: an edge token >= 0, or a dense row with a feature
-        other than `mask_value`."""
+        """(b, l, l) bool: an edge token >= 0 (column 0's of multi-column
+        tokens), or a dense row with a feature other than `mask_value`."""
         fm = torch.as_tensor(batch["feature_matrix"], device=self.device)
         if self.cfg.edge_input_kind == "tokens":
-            return fm >= 0
+            return (fm if fm.dim() == 3 else fm[..., 0]) >= 0
         return torch.any(fm != self.cfg.mask_value, dim=-1)
 
     def output_mask(self, batch):
@@ -325,14 +351,15 @@ class EGTGraphModel(nn.Module):
         return self.edge_valid(batch)
 
     def embed_nodes(self, batch, training: bool = False, pe_seed=None):
-        """The node embedding in f32: tokens or masked dense features, plus
+        """The node embedding in f32 (virtual nodes not yet prepended):
+        tokens (one column or several) or masked dense features, plus
         the SVD or eigenvector PE. `pe_seed` (the step's seed) keys the PE's
         sign flips at training time, folded with the JAX tag of each PE."""
         cfg = self.cfg
         dev = self.device
         nf = torch.as_tensor(batch["node_features"], device=dev)
         if cfg.node_input_kind == "tokens":
-            h = F.token_embed(self.node_emb, nf)
+            h = _token_embed(self.node_emb, nf, cfg.node_vocab_sizes)
         else:
             h = F.masked_dense_embed(self.node_emb, nf.float(),
                                      cfg.mask_value)
@@ -362,7 +389,8 @@ class EGTGraphModel(nn.Module):
         if cfg.edge_input_kind != "none":
             fm = torch.as_tensor(batch["feature_matrix"], device=self.device)
             if cfg.edge_input_kind == "tokens":
-                parts.append(F.token_embed(self.fm_emb, fm))
+                parts.append(_token_embed(self.fm_emb, fm,
+                                          cfg.edge_vocab_sizes))
             else:
                 parts.append(F.masked_dense_embed(self.fm_emb, fm.float(),
                                                   cfg.mask_value))
@@ -373,10 +401,11 @@ class EGTGraphModel(nn.Module):
 
     def forward(self, batch: dict, training: bool = False, seeds=None,
                 pe_seed=None, with_context: bool = False):
-        """batch: node_features (b, l) int tokens or (b, l, f) f32 dense
-        features (`mask_value` padding), feature_matrix (b, l, l) int or
-        (b, l, l, f) f32 (edge inputs only), graph_matrix (b, l, l) (any
-        numeric dtype), and singular_vectors (b, l, k, 2) / eigen_vectors
+        """batch: node_features (b, l) int tokens, (b, l, c) int columns
+        (`node_vocab_sizes`) or (b, l, f) f32 dense features (-1 /
+        `mask_value` padding), feature_matrix (b, l, l) int, (b, l, l, c)
+        int columns or (b, l, l, f) f32 (edge inputs only), graph_matrix
+        (b, l, l) (any numeric dtype), and singular_vectors (b, l, k, 2) / eigen_vectors
         (b, l, k) with a PE, as tensors or numpy arrays. Returns the f32
         predictions: (b, num_targets) for a graph readout, (b, l,
         num_targets) for a node readout, (b, l, l, num_targets) for an edge
@@ -398,6 +427,17 @@ class EGTGraphModel(nn.Module):
             else None
         edge_mask = adj if cfg.edge_channel_type == "constrained" else None
 
+        k = cfg.num_virtual_nodes
+        if k > 0:
+            h = F.prepend_virtual_nodes(h, self.virtual_node_embeddings)
+            if e is not None:
+                e = F.prepend_virtual_edges(e, self.virtual_edge_embeddings)
+            node_mask = torch.nn.functional.pad(node_mask, (k, 0),
+                                                value=True)
+            if edge_mask is not None:
+                edge_mask = F.extend_edge_mask_for_vn(edge_mask[..., None],
+                                                      k)[..., 0]
+
         dtype = self.compute_dtype
         h = h.to(dtype)
         if e is not None:
@@ -408,12 +448,16 @@ class EGTGraphModel(nn.Module):
         # the graph and node readouts read no edges: the final edge norm
         # of the residual / constrained channels runs for the edge readout,
         # and for the distance head when the caller takes the side outputs;
-        # the `bias` and `none` channels hand them the raw e
+        # the `bias` and `none` channels hand them the raw e. Both read the
+        # graph's pairs alone: e loses its virtual rows and columns first
+        # (JAX crops after the norm, which acts on each pair alone)
         distance = with_context and cfg.distance_loss > 0
+        reads_e = distance or cfg.readout_kind == "edge"
+        if k > 0 and reads_e:
+            e = e[:, k:, k:]
         if (not cfg.add_n_norm) and cfg.do_final_norm:
             h = L.layer_norm(self.stack["node_norm_final"], h)
-            if cfg.edge_residual and (distance or
-                                      cfg.readout_kind == "edge"):
+            if cfg.edge_residual and reads_e:
                 e = L.layer_norm(self.stack["edge_norm_final"], e)
         ctx = ModelContext()
         if distance:
@@ -448,18 +492,23 @@ class EGTGraphModel(nn.Module):
         return F.dense(self.target, x)
 
     def _readout(self, h, e, node_mask):
-        """Graph: masked mean-pool over valid nodes -> MLP -> target. Node:
-        the MLP on every node; edge: on every pair of the edge channel
-        (final-normed for the residual / constrained channels; padding
-        included, the loss masks it), with `use_node_embeddings` preceded
-        by the pair's two node features (pairwise cat). In f32."""
+        """Graph: masked mean-pool over valid nodes (with virtual nodes,
+        their k rows side by side) -> MLP -> target. Node: the MLP on every
+        node; edge: on every pair of the edge channel (final-normed for the
+        residual / constrained channels; padding included, the loss masks
+        it), with `use_node_embeddings` preceded by the pair's two node
+        features (pairwise cat). The node and edge readouts leave the
+        virtual nodes out. In f32."""
+        k = self.cfg.num_virtual_nodes
         if self.cfg.readout_kind == "node":
-            return self._mlp_out(h)
+            return self._mlp_out(h[:, k:])
         if self.cfg.readout_kind == "edge":
             if self.cfg.use_node_embeddings:
-                hf = h.float()
+                hf = h[:, k:].float()
                 e = torch.cat([F.pairwise_cat(hf, hf), e.float()], dim=-1)
             return self._mlp_out(e)
+        if k > 0:
+            return self._mlp_out(h[:, :k].reshape(h.shape[0], -1))
         m = node_mask.float()[..., None]
         s = torch.sum(h.float() * m, dim=1)
         c = torch.sum(m, dim=1)

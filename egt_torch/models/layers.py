@@ -13,7 +13,8 @@ functions below read it as they read the JAX params tree.
 
 Dispatch per layer: the whole-layer kernel when `can_fuse_layer` holds
 (residual / constrained only); else the attention kernel when
-`cfg.fused_attention` is on, or the plain `egt_attention_core`, followed by
+`cfg.fused_attention` is on (under "auto", only for a layer with an edge
+bias), or the plain `egt_attention_core`, followed by
 the edge-block kernel for the edge tail when `can_fuse_edge_block` holds.
 Each kernel wrapper takes its plain version on CPU tensors.
 
@@ -105,7 +106,11 @@ def _attention(p, cfg, h_n, e_bias_raw, gates_raw, node_mask, edge_mask,
         seed=seed,
     )
     qkv = dense(p["dense_qkv"], h_n)
-    if cfg.fused_attention:
+    # "auto" takes the kernel where it can run the layer: a layer with no
+    # edge bias (the `none` channel) runs the plain core, as
+    # `can_fuse_layer` sends the `bias` channel past the whole-layer kernel
+    if cfg.fused_attention and not (e_bias_raw is None
+                                    and cfg.fused_attention == "auto"):
         if e_bias_raw is None:
             # JAX's kernel path fails here too: `egt_attention_fused` casts
             # its edge bias (`egt_tpu/ops/egt_pallas.py:538`)

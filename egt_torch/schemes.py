@@ -5,8 +5,8 @@ Port of the serving side of the JAX package's config chain: the trainer
 defaults (`egt_tpu/training/trainer.py::TrainingBase.get_default_config`),
 the scheme defaults and `model_config_kwargs` of `schemes/base.py`, the
 dataset bindings of `schemes/zinc.py`, `zinc_full.py`, `pattern.py`,
-`cluster.py`, `mnist.py`, `cifar10.py` and `tsp.py` (`DATASETS`: their
-defaults, model inputs and readout, and loss), and the
+`cluster.py`, `mnist.py`, `cifar10.py`, `tsp.py` and `pcqm4mv2.py`
+(`DATASETS`: their defaults, model inputs and readout, and loss), and the
 dispatch-knob copy of `TrainingBase.load_model`. The default tables carry the
 whole key surface of the trainer and the scheme, so the strict unknown-key
 check accepts every key a config of a ported scheme may hold, including those
@@ -21,6 +21,7 @@ from typing import Callable
 
 import torch
 
+from .data import datasets as D
 from .models.graph_model import GraphModelConfig
 from .training import metrics as M
 from .utils.hparams import Derived, HParams, join_path, read_config_from_file
@@ -84,7 +85,8 @@ def trainer_defaults() -> HParams:
 
 
 def scheme_defaults(pe: str) -> HParams:
-    """BaseDC -> BaseAdj -> BaseSVD (`pe` "svd") | BaseEig ("eig")."""
+    """BaseDC -> BaseAdj (`pe` "base": no PE) -> BaseSVD ("svd") | BaseEig
+    ("eig")."""
     c = trainer_defaults()
     c.update(
         model_name="dc",
@@ -134,7 +136,7 @@ def scheme_defaults(pe: str) -> HParams:
             use_svd=True,
             random_neg=True,
         )
-    else:
+    elif pe == "eig":
         c.update(
             model_name="dc_eig",
             cache_dir=Derived(
@@ -250,7 +252,7 @@ DATASETS = {
         model=_superpixel_model(3), max_length=75, loss=xent_loss,
         pes=("svd",)),
     # `schemes/cifar10.py:13-31`: (r, g, b, x, y) node features, padded to
-    # 150; virtual nodes (num_virtual_nodes > 0) are not ported
+    # 150, and the `num_virtual_nodes` key
     "cifar10": DatasetBinding(
         defaults=dict(dataset_name="cifar10", save_best_monitor="val_xent",
                       num_virtual_nodes=0),
@@ -264,6 +266,19 @@ DATASETS = {
                       include_xpose=True, save_best_monitor="val_xent",
                       rlr_monitor="val_xent", length_buckets=[128, 256, 512]),
         model=_tsp_model, max_length=None, loss=xent_loss, pes=("svd",)),
+    # `schemes/pcqm4mv2.py:21-48`: the multi-column OGB atom and bond
+    # tokens, virtual nodes and the degree scaler by default, the MAE of the
+    # HOMO-LUMO gap; a pad that follows the data, and the BaseAdj chain
+    # with no PE (`.base`) beside the SVD one
+    "pcqm4mv2": DatasetBinding(
+        defaults=dict(dataset_name="pcqm4mv2", num_virtual_nodes=1,
+                      scale_degree=True, attn_dropout=0.0,
+                      rlr_monitor="val_mae", save_best_monitor="val_mae"),
+        model=dict(node_vocab_sizes=D.OGB_ATOM_DIMS, edge_input_kind="tokens",
+                   edge_vocab_sizes=D.OGB_BOND_DIMS, num_targets=1,
+                   readout_kind="graph"),
+        max_length=None, loss=lambda c: loss_and_metrics,
+        pes=("base", "svd")),
 }
 SCHEMES = tuple(f"{ds}.{pe}" for ds, b in DATASETS.items() for pe in b.pes)
 
@@ -302,7 +317,7 @@ def _model_config_kwargs(c: HParams, pe: str) -> dict:
                   random_neg=c.random_neg,
                   num_svd_features=c.num_svd_features,
                   sel_svd_features=c.sel_svd_features)
-    else:
+    elif pe == "eig":
         kw.update(use_eig=c.use_eig, transform_eig=False, random_neg=True,
                   num_eig_features=c.num_eig_features,
                   sel_eig_features=c.sel_eig_features)
@@ -316,9 +331,8 @@ def resolve_config(config: dict | str) -> HParams:
         config = read_config_from_file(config)
     scheme = config.get("scheme")
     if scheme not in SCHEMES:
-        raise NotImplementedError(
-            f"scheme {scheme!r} is not ported yet (ported: "
-            f"{', '.join(SCHEMES)}; ROADMAP §A item 6)")
+        raise KeyError(f"unknown scheme {scheme!r}; known: "
+                       f"{', '.join(SCHEMES)}")
     ds, _, pe = scheme.partition(".")
     return dataset_defaults(ds, pe).strict_update(config)
 
@@ -334,7 +348,8 @@ def model_config_from_config(config: dict | str) -> GraphModelConfig:
         **_model_config_kwargs(c, pe),
         **{"node_input_kind": "tokens", **model},
         readout_edges=False,
-        # a key of the ZINC and CIFAR10 mixins only (the others refuse it)
+        # a key of the ZINC, CIFAR10 and PCQM4Mv2 mixins only (the others
+        # refuse it)
         num_virtual_nodes=c.get("num_virtual_nodes", 0),
     )
     cfg.max_length = binding.max_length

@@ -1,6 +1,6 @@
 """Seeded stand-ins for trained weights and for ZINC, PATTERN, CLUSTER,
-MNIST, CIFAR10 and TSP graphs, for runs on a machine that holds neither
-(the chip smoke test and the serving and training profiles).
+MNIST, CIFAR10, TSP and PCQM4Mv2 graphs, for runs on a machine that holds
+neither (the chip smoke test and the serving and training profiles).
 
 `random_flat_params` draws a {JAX flat name: array} dict, the form a JAX
 `saved/*.npz` snapshot takes, so loading it exercises the weight transfer.
@@ -46,6 +46,14 @@ tour is a deterministic function of the points, the nearest-neighbour tour
 from point 0 improved by 2-opt until no exchange shortens it. Only the
 k-nearest-neighbour edges are kept, as in the benchmark, so a tour edge
 outside them carries no label.
+
+`pcqm_records` and `pcqm_batch` draw PCQM4Mv2-like molecules in the schema
+of the OGB converter (`tools/convert_pcqm4mv2.py`), as `tools/synth_pcqm.py`
+draws them (the port keeps its own copy): a random tree plus chords,
+degree at most 4, 4-32 heavy atoms (or up to `max_nodes`), 9 atom and 3
+bond columns within the OGB vocabularies, and a structural target (pair
+terms of the bonded atoms' numbers, path lengths, triangles, bond types)
+in place of the HOMO-LUMO gap, whose data needs OGB's download.
 """
 
 from __future__ import annotations
@@ -65,11 +73,12 @@ def random_flat_params(cfg: GraphModelConfig, seed: int = 0) -> dict:
     rng = np.random.default_rng(seed)
     flat = {}
     for name, shape in sorted(shapes.items()):
-        leaf = name.rsplit("/", 1)[1]
+        leaf = name.rsplit("/", 1)[-1]
         if leaf == "kernel":
             lim = (6.0 / (shape[-2] + shape[-1])) ** 0.5
             x = rng.uniform(-lim, lim, shape)
-        elif leaf == "table":
+        elif leaf in ("table", "virtual_node_embeddings",
+                      "virtual_edge_embeddings"):
             x = rng.uniform(-0.05, 0.05, shape)
         elif leaf == "gamma":
             x = 1.0 + 0.1 * rng.normal(size=shape)
@@ -366,3 +375,112 @@ def tsp_batch(rng: np.random.Generator, b: int, pad: int, above: int = 0,
         [{**r, "target": r["edge_labels"]}
          for r in tsp_records(rng, b, above + 1, pad)])
     return ds._build_batch(data, np.arange(b), b, pad)
+
+
+# PCQM4Mv2 (OGB-LSC): 4-32 heavy atoms in the synthetic corpus (the
+# dataset's mean is about 14); column 0 of an atom, its atomic number, from
+# the organic head of the 119-entry vocabulary
+PCQM_NODES, PCQM_ATOM_HEAD = (4, 32), 36
+# the target's pair and bond-type terms: fixed tables, whatever the seed
+_PCQM_TERMS = np.random.default_rng(54321)
+_PCQM_T = _PCQM_TERMS.normal(0, 0.5, size=(PCQM_ATOM_HEAD, PCQM_ATOM_HEAD))
+_PCQM_T = (_PCQM_T + _PCQM_T.T) / 2.0
+_PCQM_B = _PCQM_TERMS.normal(0, 0.5, size=(D.OGB_BOND_DIMS[0],))
+
+
+def _molecular_graph(rng: np.random.Generator, n_min: int, n_max: int,
+                     max_degree: int = 4):
+    """A random connected sparse graph: a random tree (each node attached
+    to an earlier one with a spare bond) plus up to n / 3 chords, every
+    degree at most `max_degree`. (n, edges (E, 2) in both directions,
+    degrees)."""
+    n = int(rng.integers(n_min, n_max + 1))
+    deg = np.zeros(n, np.int64)
+    edges = []
+    for v in range(1, n):
+        cands = np.flatnonzero(deg[:v] < max_degree)
+        u = int(rng.choice(cands)) if len(cands) else int(rng.integers(0, v))
+        edges.append((u, v))
+        deg[u] += 1
+        deg[v] += 1
+    have = set(edges)
+    for _ in range(int(rng.integers(0, max(2, n // 3)))):
+        u, v = rng.integers(0, n, size=2)
+        u, v = int(min(u, v)), int(max(u, v))
+        if u == v or (u, v) in have or deg[u] >= max_degree \
+                or deg[v] >= max_degree:
+            continue
+        edges.append((u, v))
+        have.add((u, v))
+        deg[u] += 1
+        deg[v] += 1
+    e = np.array(edges, np.int64)
+    return n, np.concatenate([e, e[:, ::-1]], axis=0), deg
+
+
+def _pcqm_target(n, edges_undir, z, bond) -> float:
+    """The structural target: the mean pair term of the bonded atoms'
+    numbers, a quarter of the mean shortest-path length, the triangles a
+    node and half the mean bond-type term."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import shortest_path
+
+    u, v = edges_undir[:, 0], edges_undir[:, 1]
+    adj = csr_matrix((np.ones(len(u)), (u, v)), shape=(n, n))
+    adj = adj + adj.T
+    sp = shortest_path(adj, method="D", unweighted=True)
+    a = (adj > 0).astype(np.int64).toarray()
+    tri = np.trace(a @ a @ a) / 6.0
+    return (float(_PCQM_T[z[u], z[v]].mean())
+            + 0.25 * float(sp[np.isfinite(sp)].mean()) + tri / n
+            + 0.5 * float(_PCQM_B[bond].mean()))
+
+
+def pcqm_records(rng: np.random.Generator, count: int,
+                 max_nodes: int = PCQM_NODES[1]) -> list[dict]:
+    """`count` PCQM4Mv2-like molecules of 4 to `max_nodes` heavy atoms as
+    records of a dataset split (the form of `data/hdf5_io.write_records`,
+    the schema of the OGB converter): a tree plus chords of degree at most
+    4; 9 int atom columns within `OGB_ATOM_DIMS` (column 0 the atomic
+    number from the 36-entry organic head, tied to the degree; column 3 the
+    degree; the others uniform) and 3 int bond columns within
+    `OGB_BOND_DIMS` (uniform, the same both ways); the structural target
+    of `_pcqm_target` as `value`."""
+    atom, bond_dims = D.OGB_ATOM_DIMS, D.OGB_BOND_DIMS
+    records = []
+    for _ in range(count):
+        n, edges, deg = _molecular_graph(rng, PCQM_NODES[0], max_nodes)
+        z = ((deg * 5 + rng.integers(0, 9, size=n)) % PCQM_ATOM_HEAD
+             ).astype(np.int64)
+        nodef = np.empty((n, len(atom)), np.int64)
+        nodef[:, 0] = z
+        nodef[:, 3] = np.minimum(deg, atom[3] - 1)
+        for ci in (1, 2, 4, 5, 6, 7, 8):
+            nodef[:, ci] = rng.integers(0, atom[ci], size=n)
+        ne2 = len(edges) // 2
+        bond = rng.integers(0, bond_dims[0], size=ne2)
+        edgef = np.empty((2 * ne2, len(bond_dims)), np.int64)
+        edgef[:, 0] = np.concatenate([bond, bond])
+        for ci in (1, 2):
+            col = rng.integers(0, bond_dims[ci], size=ne2)
+            edgef[:, ci] = np.concatenate([col, col])
+        records.append(dict(
+            num_nodes=n, edges=edges, node_features=nodef,
+            edge_features=edgef,
+            value=np.array([_pcqm_target(n, edges[:ne2], z, bond)],
+                           np.float32)))
+    return records
+
+
+def pcqm_batch(rng: np.random.Generator, b: int,
+               max_nodes: int = PCQM_NODES[1]) -> dict:
+    """A batch of `b` molecules of `pcqm_records` as the reader builds it,
+    padded as the reader pads PCQM4Mv2 (the largest molecule of 4 to
+    `max_nodes` atoms, rounded up to 8: 32 by default): node_features (b,
+    pad, 9) and feature_matrix (b, pad, pad, 3) int32 with -1 padding, a
+    self-looped uint8 adjacency, the targets (b, 1) f32 and
+    `sample_mask`."""
+    ds = GraphDataset(D.PCQM4MV2, "", "")
+    data = ds._cache_from_records(
+        [{**r, "target": r["value"]} for r in pcqm_records(rng, b, max_nodes)])
+    return ds._build_batch(data, np.arange(b), b, -(-max_nodes // 8) * 8)

@@ -1,10 +1,9 @@
 """Scheme registry: resolve '<dataset>.<pe>' names to scheme classes.
 
 Port of `egt_tpu/training/schemes/__init__.py` (the reference's
-`lib/training/importer.py:4-12`) for the schemes ported so far: zinc,
-zinc_full, pattern and cluster, each .svd and .eig, and mnist.svd,
-cifar10.svd and tsp.svd.
-The others raise NotImplementedError (ROADMAP §A item 6).
+`lib/training/importer.py:4-12`), with every scheme of the JAX package:
+zinc, zinc_full, pattern and cluster, each .svd and .eig, mnist.svd,
+cifar10.svd, tsp.svd, and pcqm4mv2.base and .svd.
 """
 
 from __future__ import annotations
@@ -24,6 +23,7 @@ _MODULES = {
     "mnist": ".mnist",
     "cifar10": ".cifar10",
     "tsp": ".tsp",
+    "pcqm4mv2": ".pcqm4mv2",
 }
 
 
@@ -31,9 +31,8 @@ def import_scheme(scheme_name: str):
     """'zinc.svd' -> scheme class."""
     ds, _, pe = scheme_name.partition(".")
     if ds not in _MODULES:
-        raise NotImplementedError(
-            f"scheme {scheme_name!r} is not ported yet (ported: "
-            f"{', '.join(available_schemes())}; ROADMAP §A item 6)")
+        raise KeyError(f"unknown scheme dataset {ds!r}; "
+                       f"known: {sorted(_MODULES)}")
     mod = importlib.import_module(_MODULES[ds], package=__name__)
     schemes = getattr(mod, "SCHEMES")
     if pe not in schemes:

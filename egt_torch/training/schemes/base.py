@@ -2,9 +2,9 @@
 
 Port of `egt_tpu/training/schemes/base.py` (the reference's
 `lib/training/schemes/scheme_base.py`): the model-hyperparameter config
-surface of BaseDC -> BaseAdj -> BaseSVD | BaseEig, and the dataset with the
-positional-encoding preprocessing the config asks for. The default tables
-are those of `egt_torch/schemes.py`, the one copy, with the dataset
+surface of BaseDC -> BaseAdj (no PE) -> BaseSVD | BaseEig, and the dataset
+with the positional-encoding preprocessing the config asks for. The default
+tables are those of `egt_torch/schemes.py`, the one copy, with the dataset
 binding a concrete scheme names in `DATASET`. The model and the loss of a run
 come from the same binding, through `steps.Trainer`.
 """
@@ -20,7 +20,7 @@ from ..trainer import TrainingBase
 class BaseDCModelScheme(TrainingBase):
     DATASET_SPEC: DatasetSpec = None  # set by concrete schemes
     DATASET: str = None               # key of `schemes.DATASETS`
-    PE: str = None                    # "svd" | "eig"
+    PE: str = None                    # "base" | "svd" | "eig"
 
     def get_default_config(self) -> HParams:
         return schemes.dataset_defaults(self.DATASET, self.PE)
@@ -37,6 +37,10 @@ class BaseDCModelScheme(TrainingBase):
     def get_dataset(self, splits):
         return GraphDataset(self.DATASET_SPEC, splits=splits,
                             **self.dataset_kwargs())
+
+
+class BaseAdjModelScheme(BaseDCModelScheme):
+    PE = "base"
 
 
 class BaseSVDModelScheme(BaseDCModelScheme):

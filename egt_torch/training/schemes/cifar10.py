@@ -2,8 +2,7 @@
 (`lib/training/schemes/cifar10/svd.py`).
 
 Port of `egt_tpu/training/schemes/cifar10.py`: MNIST's scheme with 5-dim
-node features and the `num_virtual_nodes` key (0 by default; above 0 the
-model refuses it, ROADMAP §A item 5).
+node features and the `num_virtual_nodes` key (0 by default).
 """
 
 from __future__ import annotations

@@ -19,7 +19,7 @@ Run directory (as the JAX package's):
         predictions/<split>_evals.txt
 
 Not ported yet, and refused rather than ignored: `edge_partition` > 1 and
-`num_devices` > 1 (ROADMAP §A item 8), `profile_dir` (item 4).
+`num_devices` > 1 (ROADMAP §A item 6), `profile_dir` (item 5).
 `steps_per_dispatch` is accepted and runs one step a dispatch, which gives
 the JAX `multi_step` result. `distributed` on one card is a mesh of one, as
 in JAX.
@@ -138,13 +138,13 @@ class TrainingBase:
         c = self.config
         if int(c.edge_partition) > 1:
             raise NotImplementedError(
-                "edge_partition > 1 is not ported yet (ROADMAP §A item 8)")
+                "edge_partition > 1 is not ported yet (ROADMAP §A item 6)")
         if c.num_devices is not None and int(c.num_devices) > 1:
             raise NotImplementedError(
-                "num_devices > 1 is not ported yet (ROADMAP §A item 8)")
+                "num_devices > 1 is not ported yet (ROADMAP §A item 6)")
         if c.profile_dir:
             raise NotImplementedError(
-                "profile_dir is not ported yet (ROADMAP §A item 4)")
+                "profile_dir is not ported yet (ROADMAP §A item 5)")
         self.trainer = Trainer(c, device=self.device)
         self.model = self.trainer.model
         if self.state["lr"] is None:

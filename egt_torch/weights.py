@@ -4,7 +4,11 @@ The flat names are those of `egt_tpu/training/checkpoint.py::_flatten_params`
 (for example `stack/layers/0/dense_qkv/kernel`), which the JAX package's
 `saved/*.npz` weight snapshots use. The port's parameters carry the same
 names with `.` for `/`, and Dense kernels keep the JAX (in, out) layout, so
-the transfer is a strict name-for-name copy.
+the transfer is a strict name-for-name copy. Raw arrays of the params tree
+keep their top-level names (`virtual_node_embeddings` (k, w),
+`virtual_edge_embeddings` (k, ew)), and a multi-column token table its one
+offset-concatenated array (`node_emb/table`: every column's rows end to
+end after the mask row).
 """
 
 from __future__ import annotations

@@ -73,6 +73,9 @@ ATT_SHAPES = {
     # tensor-core bodies on 20-byte rows), TSP's longest bucket
     "simple_zinc_d10": (4, 8, 40, 40, 10, (-5.0, 5.0)),
     "tsp_l512": (2, 8, 512, 512, 8, (-5.0, 5.0)),
+    # PCQM4Mv2's EGT-Large: 32 heads of 24 (the CUDA-core bodies, lanes
+    # 24-31 idle in A.V) at the synthetic pad 32 plus 4 virtual nodes
+    "pcqm_l36": (2, 32, 36, 36, 24, (-5.0, 5.0)),
 }
 
 
@@ -427,6 +430,54 @@ def test_bias_model_kernel_path_matches_plain_path(dev, dtype):
             float(r.abs().max()), 1e-2 * top)
         assert err <= (1e-3 if dtype == torch.float32 else 5e-2), (k, err)
     for k in ("fm_emb/table", "adj_emb/kernel"):
+        assert float(grads[0][k].abs().max()) > 0, k
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pcqm_model_kernel_path_matches_plain_path(dev, dtype):
+    """A 2-layer EGT-Large-shaped model (8 heads of 24, 4 virtual nodes,
+    the degree scaler, the OGB token columns, the graph readout from the
+    virtual rows), one training forward and backward with the attention
+    dropout live: K1 and K2 once each a layer (the scaler refuses K3)
+    against the plain path, in outputs and every gradient."""
+    from egt_torch import synthetic
+    from egt_torch.data.datasets import OGB_ATOM_DIMS, OGB_BOND_DIMS
+    cfg = GraphModelConfig(model_width=192, edge_width=16, num_heads=8,
+                           model_height=2, ffn_multiplier=1.0,
+                           num_virtual_nodes=4, scale_degree=True,
+                           attn_dropout=0.3, node_vocab_sizes=OGB_ATOM_DIMS,
+                           edge_vocab_sizes=OGB_BOND_DIMS,
+                           compute_dtype=str(dtype)[6:])
+    base = EGTGraphModel(cfg, device=dev)
+    flat = {k: p.detach().cpu().numpy()
+            for k, p in weights.flat_names(base).items()}
+    fast = weights.load_flat_params(EGTGraphModel(
+        dataclasses.replace(cfg, fused_attention=True, fused_layer=True),
+        device=dev), flat)
+    batch = synthetic.pcqm_batch(np.random.default_rng(2), 6)
+    target = torch.from_numpy(batch["target"]).to(dev)
+    before = (att.KERNEL.launches, att.BWD_KERNEL.launches, fl.KERNEL.launches)
+    outs, grads = [], []
+    for model in (fast, base):
+        out = model(batch, training=True, seeds=[3, 4])
+        (out - target).abs().mean().backward()
+        outs.append(out.detach())
+        grads.append({k: p.grad for k, p in weights.flat_names(model).items()})
+    assert (att.KERNEL.launches, att.BWD_KERNEL.launches,
+            fl.KERNEL.launches) == (before[0] + 2, before[1] + 2, before[2])
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(outs[0], outs[1], atol=tol, rtol=tol)
+    top = max(float(g.abs().max()) for g in grads[1].values()
+              if g is not None)
+    for k, r in grads[1].items():
+        if r is None:
+            # the last layer's edge tail: no loss reads its output
+            assert grads[0][k] is None or not grads[0][k].any(), k
+            continue
+        err = float((grads[0][k] - r).abs().max()) / max(
+            float(r.abs().max()), 1e-2 * top)
+        assert err <= (1e-3 if dtype == torch.float32 else 5e-2), (k, err)
+    for k in ("virtual_node_embeddings", "virtual_edge_embeddings"):
         assert float(grads[0][k].abs().max()) > 0, k
 
 

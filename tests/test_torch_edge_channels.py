@@ -10,7 +10,8 @@ heads, pads 12-24):
   do) and through the plain core (JAX's einsum path), `none` through the
   plain core; e passes through unchanged. With the attention kernel asked
   for, `none` raises a ValueError naming JAX's `egt_pallas.py:538`, where
-  JAX's kernel path fails too;
+  JAX's kernel path fails too; under "auto" it runs the plain core and
+  matches JAX's "auto" output within 1e-5;
 - three `egt_simple`-shaped models on the attention kernel's path (ZINC:
   tokens and hops; PATTERN: no edge inputs, the hops alone; TSP: dense
   inputs and the pairwise-cat edge readout) and a `none` model with the
@@ -24,7 +25,7 @@ heads, pads 12-24):
 - config resolution of all 18 `egt_simple` and all 10 `zinc_full` configs
   against JAX's `get_model_config` plus the dispatch-knob copy, each
   building a model with JAX's parameter shapes; `pcqm4mv2/egt_large.json`
-  still raises, naming ROADMAP;
+  built at full size with JAX's parameter names, shapes and count;
 - a 1-epoch `zinc_full.svd` run of an `egt_simple`-shaped model against the
   JAX engine's `metrics.jsonl`, and `do_evaluations` through the port's CLI
   entry point printing JAX's MAE lines.
@@ -116,14 +117,23 @@ def test_layer_matches_jax(layer, path, training):
 
 @pytest.mark.parametrize("knob", [True, "auto"])
 def test_none_channel_refuses_the_attention_kernel(knob):
-    jcfg = small_cfg(edge_channel_type="none", fused_attention=True)
+    """With the kernel asked for, `none` raises where JAX's kernel path
+    fails; under "auto" it runs the plain core, as JAX's "auto" runs it
+    below its crossover, and its outputs match JAX's within 1e-5."""
+    jcfg = small_cfg(edge_channel_type="none", fused_attention=knob)
     params = jax_params(jcfg)
     batch = random_zinc_batch(np.random.default_rng(2))
+    model = port_model(jcfg, jckpt._flatten_params(params))
+    if knob == "auto":
+        ref, _ = JModel(jcfg).apply(params, batch)
+        with torch.inference_mode():
+            out = model(batch)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5,
+                                   atol=1e-5)
+        return
     # JAX's kernel path casts the edge bias it hands the kernel
     with pytest.raises(AttributeError, match="astype"):
         JModel(jcfg).apply(params, batch)
-    model = port_model(dataclasses.replace(jcfg, fused_attention=knob),
-                       jckpt._flatten_params(params))
     with pytest.raises(ValueError, match="egt_pallas.py:538") as exc:
         model(batch)
     assert "use_pallas: false" in str(exc.value)
@@ -242,9 +252,18 @@ def test_config_resolution_matches_jax(path):
 
 
 def test_pcqm4mv2_still_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        schemes.model_config_from_config(
-            str(REPO / "configs/pcqm4mv2/egt_large.json"))
+    """`pcqm4mv2/egt_large.json` builds at full width and depth (30 layers
+    of width 768, 4 virtual nodes, the OGB token tables) with JAX's
+    parameter names, shapes and count."""
+    path = REPO / "configs/pcqm4mv2/egt_large.json"
+    raw = json.loads(path.read_text())
+    ref = jimport(raw["scheme"])(raw).get_model_config()
+    model = TModel(schemes.model_config_from_config(str(path)), device="cpu")
+    names = {k: tuple(p.shape) for k, p in weights.flat_names(model).items()}
+    assert names == _jax_names(ref)
+    count = sum(int(np.prod(s)) for s in names.values())
+    assert count == sum(p.numel() for p in model.parameters())
+    assert 100e6 < count < 120e6 and len(model.stack["layers"]) == 30
 
 
 # ------------------------------------------------------------ the ZINC-full engine

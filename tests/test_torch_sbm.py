@@ -283,8 +283,8 @@ def test_shipped_config_builds_the_model(kind):
 @pytest.mark.parametrize("kind", list(KINDS))
 def test_positional_encodings_build(kind):
     """`<kind>.svd` with `use_svd` and `<kind>.eig` build and serve node
-    logits from their PE arrays; what still raises names only what is
-    missing (here virtual nodes), not the PEs."""
+    logits from their PE arrays, and so does the SVD config with a virtual
+    node."""
     raw = json.loads((REPO / f"configs/main/{kind}/500k/egt.json").read_text())
     raw.update(model_height=1, compute_dtype="float32")
     eig = {k: v for k, v in raw.items() if k != "use_svd"}
@@ -307,13 +307,22 @@ def test_positional_encodings_build(kind):
         # the PE reaches the outputs
         batch[key] = batch[key] * 2.0
         assert not np.allclose(predict(batch), out)
+    # with a virtual node the model serves the same nodes: the readout
+    # leaves the virtual row out
     vn = dataclasses.replace(
         schemes.model_config_from_config({**raw, "use_svd": True}),
         num_virtual_nodes=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP") as exc:
-        TModel(vn, device="cpu")
-    assert "virtual nodes" in str(exc.value)
-    assert "SVD" not in str(exc.value) and "eigen" not in str(exc.value)
+    model = TModel(vn, device="cpu")
+    weights.load_flat_params(model, synthetic.random_flat_params(vn))
+    rng = np.random.default_rng(3)
+    batch = random_zinc_batch(rng, b=3, l=PAD[kind], nf=nf)
+    batch["singular_vectors"] = rng.normal(size=(3, PAD[kind], 16, 2)).astype(
+        np.float32)
+    with torch.inference_mode():
+        out = model.eval()(batch)
+    assert out.shape == (3, PAD[kind], KINDS[kind][1])
+    assert torch.isfinite(out).all()
+    assert model.virtual_node_embeddings.shape == (1, vn.model_width)
 
 
 @pytest.mark.parametrize("kind", list(KINDS))
