@@ -183,15 +183,34 @@ final result line):
      (`synthetic.pcqm_records`; of the published 3,378,606 / 73,545 /
      147,037), 1 epoch of the shipped 300 and a resume to 2, K1 / K2
      launches = 30 x micro-batches (K1 also 30 x validation and evaluation
-     batches), the MAE lines, the epoch lines and their wait share;
+     batches), the MAE lines, the epoch lines and their wait share; and
+     (6g, on phase 6's run directory right after it) the remaining entry
+     points: `make_predictions` on the run's final weights (K3 10 launches
+     a batch; every split's predictions finite, the test split's equal to
+     `predict_split`'s); `export_serving` of the flagship config on path A
+     (K3), of `ablation/egt_simple/zinc/500k/egt_simple.json` on path B
+     (K1, seeded weights) and of the flagship config with
+     `use_pallas_edge` on path C (K1, K8), each in bf16 and f32 (no launch
+     while tracing), the six artifacts loaded in one fresh process that
+     imports no `egt_torch.models`, `.schemes`, `.training`, `.utils` or
+     jax, each serving 4 requests of the test split's 256-graph prediction
+     batches: the graph's kernel op nodes and the launches a request (10
+     of its kernels), the outputs against `load_predictor`'s live ones (f32
+     1e-6, bf16 5e-2), the request latency of both beside the card's name
+     and power limit; `do_analysis` in bf16 and f32 on the card and in f32
+     on the CPU (no kernel launch under capture; the 40 keys of 10 layers,
+     (256, 40, 40, 8) each; the f32 captures of the card within 1e-4 of
+     the CPU's);
   7. one JSON line listing every kernel with its launches on its training
      path, its times and its bound, and K3, K4 and K5 again at the SBM
      shapes (bf16, training) with PATTERN's launches in each bucket and at
      the superpixel pads with MNIST's (l 75) and CIFAR10's (l 150)
      launches, at the TSP pads with TSP 500k's launches in each
      bucket, K1 and K2 at the `egt_simple` shapes with the launches of
-     phase 5e's timed steps there, and at the PCQM4Mv2 tile with phase
-     5f's;
+     phase 5e's timed steps there, at the PCQM4Mv2 tile with phase
+     5f's, and K3, K1 and K8 (their inference cases at the flagship and
+     `egt_simple` ZINC tiles) with the launches of the bf16 serving
+     artifacts of paths A, B and C in phase 6g;
   8. last line: {"ok": true, "device": {...}}.
 TF32 is off for matrix products and convolutions (full f32 references).
 Exits non-zero without a result when no CUDA device is present or when run
@@ -327,6 +346,48 @@ MODEL_TOL = {"float32": 5e-4, "bfloat16": 5e-2}
 TRAIN_TOL = {"float32": (1e-4, 1e-3), "bfloat16": (5e-3, 5e-2)}  # loss, grad
 
 failures: list[str] = []
+
+# phase 6g's artifact loader, run in a fresh process: it imports
+# `egt_torch.serving` (torch, numpy and the kernel ops) alone, loads each
+# artifact, serves the requests after a warm-up, and reports the kernel op
+# nodes of each graph, the kernel launches and the latency of each request,
+# and the modules of the model, scheme, training or config code (or jax)
+# that were imported
+ARTIFACT_LOADER = """
+import json, sys, time
+import numpy as np
+import torch
+from egt_torch import serving
+from egt_torch.ops import edge_block, egt_attention, fused_layer
+torch.backends.cuda.matmul.allow_tf32 = False
+arts = json.loads(open(sys.argv[1]).read())
+n = int(sys.argv[4])
+with np.load(sys.argv[2]) as data:
+    reqs = [{k.split("/", 1)[1]: data[k] for k in data.files
+             if k.startswith(f"{i}/")} for i in range(n)]
+kernels = {"K3": fused_layer.KERNEL, "K1": egt_attention.KERNEL,
+           "K8": edge_block.KERNEL}
+out, report = {}, {}
+for name, path in arts.items():
+    fn = serving.load_serving(path)
+    fn(reqs[0])
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.launches = 0
+    lat = []
+    for i, r in enumerate(reqs):
+        t = time.perf_counter()
+        out[f"{name}/{i}"] = fn(r)
+        lat.append(time.perf_counter() - t)
+    report[name] = {"graph_ops": serving.kernel_ops(fn.program),
+                    "launches": {k: v.launches for k, v in kernels.items()},
+                    "latency_s": lat}
+np.savez(sys.argv[3], **out)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "egt_tpu")
+             or m.startswith(("egt_torch.models", "egt_torch.schemes",
+                              "egt_torch.training", "egt_torch.utils")))
+print(json.dumps({"artifacts": report, "imported": bad}))
+"""
 
 
 def check(ok: bool, what: str) -> None:
@@ -2154,12 +2215,178 @@ def main() -> int:
                   f" {st['graphs_per_s']:.1f} graphs/s, "
                   f"{st['wait_share']:.4f} of the training time waiting for "
                   f"the next batch [{smi}]", flush=True)
+        return {**cfg, "num_epochs": 3}, sizes, evals
 
+    # ---- 6g. the remaining entry points on the engine's ZINC run (its
+    # final weights): the prediction dump, the serving artifacts of paths A
+    # (K3), B (the `egt_simple` config: K1) and C (K1, K8) in bf16 and f32,
+    # loaded in a fresh process, and the analysis capture
+    from egt_torch.training.schemes import import_scheme
+
+    def entry_points(tmp: Path, cfg: dict, sizes: dict, evals: int):
+        run_dir = tmp / "run"
+        final = run_dir / "saved" / f"{raw['model_name']}.npz"
+
+        def scheme(over=(), device=None):
+            c = {**cfg, **dict(over)}
+            return import_scheme(c["scheme"])(c, device=device)
+
+        # the prediction dump: K3 10 a batch; the test split's rows equal
+        # predict_split's
+        sp = scheme({"weight_file": ""})
+        counted(sp.make_predictions, dict(K3=10 * evals),
+                f"make_predictions, {evals} batches of the three splits")
+        dumps = {}
+        for split, n in zip(("trainset", "valset", "testset"),
+                            sizes.values()):
+            with np.load(run_dir / "predictions" /
+                         f"{split}_predictions.npz") as data:
+                dumps[split] = data["predictions"]
+            check(dumps[split].shape == (n, 1)
+                  and np.isfinite(dumps[split]).all(),
+                  f"make_predictions: {split}_predictions.npz holds ({n}, 1) "
+                  "finite predictions")
+        rows = np.concatenate([out[b["sample_mask"] > 0]
+                               for b, out in sp.predict_split("test")])
+        diff = float(np.abs(dumps["testset"] - rows).max())
+        check(diff <= 1e-6, f"make_predictions: the test split against "
+              f"predict_split's outputs, max diff {diff:.3g}")
+
+        # the serving artifacts: the requests are the test split's
+        # prediction batches, at the artifact's shapes
+        requests = list(sp._batches("test", shuffle=False))[:N_REQUESTS]
+        req_path = tmp / "requests.npz"
+        np.savez(req_path, **{f"{i}/{k}": v for i, r in enumerate(requests)
+                              for k, v in r.items()})
+        simple_raw = json.loads(SIMPLE_CONFIGS["zinc"].read_text())
+        simple_npz = tmp / "egt_simple.npz"
+        np.savez(simple_npz, **synthetic.random_flat_params(
+            schemes.model_config_from_config(simple_raw)))
+        simple = {**simple_raw, **{k: cfg[k] for k in (
+            "dataset_path", "cache_dir", "log_tensorboard")}}
+        paths = {"A": ({}, final, ("K3",)),
+                 "B": (simple, simple_npz, ("K1",)),
+                 "C": ({"use_pallas": True, "use_pallas_layer": False,
+                        "use_pallas_edge": True}, final, ("K1", "K8"))}
+        arts, live = {}, {}
+        for tag, (over, npz, on) in paths.items():
+            for dt in ("bfloat16", "float32"):
+                name = f"{tag}_{dt}"
+                econf = {**over, "compute_dtype": dt, "weight_file": str(npz),
+                         "save_path": str(tmp / f"export_{name}")}
+                t = time.perf_counter()
+                art, _ = counted(
+                    lambda: scheme(econf).export_serving(
+                        str(tmp / f"{name}.pt2")), {},
+                    f"export_serving, path {tag} {dt}: no launch while "
+                    "tracing")
+                print(f"  export path {tag} {dt}: "
+                      f"{time.perf_counter() - t:.1f} s", flush=True)
+                arts[name] = dict(path=art, on=on)
+                predict = serving.load_predictor({**cfg, **econf}, str(npz))
+                predict(requests[0])                       # warm-up
+                torch.cuda.synchronize()
+
+                def serve_live():
+                    lat, outs = [], []
+                    for r in requests:
+                        t = time.perf_counter()
+                        outs.append(predict(r))
+                        lat.append(time.perf_counter() - t)
+                    return lat, outs
+
+                (lat, outs), _ = counted(
+                    serve_live, {k: 10 * N_REQUESTS for k in on},
+                    f"load_predictor, path {tag} {dt}, {N_REQUESTS} requests")
+                live[name] = (lat, outs)
+        spec_path = tmp / "artifacts.json"
+        spec_path.write_text(json.dumps({n: a["path"] for n, a in
+                                         arts.items()}))
+        t = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-c", ARTIFACT_LOADER, str(spec_path),
+             str(req_path), str(tmp / "served.npz"), str(N_REQUESTS)],
+            cwd=REPO, capture_output=True, text=True, timeout=600)
+        print(f"  artifact loader process: {time.perf_counter() - t:.1f} s, "
+              f"exit {res.returncode}", flush=True)
+        check(res.returncode == 0, "artifact loader process ran"
+              + ("" if res.returncode == 0 else ": " + res.stderr[-2000:]))
+        report = json.loads(res.stdout.strip().splitlines()[-1])
+        check(report["imported"] == [], "artifact loader: no egt_torch."
+              "models / schemes / training / utils and no jax imported "
+              f"({report['imported']})")
+        served = np.load(tmp / "served.npz")
+        for name, art in arts.items():
+            tag, dt = name.split("_")
+            r = report["artifacts"][name]
+            want = {k: 10 for k in art["on"]}
+            check(r["graph_ops"] == {k: want.get(k, 0)
+                                     for k in ("K3", "K1", "K8")},
+                  f"artifact path {tag} {dt}: the exported graph holds "
+                  f"{r['graph_ops']} kernel op nodes")
+            per_request = {k: n / N_REQUESTS for k, n in r["launches"].items()
+                           if n}
+            check(per_request == want, f"artifact path {tag} {dt}: launches "
+                  f"a request {per_request} (expected {want})")
+            lat, outs = live[name]
+            diff = max(float(np.abs(served[f"{name}/{i}"] - o).max())
+                       for i, o in enumerate(outs))
+            tol = 1e-6 if dt == "float32" else MODEL_TOL["bfloat16"]
+            ok = all(served[f"{name}/{i}"].shape == o.shape
+                     and np.isfinite(served[f"{name}/{i}"]).all()
+                     for i, o in enumerate(outs))
+            check(ok and diff <= tol, f"artifact path {tag} {dt}: served "
+                  f"against load_predictor's live outputs, max diff "
+                  f"{diff:.3g} (tol {tol})")
+            art_lat = r["latency_s"]
+            print(f"  request latency path {tag} {dt} ({len(requests[0]['node_features'])}"
+                  f" graphs, 10 layers): artifact ms "
+                  f"{[round(x * 1e3, 3) for x in art_lat]}, median "
+                  f"{statistics.median(art_lat) * 1e3:.3f}; load_predictor ms "
+                  f"{[round(x * 1e3, 3) for x in lat]}, median "
+                  f"{statistics.median(lat) * 1e3:.3f} [{smi}]", flush=True)
+            artifact_launches[name] = r["launches"]
+
+        # analysis capture: the plain path, no kernel; as shipped (bf16)
+        # the keys and shapes, then f32 on the card against the CPU
+        keys = sorted(f"{k}_{i:0>2d}.{v}" for i in range(10) for k, v in (
+            ("mha", "e"), ("mha", "mat"), ("attention_gates", "gates"),
+            ("dense_edge_b", "e")))
+        graphs = len(requests[0]["node_features"])
+        pad = requests[0]["node_features"].shape[1]
+        caps = {}
+        for dt, device in (("bfloat16", None), ("float32", None),
+                           ("float32", "cpu")):
+            over = {"compute_dtype": dt, "weight_file": str(final),
+                    "save_path": str(tmp / f"analysis_{dt}_{device}")}
+            sa = scheme(over, device)
+            path, _ = counted(lambda: sa.do_analysis("test", 1), {},
+                              f"do_analysis {dt} on {device or 'the card'}: "
+                              "no kernel launch under capture")
+            with np.load(path) as data:
+                caps[(dt, device)] = {k: data[k] for k in data.files}
+            c = caps[(dt, device)]
+            check(sorted(c) == keys and all(
+                v.shape == (graphs, pad, pad, 8) and np.isfinite(v).all()
+                for v in c.values()),
+                  f"do_analysis {dt} on {device or 'the card'}: {len(c)} "
+                  f"keys of ({graphs}, {pad}, {pad}, 8), finite")
+        card, cpu = caps[("float32", None)], caps[("float32", "cpu")]
+        diff = max(float(np.abs(card[k] - cpu[k]).max()) for k in keys)
+        check(diff <= 1e-4, f"do_analysis f32: the card's captures against "
+              f"the CPU's, max diff {diff:.3g} (tol 1e-4)")
+
+    artifact_launches: dict = {}
     try:
         (REPO / "build").mkdir(exist_ok=True)
         with tempfile.TemporaryDirectory(prefix="engine-",
                                          dir=REPO / "build") as tmp:
-            engine(Path(tmp))
+            engine_out = engine(Path(tmp))
+            try:
+                entry_points(Path(tmp), *engine_out)
+            except Exception:                       # noqa: BLE001 - report
+                traceback.print_exc()
+                check(False, "phase 6g: the remaining entry points")
     except Exception:                               # noqa: BLE001 - report
         traceback.print_exc()
         check(False, "phase 6: engine")
@@ -2667,6 +2894,28 @@ def main() -> int:
                          "route": "cuda", "source": source,
                          "replaces": replaces, "launches": n, **r,
                          "library_ms": None})
+    # K3, K1 and K8 in the bf16 serving artifacts of phase 6g: their
+    # inference cases of phase 3 (128 graphs; K1 at the `egt_simple` ZINC
+    # tile of phase 3g), with the artifact's launches in its requests
+    for key, tag, part, res_key, source, replaces in (
+            ("K3", "A", "fwd", ("layer", torch.bfloat16, False),
+             "egt_torch/csrc/fused_layer_fwd.cu",
+             "egt_tpu/ops/fused_layer_pallas.py:373"),
+            ("K1", "B", "fwd",
+             ("attention_simple", "ZINC", torch.bfloat16, False),
+             "egt_torch/csrc/egt_attention_fwd.cu",
+             "egt_tpu/ops/egt_pallas.py:116"),
+            ("K8", "C", "fwd", ("edge", torch.bfloat16),
+             "egt_torch/csrc/edge_block_fwd.cu",
+             "egt_tpu/ops/edge_block_pallas.py:92")):
+        r = results.get(res_key, {}).get(part)
+        n = artifact_launches.get(f"{tag}_bfloat16", {}).get(key)
+        if r is None or not n:
+            continue
+        rows.append({"name": f"{Path(source).stem} (serving artifact, path "
+                             f"{tag})", "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": n, **r,
+                     "library_ms": None})
     print(json.dumps({"kernels": rows}))
 
     if failures:

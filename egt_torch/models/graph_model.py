@@ -22,10 +22,14 @@ final-normed e, the `bias` and `none` channels the raw e.
 so a state-dict key such as `stack.layers.0.dense_qkv.kernel` is the flat
 npz key `stack/layers/0/dense_qkv/kernel` (see `egt_torch.weights`).
 
-The forward's side outputs, the JAX `ModelContext.losses` / `.metrics`,
-come back in a `ModelContext` beside the predictions when the caller asks
-(`with_context=True`): the distance objective's weighted loss under
-`losses` and its unweighted value under `metrics`.
+The forward's side outputs, the JAX `ModelContext.losses` / `.metrics` /
+`.analysis`, come back in a `ModelContext` beside the predictions when the
+caller asks (`with_context=True`): the distance objective's weighted loss
+under `losses` and its unweighted value under `metrics`; with
+`capture_analysis` each layer's attention tensors under `analysis` (the
+plain path, no kernel: `models/layers.py`), and with
+`combine_layer_repr` the lists `all_node_repr` / `all_edge_repr` there.
+`analyze` is the JAX `analyze`: the forward re-run with capture on.
 """
 
 from __future__ import annotations
@@ -174,9 +178,11 @@ def unsupported(cfg: GraphModelConfig) -> list[str]:
 class ModelContext:
     """Side outputs of one forward pass: auxiliary losses (added to the
     scheme's loss) and metric scalars (reported beside its metrics), each a
-    0-d f32 tensor by name."""
+    0-d f32 tensor by name, and the analysis captures (JAX's keys, e.g.
+    `mha_00/mat`; the `combine_layer_repr` lists)."""
     losses: dict = field(default_factory=dict)
     metrics: dict = field(default_factory=dict)
+    analysis: dict = field(default_factory=dict)
 
 
 # the JAX fold tags of the positional encodings' seeds (`fold_rng(rng, 101)`
@@ -400,7 +406,8 @@ class EGTGraphModel(nn.Module):
         return parts[0] if len(parts) == 1 else parts[0] + parts[1]
 
     def forward(self, batch: dict, training: bool = False, seeds=None,
-                pe_seed=None, with_context: bool = False):
+                pe_seed=None, with_context: bool = False,
+                capture_analysis: bool = False):
         """batch: node_features (b, l) int tokens, (b, l, c) int columns
         (`node_vocab_sizes`) or (b, l, f) f32 dense features (-1 /
         `mask_value` padding), feature_matrix (b, l, l) int, (b, l, l, c)
@@ -413,7 +420,9 @@ class EGTGraphModel(nn.Module):
         `ModelContext`), and only then does the distance head run. `seeds`
         holds one seed per layer for this step (`fold_rng(rng, 1000 + i)`
         in JAX); training draws and dropout need it. `pe_seed` is the step's seed for the PE sign flips
-        (`random_neg`)."""
+        (`random_neg`). `capture_analysis` runs every layer on the plain
+        path and fills the context's `analysis` (with virtual nodes the
+        captures keep their k rows, as in JAX)."""
         cfg = self.cfg
         dev = self.device
         if seeds is not None and len(seeds) != cfg.model_height:
@@ -442,9 +451,17 @@ class EGTGraphModel(nn.Module):
         h = h.to(dtype)
         if e is not None:
             e = e.to(dtype)
+        ctx = ModelContext()
+        analysis = ctx.analysis if capture_analysis else None
+        reprs = [] if cfg.combine_layer_repr else None
         for i, layer in enumerate(self.stack["layers"]):
             h, e = layer(h, e, node_mask, edge_mask, training,
-                         None if seeds is None else seeds[i])
+                         None if seeds is None else seeds[i], analysis, i,
+                         reprs)
+        if reprs is not None:
+            ctx.analysis["all_node_repr"] = [n for n, _ in reprs]
+            ctx.analysis["all_edge_repr"] = [x for _, x in reprs
+                                             if x is not None]
         # the graph and node readouts read no edges: the final edge norm
         # of the residual / constrained channels runs for the edge readout,
         # and for the distance head when the caller takes the side outputs;
@@ -459,13 +476,21 @@ class EGTGraphModel(nn.Module):
             h = L.layer_norm(self.stack["node_norm_final"], h)
             if cfg.edge_residual and reads_e:
                 e = L.layer_norm(self.stack["edge_norm_final"], e)
-        ctx = ModelContext()
         if distance:
             metric = self._distance_loss(e, adj)
             ctx.metrics["distance_loss"] = metric
             ctx.losses["distance_loss"] = metric * cfg.distance_loss
         out = self._readout(h, e, node_mask).float()
         return (out, ctx) if with_context else out
+
+    def analyze(self, batch: dict, training: bool = False, seeds=None,
+                pe_seed=None) -> dict:
+        """Per-layer attention logits, matrices, gates and edge biases: the
+        forward re-run with capture on (JAX's `analyze`). Returns the
+        context's `analysis` dict."""
+        _, ctx = self(batch, training, seeds, pe_seed, with_context=True,
+                      capture_analysis=True)
+        return ctx.analysis
 
     def _distance_loss(self, e, adj):
         """The distance objective in f32: the head's (b, l, l,

@@ -22,6 +22,16 @@ Training: one seed per layer and step (`seed`). It keys the attention
 draws (the random mask and attention dropout, `ops/rng.py`) directly, and
 node / edge dropout through `fold_seed(seed, tag)` with the JAX fold tags
 (2 after attention, 3 after dense_edge_r, 4 edge FFN, 5 node FFN).
+
+Analysis capture (JAX's `capture` argument): given an `analysis` dict, a
+layer runs the plain path (no kernel) and writes JAX's keys under its tag
+`{i:0>2d}`: `mha_{tag}/e` (h_hat) and `mha_{tag}/mat` (a_tild, the
+post-gate, post-dropout attention), `attention_gates_{tag}/gates` (the
+pre-sigmoid gates) and `dense_edge_b_{tag}/e` (the edge bias; for the
+`none` channel the raw e). Given a `reprs` list, it appends its
+(node_repr, edge_repr): the normed h before attention, and the normed e of
+the residual / constrained channels (None for the others), the inputs of
+`combine_layer_repr`.
 """
 
 from __future__ import annotations
@@ -90,10 +100,11 @@ def _sub_seed(seed, tag):
 
 
 def _attention(p, cfg, h_n, e_bias_raw, gates_raw, node_mask, edge_mask,
-               training=False, seed=None):
+               training=False, seed=None, capture: bool = False):
     """QKV projection + EGT attention. `e_bias_raw`/`gates_raw` are the
     (b, l, l, h) projections; `edge_mask` is (b, l, l) head-shared or None.
-    Returns (v_att (b, l, d*h), h_hat (b, l, l, h))."""
+    Returns (v_att (b, l, d*h), h_hat (b, l, l, h), a_tild (b, l, l, h), None
+    from the attention kernel); `capture` takes the plain core."""
     kw = dict(
         clip_logits_value=(tuple(cfg.clip_logits_value)
                            if cfg.clip_logits_value is not None else None),
@@ -109,8 +120,8 @@ def _attention(p, cfg, h_n, e_bias_raw, gates_raw, node_mask, edge_mask,
     # "auto" takes the kernel where it can run the layer: a layer with no
     # edge bias (the `none` channel) runs the plain core, as
     # `can_fuse_layer` sends the `bias` channel past the whole-layer kernel
-    if cfg.fused_attention and not (e_bias_raw is None
-                                    and cfg.fused_attention == "auto"):
+    if cfg.fused_attention and not capture and not (
+            e_bias_raw is None and cfg.fused_attention == "auto"):
         if e_bias_raw is None:
             # JAX's kernel path fails here too: `egt_attention_fused` casts
             # its edge bias (`egt_tpu/ops/egt_pallas.py:538`)
@@ -127,29 +138,34 @@ def _attention(p, cfg, h_n, e_bias_raw, gates_raw, node_mask, edge_mask,
         g_hm = None if gates_raw is None else gates_raw.permute(0, 3, 1, 2)
         out = egt_attention_fused(q, k, v, e_hm, g_hm, node_mask=node_mask,
                                   attn_mask_hm=edge_mask, **kw)
-        return out.v_att, out.h_hat.permute(0, 2, 3, 1)
+        return out.v_att, out.h_hat.permute(0, 2, 3, 1), None
 
     q, k, v = split_qkv(qkv, cfg.num_heads)
     am = None if edge_mask is None else edge_mask[..., None]
     out = egt_attention_core(q, k, v, e_bias_raw, gates_raw,
                              node_mask=node_mask, attn_mask=am,
                              chain_f32=bool(cfg.attn_chain_f32), **kw)
-    return out.v_att, out.h_hat
+    return out.v_att, out.h_hat, out.a_tild
 
 
 def _mha_block(p, cfg, h, e_bias, gates, node_mask, edge_mask,
-               training=False, seed=None):
-    """Pre/post-norm MHA with residual. Returns (h, h_hat)."""
+               training=False, seed=None, analysis=None, tag="00"):
+    """Pre/post-norm MHA with residual. Returns (h, h_hat, node_repr)."""
     y = h
     if not cfg.add_n_norm:
         h = layer_norm(p["norm_mha"], h)
-    v_att, h_hat = _attention(p, cfg, h, e_bias, gates, node_mask, edge_mask,
-                              training, seed)
+    node_repr = h
+    v_att, h_hat, a_tild = _attention(p, cfg, h, e_bias, gates, node_mask,
+                                      edge_mask, training, seed,
+                                      analysis is not None)
+    if analysis is not None:
+        analysis[f"mha_{tag}/e"] = h_hat
+        analysis[f"mha_{tag}/mat"] = a_tild
     h = dropout(dense(p["dense_mha"], v_att), cfg.node_dropout, training,
                 _sub_seed(seed, 2)) + y
     if cfg.add_n_norm:
         h = layer_norm(p["norm_mha"], h)
-    return h, h_hat
+    return h, h_hat, node_repr
 
 
 def _edge_bias(p, cfg, e):
@@ -157,32 +173,42 @@ def _edge_bias(p, cfg, e):
 
 
 def edge_update(p, cfg, h, e, node_mask, edge_mask, training=False,
-                seed=None, defer_edge_tail: bool = False):
-    """The attention sub-layer of each edge channel. Returns (h, e); with
-    `defer_edge_tail` (residual / constrained), the edge tail is left to the
-    edge-block kernel and `e` comes back as the pair (h_hat, e_residual).
-    `none` and `bias` pass e through unchanged: `none` attends with no edge
-    bias and no gates, `bias` takes both from the raw e."""
+                seed=None, defer_edge_tail: bool = False, analysis=None,
+                tag="00"):
+    """The attention sub-layer of each edge channel. Returns (h, e,
+    node_repr, edge_repr); with `defer_edge_tail` (residual / constrained),
+    the edge tail is left to the edge-block kernel and `e` comes back as the
+    pair (h_hat, e_residual). `none` and `bias` pass e through unchanged:
+    `none` attends with no edge bias and no gates, `bias` takes both from
+    the raw e. `analysis` (a dict) captures this layer's tensors."""
+    cap = analysis is not None
     if cfg.edge_channel_type == "none":
-        h, _ = _mha_block(p, cfg, h, None, None, node_mask, edge_mask,
-                          training, seed)
-        return h, e
+        if cap:
+            analysis[f"dense_edge_b_{tag}/e"] = e
+        h, _, node_repr = _mha_block(p, cfg, h, None, None, node_mask,
+                                     edge_mask, training, seed, analysis, tag)
+        return h, e, node_repr, None
     y_e = e
     if cfg.edge_residual and not cfg.add_n_norm:
         e = layer_norm(p["norm_edge"], e)
+    edge_repr = e if cfg.edge_residual else None
     gates = dense(p["attention_gates"], e) if cfg.gate_attention else None
     eb = _edge_bias(p, cfg, e)
-    h, h_hat = _mha_block(p, cfg, h, eb, gates, node_mask, edge_mask,
-                          training, seed)
+    if cap:
+        if gates is not None:
+            analysis[f"attention_gates_{tag}/gates"] = gates
+        analysis[f"dense_edge_b_{tag}/e"] = eb
+    h, h_hat, node_repr = _mha_block(p, cfg, h, eb, gates, node_mask,
+                                     edge_mask, training, seed, analysis, tag)
     if not cfg.edge_residual:
-        return h, y_e
+        return h, y_e, node_repr, None
     if defer_edge_tail:
-        return h, (h_hat, y_e)
+        return h, (h_hat, y_e), node_repr, edge_repr
     e = dropout(dense(p["dense_edge_r"], h_hat), cfg.edge_dropout, training,
                 _sub_seed(seed, 3)) + y_e
     if cfg.add_n_norm:
         e = layer_norm(p["norm_edge"], e)
-    return h, e
+    return h, e, node_repr, edge_repr
 
 
 # ------------------------------------------------------------------------ FFN block
@@ -249,16 +275,20 @@ class EGTLayer(nn.ModuleDict):
         super().__init__(mods)
         self.cfg = cfg
 
-    def forward(self, h, e, node_mask, edge_mask, training=False, seed=None):
+    def forward(self, h, e, node_mask, edge_mask, training=False, seed=None,
+                analysis=None, layer_idx: int = 0, reprs=None):
         return layer_forward(self, self.cfg, h, e, node_mask, edge_mask,
-                             training, seed)
+                             training, seed, analysis, layer_idx, reprs)
 
 
 def layer_forward(p, cfg, h, e, node_mask, edge_mask, training=False,
-                  seed=None):
+                  seed=None, analysis=None, layer_idx: int = 0, reprs=None):
     """Attention sub-layer + FFN sub-layer. Returns (h, e). `seed` is this
-    layer's seed for the step (training)."""
-    if (can_fuse_layer(cfg, training)
+    layer's seed for the step (training). With `analysis` (a dict) the
+    layer runs the plain path and captures its tensors under the tag of
+    `layer_idx`; with `reprs` (a list) it appends (node_repr, edge_repr)."""
+    capture = analysis is not None
+    if (can_fuse_layer(cfg, training, capture)
             and (cfg.edge_channel_type != "constrained"
                  or edge_mask is not None)):
         # whole-layer kernel: edge pre-LN -> gates/bias -> attention ->
@@ -273,9 +303,13 @@ def layer_forward(p, cfg, h, e, node_mask, edge_mask, training=False,
         h, _ = ffn_block(p, cfg, h, None, skip_edge=True, training=training,
                          seed=seed)
         return h, e
-    fuse_edge = can_fuse_edge_block(cfg, training)
-    h, e = edge_update(p, cfg, h, e, node_mask, edge_mask, training, seed,
-                       defer_edge_tail=fuse_edge)
+    fuse_edge = can_fuse_edge_block(cfg, training, capture)
+    h, e, node_repr, edge_repr = edge_update(
+        p, cfg, h, e, node_mask, edge_mask, training, seed,
+        defer_edge_tail=fuse_edge, analysis=analysis,
+        tag=f"{layer_idx:0>2d}")
+    if reprs is not None:
+        reprs.append((node_repr, edge_repr))
     if fuse_edge:
         # edge-block kernel: dense_edge_r + residual + edge FFN in one pass
         h_hat, y_e = e
@@ -286,12 +320,14 @@ def layer_forward(p, cfg, h, e, node_mask, edge_mask, training=False,
     return ffn_block(p, cfg, h, e, training=training, seed=seed)
 
 
-def can_fuse_edge_block(cfg, training: bool = False) -> bool:
+def can_fuse_edge_block(cfg, training: bool = False,
+                        capture: bool = False) -> bool:
     """Eligibility of the edge-block kernel: the JAX `can_fuse_edge_block`
-    (without sequence parallelism or analysis capture, which the port does
-    not run). Like the JAX rule it does not look at `cfg.activation`: the
-    kernel's activation is ELU."""
+    (without sequence parallelism, which the port does not run; analysis
+    capture refuses it). Like the JAX rule it does not look at
+    `cfg.activation`: the kernel's activation is ELU."""
     return (bool(cfg.fused_edge_block)
+            and not capture
             and cfg.edge_width >= 64
             and cfg.edge_channel_type in ("residual", "constrained")
             and not cfg.add_n_norm

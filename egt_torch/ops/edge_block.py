@@ -170,7 +170,9 @@ def edge_block_apply(p_layer, h_hat, e_res):
     """Run the fused block from a layer's parameters (dense_edge_r and
     edge_ffn {norm, lr1, lr2}), casting as the JAX `edge_block_apply` does:
     h_hat and the matrices to the working type of e_res, the vectors as
-    stored. With gradients enabled the call goes through `EdgeBlockFn`."""
+    stored. With gradients enabled the call goes through `EdgeBlockFn`;
+    without, through the custom op `torch.ops.egt.edge_block_fwd`
+    (`custom_ops.py`)."""
     dt = e_res.dtype
     ffn = p_layer["edge_ffn"]
     w = dict(wr=p_layer["dense_edge_r"]["kernel"].to(dt),
@@ -187,4 +189,5 @@ def edge_block_apply(p_layer, h_hat, e_res):
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (*args, *wts)):
         return EdgeBlockFn.apply(*args, *wts)
-    return edge_block_fwd(*args, w)
+    from . import custom_ops
+    return custom_ops.edge_forward(*args, w)

@@ -285,7 +285,8 @@ def egt_attention_fused(
 ) -> FusedAttentionOutput:
     """The semantics of `egt_tpu.ops.egt_pallas.egt_attention_fused`
     (head-major I/O). `seed` keys the training draws (the JAX `rng`). With
-    gradients enabled the core goes through `EGTCoreFn`."""
+    gradients enabled the core goes through `EGTCoreFn`; without, through
+    the custom op `torch.ops.egt.attention_fwd` (`custom_ops.py`)."""
     b, h, lq, d = q.shape
     lk = k.shape[2]
     gated = gates is not None
@@ -317,7 +318,8 @@ def egt_attention_fused(
             t is not None and t.requires_grad for t in args[:5]):
         v_att, h_hat, degrees = EGTCoreFn.apply(*args)
     else:
-        v_att, h_hat, degrees = egt_core_fwd(*args)
+        from . import custom_ops
+        v_att, h_hat, degrees = custom_ops.attention_forward(*args)
 
     if scale_degree:
         scalers = torch.log1p(degrees) if scaler_type == "log" else degrees

@@ -124,12 +124,13 @@ def draw_args(spec: LayerSpec, seed: int) -> tuple:
     return rng.Draws(seed, spec.random_mask_prob, spec.attn_dropout).args()
 
 
-def can_fuse_layer(cfg, training: bool = False) -> bool:
+def can_fuse_layer(cfg, training: bool = False, capture: bool = False) -> bool:
     """Eligibility of the whole-layer kernel: the structural conditions of
-    the JAX `can_fuse_layer` (without edge partitioning or analysis capture,
-    which the port does not run). `cfg.fused_layer` "auto" counts as on: the
-    TPU's measured crossover rule is not a rule for this card."""
-    if not cfg.fused_layer:
+    the JAX `can_fuse_layer` (without edge partitioning, which the port does
+    not run; analysis capture refuses it, as does `combine_layer_repr`).
+    `cfg.fused_layer` "auto" counts as on: the TPU's measured crossover rule
+    is not a rule for this card."""
+    if not cfg.fused_layer or capture:
         return False
     if cfg.edge_channel_type not in ("residual", "constrained"):
         return False
@@ -967,8 +968,10 @@ def fused_layer_apply(p_layer, cfg, e, qkv, node_mask, attn_mask,
     3*d*h) projection of the LN'd node stream. Returns (e_out, v_att) with
     v_att (b, l, d*h). The node-stream projections stay outside the kernel.
     With gradients enabled the call goes through `FusedLayerFn` (its
-    backward chosen by `BWD_IMPL`); without, it is the inference forward. `seed`
-    keys the random mask and dropout (training)."""
+    backward chosen by `BWD_IMPL`); without, through the custom op
+    `torch.ops.egt.fused_layer_fwd` (`custom_ops.py`), which `torch.export`
+    keeps in an exported graph. `seed` keys the random mask and dropout
+    (training)."""
     b, l, _, _ = e.shape
     spec = make_spec(cfg, l, training)
     if spec.draws and seed is None:
@@ -987,4 +990,5 @@ def fused_layer_apply(p_layer, cfg, e, qkv, node_mask, attn_mask,
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (*args[:2], *wts)):
         return FusedLayerFn.apply(spec, seed, *args, *wts)
-    return fused_layer_core(spec, *args, w, seed)
+    from . import custom_ops
+    return custom_ops.layer_forward(spec, *args, w, seed)

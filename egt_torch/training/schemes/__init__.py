@@ -53,8 +53,19 @@ def scheme_from_args(argv, description: str):
     """The scheme of a CLI's `<config.json> [--device DEV]` arguments: the
     config's scheme class on that config, on the card unless `--device`
     names another device."""
+    return cli_scheme(argv, description)[0]
+
+
+def cli_scheme(argv, description: str, optional=()):
+    """(scheme, arguments) of a CLI's `<config.json> [optional ...]
+    [--device DEV]`: `optional` holds (name, type, default, help) of the
+    positional arguments after the config. Without a GPU and without
+    `--device`, a usage error."""
     parser = argparse.ArgumentParser(description=description)
     parser.add_argument("config", help="run config (JSON)")
+    for name, kind, default, text in optional:
+        parser.add_argument(name, type=kind, default=default, nargs="?",
+                            help=text)
     parser.add_argument("--device", default=None,
                         help="torch device to run on (default: the GPU)")
     args = parser.parse_args(argv)
@@ -62,4 +73,4 @@ def scheme_from_args(argv, description: str):
         parser.error("no CUDA device is available; pass --device cpu to run "
                      "on the CPU")
     config = read_config_from_file(args.config)
-    return import_scheme(config["scheme"])(config, device=args.device)
+    return import_scheme(config["scheme"])(config, device=args.device), args

@@ -16,7 +16,16 @@ Run directory (as the JAX package's):
         checkpoint/                  (ckpt_<epoch>.pt + train_state_<epoch>.json, one kept)
         saved/epochNNNN.npz          (save-best weight snapshots, JAX flat names)
         saved/<model_name>.npz       (final weights)
-        predictions/<split>_evals.txt
+        predictions/<split>_evals.txt, <split>_predictions.npz,
+                     <split>_analysis.npz
+        serving/model.pt2            (`export_serving`: torch.export artifact)
+
+Length buckets give a split's batches different pad lengths. Where a dump
+concatenates per-pair or per-node outputs of such batches
+(`make_predictions` with a node or edge readout, `do_analysis` over
+several batches), each batch's rows are padded with NaN to the split's
+largest pad first (`concat_padded`); JAX's concatenation raises there
+(ROADMAP §C). Wherever JAX completes, the arrays are JAX's.
 
 Not ported yet, and refused rather than ignored: `edge_partition` > 1 and
 `num_devices` > 1 (ROADMAP §A item 6), `profile_dir` (item 5).
@@ -62,6 +71,24 @@ def accum_groups(src, A: int):
         if len(group) == A:
             yield pending.pop(key)
     yield from pending.values()
+
+
+def concat_padded(arrays: list) -> np.ndarray:
+    """`np.concatenate(arrays)` along axis 0. Where the arrays' other axes
+    differ (batches of different pad lengths), each is padded with NaN at
+    the end of every axis to the largest size first."""
+    sizes = {a.shape[1:] for a in arrays}
+    if len(sizes) > 1 and len({len(s) for s in sizes}) == 1:
+        full = tuple(max(s) for s in zip(*sizes))
+        arrays = [np.pad(a.astype(np.result_type(a.dtype, np.float32)),
+                         [(0, 0)] + [(0, f - n)
+                                     for f, n in zip(full, a.shape[1:])],
+                         constant_values=np.nan) for a in arrays]
+    return np.concatenate(arrays, axis=0)
+
+
+SPLIT_FILES = {"training": "trainset", "validation": "valset",
+               "test": "testset"}
 
 
 class TrainingBase:
@@ -415,6 +442,76 @@ class TrainingBase:
             ckpt.load_weights(self.model, wf)
             print(f'LOADED WEIGHT FILE "{wf}" FOR PREDICTIONS!', flush=True)
 
+    def make_predictions_on_split(self, split: str):
+        """The prediction dump (JAX's `make_predictions_on_split`): the
+        model's outputs on the split's real records (`sample_mask` > 0),
+        stacked, to predictions/<split>_predictions.npz under
+        `predictions`; batches of different pads NaN-padded to the
+        largest."""
+        outs = [out[batch["sample_mask"] > 0]
+                for batch, out in self.predict_split(split)]
+        path = join_path(self.config.predictions_path,
+                         f"{SPLIT_FILES.get(split, split)}_predictions.npz")
+        np.savez(path, predictions=concat_padded(outs))
+        print(f"saved predictions to {path}", flush=True)
+
+    def make_predictions(self):
+        self.pred_flag = True
+        self.prepare_for_test()
+        os.makedirs(self.config.predictions_path, exist_ok=True)
+        for split in ("training", "validation", "test"):
+            print("=" * 40, flush=True)
+            print(f"Prediction on {split}.", flush=True)
+            self.make_predictions_on_split(split)
+            print(flush=True)
+
+    def do_analysis(self, split: str = "test", max_batches: int = 1) -> str:
+        """Dump the per-layer attention logits, matrices, gates and edge
+        biases (`EGTGraphModel.analyze`, the plain path) of the split's
+        first `max_batches` batches to predictions/<split>_analysis.npz,
+        `/` in each key turned into `.` (JAX's `do_analysis`). The
+        `combine_layer_repr` lists are skipped, as in JAX, and so is a
+        capture that is None (the `none` channel's e when nothing builds an
+        edge embedding, which JAX cannot concatenate). Captures are written
+        in f32 (bf16 values exactly)."""
+        self.pred_flag = True
+        self.prepare_for_test()
+        os.makedirs(self.config.predictions_path, exist_ok=True)
+        dumps: dict[str, list] = {}
+        for i, batch in enumerate(self._batches(split, shuffle=False)):
+            if i >= max_batches:
+                break
+            with torch.no_grad():
+                analysis = self.model.analyze(self._to_device(batch))
+            for k, v in analysis.items():
+                if v is None or isinstance(v, (list, tuple)):
+                    continue
+                dumps.setdefault(k, []).append(v.float().cpu().numpy())
+        path = join_path(self.config.predictions_path,
+                         f"{SPLIT_FILES.get(split, split)}_analysis.npz")
+        np.savez(path, **{k.replace("/", "."): concat_padded(v)
+                          for k, v in dumps.items()})
+        print(f"saved analysis tensors to {path}", flush=True)
+        return path
+
+    def export_serving(self, path: str | None = None) -> str:
+        """Export the model with its weights (`weight_file` semantics) as a
+        `torch.export` serving artifact (see `egt_torch/serving.py`), by
+        default <save_path>/serving/model.pt2, at the pad length and the
+        prediction batch; it runs on this engine's device."""
+        from .. import serving
+
+        self.pred_flag = True
+        self.prepare_for_test()
+        if path is None:
+            path = join_path(self.config.save_path, "serving", "model.pt2")
+        spec = serving.batch_spec(
+            self.dataset, self.pad_len,
+            self.config.batch_size * self.config.prediction_bmult)
+        out = serving.save_serving(self.model, spec, path)
+        print(f"Serving artifact exported to {out}", flush=True)
+        return out
+
     def do_evaluations_on_split(self, split: str):
         raise NotImplementedError
 
@@ -430,9 +527,8 @@ class TrainingBase:
 
     def append_eval(self, split: str, lines: list[str]):
         os.makedirs(self.config.predictions_path, exist_ok=True)
-        name = {"training": "trainset", "validation": "valset",
-                "test": "testset"}.get(split, split)
-        path = join_path(self.config.predictions_path, f"{name}_evals.txt")
+        path = join_path(self.config.predictions_path,
+                         f"{SPLIT_FILES.get(split, split)}_evals.txt")
         with open(path, "a") as fp:
             for ln in lines:
                 print(ln, file=fp)

@@ -21,6 +21,7 @@ import torch
 
 from egt_torch import weights
 from egt_torch.models.graph_model import EGTGraphModel, GraphModelConfig
+from egt_torch.ops import custom_ops
 from egt_torch.ops import edge_block as eb
 from egt_torch.ops import egt_attention as att
 from egt_torch.ops import fused_layer as fl
@@ -1440,3 +1441,57 @@ def _check_whole_layer(dev, dtype, l, b=3, nodes=None):
         g = fl.bwd_attn_geometry(spec)
         assert g is not None and not g["general"]
         assert g["cluster"] * g["rows_per_block"] >= l
+
+
+# the custom ops an exported artifact calls (`ops/custom_ops.py`), through
+# their CUDA kernels at the flagship shapes: K3 (b 128, l 40, ew 64, h 8, dh
+# 64, hidden 128), K1 (b 128, h 8, l 40, d 8) and K8 (b 128, l 40, ew 64, h
+# 8, hidden 128, h_hat head-major as path C hands it over)
+@pytest.mark.parametrize("kernel", ["K3", "K1", "K8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_custom_ops_match_plain(dev, dtype, kernel):
+    g_ = _gen(dev)
+
+    def rnd(*s, scale=1.0):
+        return scale * torch.randn(s, generator=g_, device=dev)
+
+    b, l, ew, h, dh, hid = 128, 40, 64, 8, 64, 128
+    mask = (torch.arange(l, device=dev)[None] < torch.randint(
+        9, l + 1, (b, 1), generator=g_, device=dev)).float()
+    w = dict(wg=rnd(ew, h, scale=0.3).to(dtype), bg=rnd(h, scale=0.1),
+             wb=rnd(ew, h, scale=0.3).to(dtype), bb=rnd(h, scale=0.1),
+             g1=1 + rnd(ew, scale=0.1), b1=rnd(ew, scale=0.1),
+             wr=rnd(h, ew, scale=0.3).to(dtype), br=rnd(ew, scale=0.1),
+             g2=1 + rnd(ew, scale=0.1), b2=rnd(ew, scale=0.1),
+             w1=rnd(ew, hid, scale=0.2).to(dtype), bb1=rnd(hid, scale=0.1),
+             w2=rnd(hid, ew, scale=0.2).to(dtype), bb2=rnd(ew, scale=0.1))
+    e = rnd(b, l, l, ew).to(dtype)
+    if kernel == "K3":
+        spec = fl.LayerSpec(l=l, ew=ew, h=h, dh=dh, hidden=hid, gated=True,
+                            constrained=False, clip=(-5.0, 5.0),
+                            edge_act=None, act="elu",
+                            scale=float(dh // h) ** -0.5)
+        qkv = rnd(b, l, 3 * dh).to(dtype)
+        kern = fl.KERNEL
+        run = lambda: custom_ops.layer_forward(spec, e, qkv, mask, None, w)
+        ref = fl.fused_layer_plain(spec, e, qkv, mask, None, w)
+    elif kernel == "K1":
+        q, k, v = (rnd(b, h, l, dh // h).to(dtype) for _ in range(3))
+        eh, gh = rnd(b, h, l, l).to(dtype), rnd(b, h, l, l).to(dtype)
+        madd = (mask - 1.0) * 1e9
+        kern = att.KERNEL
+        run = lambda: custom_ops.attention_forward(
+            q, k, v, eh, gh, madd, None, (-5.0, 5.0), att.OFF)
+        ref = att.egt_core_fwd_plain(q, k, v, eh, gh, madd, None,
+                                     (-5.0, 5.0))
+    else:
+        hh = rnd(b, h, l, l, scale=2.0).to(dtype).permute(0, 2, 3, 1)
+        tail = {key: w[key] for key in eb.KEYS}
+        kern = eb.KERNEL
+        run = lambda: (custom_ops.edge_forward(hh, e, tail),)
+        ref = (eb.edge_block_fwd_plain(hh, e, tail),)
+    before = kern.launches
+    out = run()
+    assert kern.launches == before + 1
+    for o, r in zip(out, ref):
+        _close(o, r, dtype)
