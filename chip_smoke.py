@@ -1537,6 +1537,120 @@ def main() -> int:
         traceback.print_exc()
         check(False, "phase 4f: pcqm4mv2 serving")
 
+    # ---- 4h. the model API's variants at the flagship ZINC widths (10
+    # layers, width 64, edge width 64, 8 heads, pad 40, 128 graphs), seeded
+    # weights, through `EGTGraphModel` as a user of the model API builds
+    # it: variant X (cross-talk 0.5 / 0.5, node and edge BatchNorm reading
+    # the moving statistics, gelu; `use_pallas`, so K1 in every layer, as
+    # `can_fuse_layer` refuses each of the three) and variant E (degree
+    # encoding 8 both ways, diffusion 2, node2edge, transposed hops,
+    # `readout_edges`) on path A (K3) and path C (K1, K8); 4 requests each
+    # against the plain path (bf16 5e-2, f32 5e-4), launches counted.
+    # Variant X in bf16 is held as phase 4f holds EGT-Large, by drift: the
+    # kernel path at most DRIFT times as far from the f32 plain path as the
+    # bf16 plain path. Its BatchNorms read seeded moving statistics, which
+    # scale but do not normalise the residual stream, so its predictions
+    # reach about 20 and bf16 rounding alone moves the plain path 0.43 from
+    # f32 (the CPU's plain path at 32 graphs), past 5e-2; f32 carries the
+    # kernels' agreement there (5e-4, and 1e-3 for the gradients)
+    DRIFT = 1.5
+    from dataclasses import replace as cfg_replace
+
+    from egt_torch.models.graph_model import EGTGraphModel
+    from egt_torch.weights import load_flat_params
+
+    zinc_cfg = schemes.model_config_from_config(raw)
+    off = dict(fused_attention=False, fused_layer=False,
+               fused_edge_block=False)
+    var_x = cfg_replace(zinc_cfg, node2edge_xtalk=0.5, edge2node_xtalk=0.5,
+                        node_normalization="batch",
+                        edge_normalization="batch", activation="gelu")
+    var_e = cfg_replace(zinc_cfg, max_degree_enc=8, bidir_degree=True,
+                        max_diffuse_t=2, node2edge_embed=True,
+                        include_xpose=True, readout_edges=True)
+    # (tag, kernel path's config, plain path's config, weights, kernels on
+    # the serving path, kernels a training step launches, one a layer,
+    # whether bf16 is held by drift)
+    variants = [
+        ("variant X (cross-talk, BatchNorm, gelu; K1; K2)",
+         cfg_replace(var_x, **{**off, "fused_attention": True}),
+         cfg_replace(var_x, **off),
+         synthetic.random_flat_params(var_x, seed=11), ("K1",),
+         dict(K1=10, K2=10), True),
+        ("variant E path A (encodings, readout_edges; K3; K4, K5)",
+         cfg_replace(var_e, **{**off, "fused_layer": True}),
+         cfg_replace(var_e, **off),
+         synthetic.random_flat_params(var_e, seed=12), ("K3",),
+         dict(K3=10, K4=10, K5=10), False),
+        # the readout reads the last layer's edge output: K9 10 a step
+        ("variant E path C (K1, K8; K9, K2)",
+         cfg_replace(var_e, **{**off, "fused_attention": True,
+                               "fused_edge_block": True}),
+         cfg_replace(var_e, **off),
+         synthetic.random_flat_params(var_e, seed=12), ("K1", "K8"),
+         dict(K1=10, K8=10, K9=10, K2=10), False)]
+
+    def api_model(cfg, flat_v, dtype=None):
+        if dtype is not None:
+            cfg = cfg_replace(cfg, compute_dtype=dtype)
+        model = load_flat_params(EGTGraphModel(cfg, device=dev), flat_v)
+        model.eval()
+
+        def predict(batch):
+            with torch.inference_mode():
+                out = model({k: batch[k] for k in model.input_keys})
+            return out.cpu().numpy()
+        return predict
+
+    def serve_variant(tag, cfg_k, cfg_p, flat_v, on, _want, drift):
+        predict = api_model(cfg_k, flat_v)
+        predict(requests[0])                       # warm-up
+        torch.cuda.synchronize()
+
+        def run():
+            lat, outs = [], []
+            for r in requests:
+                t = time.perf_counter()
+                outs.append(predict(r))
+                lat.append(time.perf_counter() - t)
+            return lat, outs
+
+        (lat, outs), _ = counted(run, {k: 10 * N_REQUESTS for k in on},
+                                 f"{tag} serving, {N_REQUESTS} requests")
+        refs = [api_model(cfg_p, flat_v)(r) for r in requests]
+        ref32 = [api_model(cfg_p, flat_v, "float32")(r) for r in requests]
+        ok = all(o.shape == (GRAPHS, 1) and np.isfinite(o).all()
+                 for o in outs)
+        diff = max(float(np.abs(o - r).max()) for o, r in zip(outs, refs))
+        dk, dp = (max(float(np.abs(o - r).max()) for o, r in zip(x, ref32))
+                  for x in (outs, refs))
+        what = (f"{tag} serving: outputs finite, shape ({GRAPHS}, 1), bf16 "
+                f"max |kernel path - plain path| {diff:.4g}; from the f32 "
+                f"plain path (|x| max {max(np.abs(r).max() for r in ref32):.3g})"
+                f": kernel path {dk:.4g}, plain path {dp:.4g}")
+        if drift:
+            check(ok and dk <= DRIFT * dp, f"{what} (at most {DRIFT}x)")
+        else:
+            check(ok and diff <= MODEL_TOL["bfloat16"],
+                  f"{what} (tol {MODEL_TOL['bfloat16']})")
+        d32 = float(np.abs(api_model(cfg_k, flat_v, "float32")(requests[1])
+                           - api_model(cfg_p, flat_v, "float32")(requests[1])
+                           ).max())
+        check(d32 <= MODEL_TOL["float32"],
+              f"{tag} serving: f32 max |kernel path - plain path| {d32:.4g} "
+              f"(tol {MODEL_TOL['float32']})")
+        med = statistics.median(lat)
+        print(f"  {tag} serving: request latency median {med * 1e3:.3f} ms, "
+              f"{GRAPHS / med:.1f} graphs/s (batch {GRAPHS}, 10 layers, "
+              f"bf16) [{smi}]", flush=True)
+
+    for v in variants:
+        try:
+            serve_variant(*v)
+        except Exception:                           # noqa: BLE001 - report
+            traceback.print_exc()
+            check(False, f"phase 4h: {v[0]} serving")
+
     # ---- 5. the training paths
     trng = np.random.default_rng(1)
     train_batches = [synthetic.zinc_batch(trng, GRAPHS, PAD)
@@ -2090,6 +2204,215 @@ def main() -> int:
             traceback.print_exc()
             check(False, f"phase 5f: {what}")
 
+    # ---- 5h. the variants of phase 4h in training (`load_trainer` with
+    # the variant as its model): a warm-up step and 4 timed (bf16, random
+    # mask 0.1 live), the launches a step counted; against the plain path
+    # from the same weights and draws, f32 and bf16: the losses of 3 steps,
+    # every step-1 gradient, and the BatchNorm moving statistics after 4
+    # steps at a learning rate of 0 (f32 1e-5 of their scale, bf16 the
+    # gradients' tolerance). At the shipped rate Adam moves a weight whose
+    # gradient is rounding noise by about the rate, in a direction the noise
+    # picks, so after 4 steps the two paths' statistics lie about 1e-4
+    # apart in f32 (the CPU's plain versions show 1.7e-4): that distance is
+    # printed and held to the gradients' tolerance
+    def variant_steps(cfg, flat_v, dtype, n=4, lr=None):
+        tr = load_trainer(raw, flat_v,
+                          model_config=cfg_replace(cfg, compute_dtype=dtype))
+        if lr is not None:
+            tr.set_learning_rate(lr)
+        losses, grads = [], None
+        for i in range(n):
+            losses.append(tr.train_step(train_batches[i])["loss"])
+            if i == 0:
+                grads = {k: p.grad.clone() for k, p in
+                         tr.model.named_parameters() if p.grad is not None}
+        stats = {k: torch.from_numpy(v) for k, v in tr.flat_params().items()
+                 if "/moving_" in k}
+        return losses, grads, stats
+
+    def norm_diff(a, b, floor=0.0):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), floor)
+
+    def train_variant(tag, cfg_k, cfg_p, flat_v, _on, want, drift):
+        tr = load_trainer(raw, flat_v, model_config=cfg_k)
+        tr.train_step(train_batches[0])             # warm-up
+        torch.cuda.synchronize()
+
+        def run():
+            times, losses = [], []
+            for bt in train_batches[1:]:
+                t = time.perf_counter()
+                losses.append(tr.train_step(bt)["loss"])
+                times.append(time.perf_counter() - t)
+            return times, losses
+
+        (times, losses), launches = counted(
+            run, {k: n * N_STEPS for k, n in want.items()},
+            f"{tag} training, {N_STEPS} steps")
+        med = statistics.median(times)
+        check(bool(np.all(np.isfinite(losses))),
+              f"{tag} training: losses finite {[round(x, 5) for x in losses]}"
+              f", step median {med * 1e3:.3f} ms, {GRAPHS / med:.1f} graphs/s"
+              f" (batch {GRAPHS}, 10 layers, bf16) [{smi}]")
+        g32 = None
+        for dtype in ("float32", "bfloat16"):
+            lk, gk, sk = variant_steps(cfg_k, flat_v, dtype)
+            lp, gp, sp_ = variant_steps(cfg_p, flat_v, dtype)
+            g32 = gp if g32 is None else g32
+            ltol, gtol = TRAIN_TOL[dtype]
+            dl = max(abs(a - b) / max(abs(b), 1e-6)
+                     for a, b in zip(lk[:3], lp[:3]))
+            check(dl <= ltol, f"{tag} {dtype}: 3 losses {lk[:3]} vs plain "
+                  f"{lp[:3]}, max rel diff {dl:.3g} (tol {ltol})")
+            top = max(float(g.abs().max()) for g in gp.values())
+            worst = max((norm_diff(gk.get(k, torch.zeros_like(g)), g,
+                                   1e-2 * top), k) for k, g in gp.items())
+            # a parameter no loss reaches on the plain path may get zeros
+            # from a kernel's backward; both leave it unchanged
+            extra = [k for k in gk if k not in gp and bool(gk[k].any())]
+            top32 = max(float(g.abs().max()) for g in g32.values())
+            dk, dp = (max(norm_diff(x.get(k, torch.zeros_like(g)), g,
+                                    1e-2 * top32) for k, g in g32.items())
+                      for x in (gk, gp))
+            what = (f"{tag} {dtype}: step-1 gradients of every parameter, "
+                    f"worst normalised |kernel - plain| {worst[0]:.3g} at "
+                    f"{worst[1]}; from the f32 plain path: kernel path "
+                    f"{dk:.3g}, plain path {dp:.3g}; nonzero only on the "
+                    f"kernel path: {extra}")
+            if drift and dtype == "bfloat16":
+                check(not extra and dk <= DRIFT * dp,
+                      f"{what} (at most {DRIFT}x)")
+            else:
+                check(not extra and worst[0] <= gtol, f"{what} (tol {gtol})")
+            if not sp_:
+                continue
+            ws = max((norm_diff(sk[k], v, 1e-3), k) for k, v in sp_.items())
+            check(ws[0] <= gtol,
+                  f"{tag} {dtype}: the {len(sp_)} moving statistics after 4 "
+                  f"steps, worst normalised |kernel - plain| {ws[0]:.3g} at "
+                  f"{ws[1]} (tol {gtol})")
+            sk = variant_steps(cfg_k, flat_v, dtype, lr=0.0)[2]
+            sp_ = variant_steps(cfg_p, flat_v, dtype, lr=0.0)[2]
+            stol = 1e-5 if dtype == "float32" else gtol
+            ws = max((norm_diff(sk[k], v, 1e-3), k) for k, v in sp_.items())
+            check(ws[0] <= stol,
+                  f"{tag} {dtype}: the moving statistics after 4 steps at a "
+                  f"learning rate of 0, worst normalised |kernel - plain| "
+                  f"{ws[0]:.3g} at {ws[1]} (tol {stol})")
+        return launches
+
+    variant_launches = {}
+    for v in variants:
+        try:
+            variant_launches[v[0]] = train_variant(*v)
+        except Exception:                           # noqa: BLE001 - report
+            traceback.print_exc()
+            check(False, f"phase 5h: {v[0]} training")
+
+    # ---- 5i. `remat` on ZINC path A (the config as shipped, K3; K4, K5):
+    # one f32 step each without it, with True and with "dots" (random mask
+    # live), from the same weights on the same batch: the loss and every
+    # gradient equal to the step without it bit for bit (or, where a
+    # library product were to sum in another order, within 1e-6 of each
+    # gradient's scale), K3 20 launches a step (10 in the forward, 10 in the
+    # recompute), the peak device memory of each. Then EGT-Large (30
+    # layers, `use_pallas`: K1 / K2) with `remat` true at the shipped batch
+    # of 1,024 as ONE micro-batch at l 36 (phase 5f runs it as 8 x 128):
+    # 1 + 2 steps, K1 60 and K2 30 a step, the peak and the step time; a
+    # smaller micro-batch where 1,024 does not fit, and "dots" only where
+    # it fits
+    remat_runs = {}
+
+    def remat_zinc():
+        for mode in (False, True, "dots"):
+            tr = load_trainer({**raw, "compute_dtype": "float32",
+                               "remat": mode}, flat)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            loss, launches = counted(
+                lambda: tr.train_step(train_batches[0])["loss"],
+                dict(K3=20 if mode else 10, K4=10, K5=10),
+                f"remat {mode!r}, zinc path A, one f32 step")
+            grads = {k: p.grad.clone() for k, p in
+                     tr.model.named_parameters() if p.grad is not None}
+            remat_runs[mode] = (loss, grads, launches,
+                                torch.cuda.max_memory_allocated())
+            del tr
+        l0, g0, _, m0 = remat_runs[False]
+        for mode in (True, "dots"):
+            l1, g1, n1, m1 = remat_runs[mode]
+            equal = l1 == l0 and sorted(g1) == sorted(g0) and all(
+                torch.equal(g1[k], g0[k]) for k in g0)
+            worst = max(norm_diff(g1[k], g0[k], 1e-30) for k in g0)
+            check(equal or (worst <= 1e-6 and abs(l1 - l0) <= 1e-6 * abs(l0)),
+                  f"remat {mode!r}: loss {l1!r} vs {l0!r}, every gradient "
+                  f"{'bit-equal' if equal else f'within {worst:.3g}'} to the "
+                  f"step without remat; K3 {n1['K3']} launches a step; peak "
+                  f"device memory {m1 / 2**30:.3f} GiB ({m1} B) vs "
+                  f"{m0 / 2**30:.3f} GiB ({m0} B) without [{smi}]")
+
+    def remat_pcqm():
+        layers = pcqm_raw["model_height"]
+        prng = np.random.default_rng(120)
+        for micro in (PCQM_REQUEST, PCQM_REQUEST // 2, PCQM_REQUEST // 4):
+            for mode in (True, "dots"):
+                tag = (f"pcqm4mv2 egt_large remat {mode!r}, one micro-batch "
+                       f"of {micro} at l 36")
+                tr = None
+                try:
+                    batches = [synthetic.pcqm_batch(prng, micro)
+                               for _ in range(3)]
+                    tr = load_trainer({**pcqm_raw, "use_pallas": True,
+                                       "batch_size": micro, "remat": mode},
+                                      pcqm_flat)
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    tr.train_step(batches[0])       # warm-up
+                    torch.cuda.synchronize()
+
+                    def run():
+                        times, losses = [], []
+                        for bt in batches[1:]:
+                            t = time.perf_counter()
+                            losses.append(tr.train_step(bt)["loss"])
+                            times.append(time.perf_counter() - t)
+                        return times, losses
+
+                    (times, losses), _ = counted(
+                        run, dict(K1=2 * 2 * layers, K2=2 * layers),
+                        f"{tag}, 2 steps")
+                except torch.cuda.OutOfMemoryError:
+                    print(f"  {tag}: does not fit the card's memory "
+                          f"[{smi}]", flush=True)
+                    del tr
+                    torch.cuda.empty_cache()
+                    if mode is True:
+                        break                       # a smaller micro-batch
+                    continue
+                finite = all(p.grad is None or bool(torch.isfinite(
+                    p.grad).all()) for p in tr.model.parameters())
+                peak_b = torch.cuda.max_memory_allocated()
+                check(bool(np.all(np.isfinite(losses))) and finite,
+                      f"{tag}: losses {[round(x, 5) for x in losses]} and "
+                      f"every gradient finite; step ms "
+                      f"{[round(x * 1e3, 3) for x in times]}, peak device "
+                      f"memory {peak_b / 2**30:.2f} GiB ({peak_b} B), model "
+                      f"and optimizer state included [{smi}]")
+                del tr
+                torch.cuda.empty_cache()
+            else:
+                return
+        check(False, "pcqm4mv2 egt_large remat: no micro-batch of 256 or "
+              "more fits")
+
+    for what, fn in (("remat on zinc path A", remat_zinc),
+                     ("remat on pcqm4mv2 egt_large", remat_pcqm)):
+        try:
+            fn()
+        except Exception:                           # noqa: BLE001 - report
+            traceback.print_exc()
+            check(False, f"phase 5i: {what}")
+
     # ---- 6. the engine: the CLI triple on synthetic ZINC at the ZINC-12k
     # split sizes, the flagship config as shipped (path A: K3; K4, K5)
     from egt_torch import do_evaluations, end_training, native, run_training
@@ -2216,6 +2539,36 @@ def main() -> int:
                   f"{st['wait_share']:.4f} of the training time waiting for "
                   f"the next batch [{smi}]", flush=True)
         return {**cfg, "num_epochs": 3}, sizes, evals
+
+    # ---- 6h. `profile_dir` on phase 6's data: `run_training` of the
+    # flagship config, 17 steps and one validation batch, traces global
+    # steps 10 to 15 (JAX's window) with `torch.profiler`; the trace holds
+    # K3's kernel 10 times a step for those 6 steps and nothing else of K3
+    # (none from before step 10, none of the validation after step 16)
+    def profile_run(tmp: Path, cfg: dict):
+        trace = tmp / "trace"
+        path = tmp / "profile.json"
+        path.write_text(json.dumps({
+            **cfg, "save_path": str(tmp / "profile_run"), "num_epochs": 1,
+            "steps_per_epoch": 17, "validation_steps": 1,
+            "log_tensorboard": False, "profile_dir": str(trace)}))
+        t = time.perf_counter()
+        counted(lambda: run_training.main([str(path)]),
+                dict(K3=10 * 18, K4=10 * 17, K5=10 * 17),
+                "profile_dir run_training, 17 steps and 1 validation batch")
+        files = sorted(trace.glob("*.json"))
+        check(len(files) == 1, f"profile_dir: trace files {files}")
+        events = json.loads(files[0].read_text())["traceEvents"]
+        k3 = [ev for ev in events if ev.get("cat") == "kernel"
+              and "fused_layer_fwd" in ev.get("name", "")]
+        busy = sum(ev.get("dur", 0) for ev in events
+                   if ev.get("cat") == "kernel")
+        check(len(k3) == 6 * 10,
+              f"profile_dir: {len(k3)} K3 kernels in the trace of steps "
+              f"10-15 (expected 60; {len(events)} events, "
+              f"{busy / 1e3:.3f} ms of kernels; {files[0].name}, "
+              f"{files[0].stat().st_size} B; the run "
+              f"{time.perf_counter() - t:.1f} s) [{smi}]")
 
     # ---- 6g. the remaining entry points on the engine's ZINC run (its
     # final weights): the prediction dump, the serving artifacts of paths A
@@ -2387,6 +2740,11 @@ def main() -> int:
             except Exception:                       # noqa: BLE001 - report
                 traceback.print_exc()
                 check(False, "phase 6g: the remaining entry points")
+            try:
+                profile_run(Path(tmp), engine_out[0])
+            except Exception:                       # noqa: BLE001 - report
+                traceback.print_exc()
+                check(False, "phase 6h: profile_dir")
     except Exception:                               # noqa: BLE001 - report
         traceback.print_exc()
         check(False, "phase 6: engine")
@@ -2916,6 +3274,44 @@ def main() -> int:
                              f"{tag})", "route": "cuda", "source": source,
                      "replaces": replaces, "launches": n, **r,
                      "library_ms": None})
+    # the variants of phases 4h / 5h and `remat` (phase 5i) at the flagship
+    # ZINC shapes: phase 3's bf16 training-mode cases (their shapes are the
+    # variants'), with the launches of each variant's timed steps, and K3's
+    # a step under `remat` (the forward's and the recompute's)
+    flagship = {
+        "K1": (("attention", torch.bfloat16, True), "fwd",
+               "egt_torch/csrc/egt_attention_fwd.cu",
+               "egt_tpu/ops/egt_pallas.py:116"),
+        "K2": (("attention", torch.bfloat16, True), "bwd",
+               "egt_torch/csrc/egt_attention_bwd.cu",
+               "egt_tpu/ops/egt_pallas.py:184"),
+        "K3": (("layer", torch.bfloat16, True), "fwd",
+               "egt_torch/csrc/fused_layer_fwd.cu",
+               "egt_tpu/ops/fused_layer_pallas.py:373"),
+        "K4": (("layer", torch.bfloat16, True), "tail",
+               "egt_torch/csrc/fused_layer_bwd_tail.cu",
+               "egt_tpu/ops/fused_layer_pallas.py:789"),
+        "K5": (("layer", torch.bfloat16, True), "attn",
+               "egt_torch/csrc/fused_layer_bwd_attn.cu",
+               "egt_tpu/ops/fused_layer_pallas.py:868"),
+        "K8": (("edge", torch.bfloat16), "fwd",
+               "egt_torch/csrc/edge_block_fwd.cu",
+               "egt_tpu/ops/edge_block_pallas.py:92"),
+        "K9": (("edge", torch.bfloat16), "bwd",
+               "egt_torch/csrc/edge_block_bwd.cu",
+               "egt_tpu/ops/edge_block_pallas.py:101")}
+    runs = [(tag.split(" (")[0], n) for tag, n in variant_launches.items()]
+    if True in remat_runs:
+        runs.append(("remat, f32 step", {"K3": remat_runs[True][2]["K3"]}))
+    for what, launches in runs:
+        for key, (res_key, part, source, replaces) in flagship.items():
+            r = results.get(res_key, {}).get(part)
+            if r is None or not launches.get(key):
+                continue
+            rows.append({"name": f"{Path(source).stem} ({what})",
+                         "route": "cuda", "source": source,
+                         "replaces": replaces, "launches": launches[key],
+                         **r, "library_ms": None})
     print(json.dumps({"kernels": rows}))
 
     if failures:

@@ -5,7 +5,9 @@ Keras-style initialisers (drawn from an explicit `torch.Generator`), `dense`,
 the -1-masked token embedding and its multi-column form (the OGB atom and
 bond features of PCQM4Mv2), the masked dense embedding (MNIST / CIFAR10
 superpixel features), the clipped hop stack, the distance objective's
-targets, the pairwise concatenation of the TSP edge readout, the virtual
+targets, the one-hot degree encoding, the diffusion of the edge features
+over the column-normalised adjacency, the pairwise sum of a node2edge
+embedding, the pairwise concatenation of the TSP edge readout, the virtual
 nodes' rows, edge blocks and hard-mask extension, and the SVD and
 eigenvector positional encodings with their training-time sign flips.
 
@@ -47,6 +49,16 @@ def dense_params(in_dim, out_dim, generator, device=None) -> nn.ParameterDict:
     return nn.ParameterDict({
         "kernel": nn.Parameter(glorot_uniform((in_dim, out_dim), generator,
                                               device)),
+        "bias": nn.Parameter(torch.zeros(out_dim, device=device))})
+
+
+def dense_params_uniform(in_dim, out_dim, generator,
+                         device=None) -> nn.ParameterDict:
+    """A Dense layer with the Keras 'uniform' kernel (the degree
+    encoding's, as the reference draws it)."""
+    return nn.ParameterDict({
+        "kernel": nn.Parameter(uniform_05((in_dim, out_dim), generator,
+                                          device)),
         "bias": nn.Parameter(torch.zeros(out_dim, device=device))})
 
 
@@ -133,6 +145,42 @@ def distance_targets(adj, distance_target: int):
         hop = torch.clamp(torch.matmul(adj, hop), 0.0, 1.0)
         total = total + hop
     return torch.round(total).long()
+
+
+def degree_encoding(adj, max_degree: int, bidir: bool):
+    """(b, l, max_degree + 1) f32: the one-hot in-degree (column sums of
+    the adjacency, clipped to `max_degree`), with `bidir` the one-hot
+    out-degree (row sums) beside it."""
+    def one_hot(deg):
+        deg = torch.clamp(deg, max=max_degree).long()
+        return torch.nn.functional.one_hot(deg, max_degree + 1).float()
+    in_oh = one_hot(torch.sum(adj, dim=1))
+    if not bidir:
+        return in_oh
+    return torch.cat([in_oh, one_hot(torch.sum(adj, dim=2))], dim=-1)
+
+
+def edge_diffusion(e, adj, edge_valid, steps: int):
+    """The edge features `e` (b, l, l, w), zeroed on invalid pairs,
+    diffused `steps` times over the column-normalised adjacency (a column
+    of no edges stays 0): (b, l, l, w * steps), each step's result after
+    the last."""
+    den = torch.sum(adj, dim=1, keepdim=True)
+    a_norm = torch.where(den > 0, adj / torch.where(den > 0, den, 1.0), 0.0)
+    ed = e * edge_valid.to(e.dtype)[..., None]
+    b, l, _, w = ed.shape
+    outs = []
+    for _ in range(steps):
+        ed = torch.bmm(a_norm, ed.reshape(b, l, l * w)).reshape(b, l, l, w)
+        outs.append(ed)
+    return torch.cat(outs, dim=-1)
+
+
+def pairwise_add(x):
+    """(b, l, 2w) -> (b, l, l, w): the row node's first half plus the
+    column node's second half on every pair."""
+    w = x.shape[-1] // 2
+    return x[:, :, None, :w] + x[:, None, :, w:]
 
 
 def pairwise_cat(row, col):

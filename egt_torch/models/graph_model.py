@@ -1,43 +1,56 @@
 """EGTGraphModel: config + `nn.Module` with the forward pass.
 
-Port of `egt_tpu/models/graph_model.py` for the ZINC, SBM, superpixel,
-TSP and PCQM4Mv2 paths: token (one column, or the multi-column OGB atom
-features) or dense (Keras-masked) node embeddings, the SVD or eigenvector
-positional encoding added to them (with its training-time sign flips), the
-edge channel from token (one column or several) or dense edge embeddings
-plus the adjacency-hop embedding (or, with `edge_input_kind="none"`, from
-the hop embedding alone; built only when something reads it), the learned
+Port of `egt_tpu/models/graph_model.py` on one device: token (one column,
+or the multi-column OGB atom features) or dense (Keras-masked) node
+embeddings, the SVD or eigenvector positional encoding added to them (with
+its training-time sign flips) and the one-hot degree encoding; the edge
+channel from token (one column or several) or dense edge embeddings plus
+the adjacency-hop embedding (with `include_xpose` the transposed hops
+beside the hops), the pairwise sum of the node2edge embedding and the
+diffusion of the edge features (or, with `edge_input_kind="none"`, from
+the hop embedding alone; built only when something reads it); the learned
 virtual nodes (rows prepended to h, row / column / box blocks to e, the
-node mask and a hard mask extended), the layer stack of any of the four
-edge channels (with the training draws and dropout when `training`), the
-final norms, the distance objective's head on the edge channel, and the
-graph readout (the masked mean-pool, or the virtual nodes' rows), the
-per-node readout or the per-pair edge readout (on the edge channel, or in
-its pairwise-cat form on the two nodes' features and the edge channel);
-the head and the node and edge readouts leave the virtual nodes out. The
-residual and constrained channels hand the head and the edge readout the
-final-normed e, the `bias` and `none` channels the raw e.
-`GraphModelConfig` is redeclared with the JAX fields, defaults and checks
-(the JAX module imports jax). Parameters carry the JAX params-tree names,
-so a state-dict key such as `stack.layers.0.dense_qkv.kernel` is the flat
-npz key `stack/layers/0/dense_qkv/kernel` (see `egt_torch.weights`).
+node mask and a hard mask extended); the layer stack of any of the four
+edge channels with LayerNorm or BatchNorm, FFN cross-talk and any `jax.nn`
+activation (with the training draws and dropout when `training`), each
+layer recomputed in the backward under `remat` (True: all of it; "dots":
+all but the plain matrix products); the final norms, the distance
+objective's head on the edge channel, and the graph readout (the masked
+mean-pool, or the virtual nodes' rows, with `readout_edges` the mean of
+the edge channel over the valid pairs beside it), the per-node readout or
+the per-pair edge readout (on the edge channel, or in its pairwise-cat
+form on the two nodes' features and the edge channel); the head and the
+node and edge readouts leave the virtual nodes out. The residual and
+constrained channels hand the head and the edge readouts the final-normed
+e, the `bias` and `none` channels the raw e. `GraphModelConfig` is
+redeclared with the JAX fields, defaults and checks (the JAX module
+imports jax). Parameters carry the JAX params-tree names, so a state-dict
+key such as `stack.layers.0.dense_qkv.kernel` is the flat npz key
+`stack/layers/0/dense_qkv/kernel` (see `egt_torch.weights`); a BatchNorm's
+`moving_mean` / `moving_var` are parameters that no gradient reaches.
 
 The forward's side outputs, the JAX `ModelContext.losses` / `.metrics` /
-`.analysis`, come back in a `ModelContext` beside the predictions when the
-caller asks (`with_context=True`): the distance objective's weighted loss
-under `losses` and its unweighted value under `metrics`; with
-`capture_analysis` each layer's attention tensors under `analysis` (the
-plain path, no kernel: `models/layers.py`), and with
+`.stats_updates` / `.analysis`, come back in a `ModelContext` beside the
+predictions when the caller asks (`with_context=True`): the distance
+objective's weighted loss under `losses` and its unweighted value under
+`metrics`; a training forward's BatchNorm moving-statistics updates under
+`stats_updates` (the training step writes them, `training/steps.py`);
+with `capture_analysis` each layer's attention tensors under `analysis`
+(the plain path, no kernel, no `remat`: `models/layers.py`), and with
 `combine_layer_repr` the lists `all_node_repr` / `all_edge_repr` there.
 `analyze` is the JAX `analyze`: the forward re-run with capture on.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from . import features as F
 from . import layers as L
@@ -147,41 +160,30 @@ class GraphModelConfig:
 
 
 def unsupported(cfg: GraphModelConfig) -> list[str]:
-    """The model variants this slice of the port does not run yet."""
-    out = []
-    if cfg.node2edge_xtalk > 0 or cfg.edge2node_xtalk > 0:
-        out.append("FFN cross-talk")
-    if cfg.node_normalization != "layer" or cfg.edge_normalization != "layer":
-        out.append("BatchNorm")
-    if cfg.node_input_kind not in ("tokens", "dense") \
-            or cfg.edge_input_kind not in ("tokens", "dense", "none"):
-        out.append(f"inputs {cfg.node_input_kind!r} / "
-                   f"{cfg.edge_input_kind!r}")
-    if cfg.needs_edge_embedding and cfg.edge_input_kind == "none" \
-            and not (cfg.use_adj and cfg.upto_hop >= 1):
-        out.append("an edge channel with neither edge inputs nor hops")
-    if cfg.readout_kind not in ("graph", "node", "edge") or cfg.readout_edges:
-        out.append(f"readout {cfg.readout_kind!r} (edges={cfg.readout_edges})")
-    if cfg.readout_kind == "edge" and cfg.distance_loss > 0:
-        # JAX's edge readout would read the distance head's logits
-        out.append("the distance head with the edge readout")
-    if cfg.max_degree_enc > 0 or cfg.max_diffuse_t > 0 or cfg.node2edge_embed \
-            or cfg.include_xpose:
-        out.append("degree / diffusion / node2edge / transposed-hop encodings")
-    if cfg.activation not in ("elu", "relu") \
-            and not str(cfg.activation).startswith("lrelu"):
-        out.append(f"activation {cfg.activation!r}")
-    return out
+    """The configs the port refuses. Every option of JAX's
+    `GraphModelConfig` runs on one device; what is left is the distance
+    head feeding a readout of the edge channel, where JAX's readout reads
+    the head's logits (of `distance_target + 1` features, not the edge
+    width the readout takes) and fails."""
+    if cfg.distance_loss > 0 and (cfg.readout_kind == "edge"
+                                  or cfg.readout_edges):
+        return ["the distance head with the edge readout (JAX's readout "
+                "would read the distance head's logits)"]
+    return []
 
 
 @dataclass
 class ModelContext:
     """Side outputs of one forward pass: auxiliary losses (added to the
     scheme's loss) and metric scalars (reported beside its metrics), each a
-    0-d f32 tensor by name, and the analysis captures (JAX's keys, e.g.
-    `mha_00/mat`; the `combine_layer_repr` lists)."""
+    0-d f32 tensor by name, the BatchNorm moving-statistics updates of a
+    training forward ({JAX path under `stack`, e.g. `("layers", 0,
+    "node_ffn", "norm")`: {"moving_mean", "moving_var"}}), and the analysis
+    captures (JAX's keys, e.g. `mha_00/mat`; the `combine_layer_repr`
+    lists)."""
     losses: dict = field(default_factory=dict)
     metrics: dict = field(default_factory=dict)
+    stats_updates: dict = field(default_factory=dict)
     analysis: dict = field(default_factory=dict)
 
 
@@ -224,10 +226,17 @@ class EGTGraphModel(nn.Module):
     def __init__(self, cfg: GraphModelConfig, *, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        missing = unsupported(cfg)
-        if missing:
-            raise NotImplementedError("not ported yet: " + ", ".join(missing)
-                                      + " (ROADMAP §A item 3)")
+        refused = unsupported(cfg)
+        if refused:
+            raise NotImplementedError("refused: " + ", ".join(refused))
+        if cfg.node_input_kind not in ("tokens", "dense"):
+            raise ValueError(f"unknown node_input_kind "
+                             f"{cfg.node_input_kind!r}")
+        if cfg.edge_input_kind not in ("tokens", "dense", "none"):
+            raise ValueError(f"unknown edge_input_kind "
+                             f"{cfg.edge_input_kind!r}")
+        if cfg.readout_kind not in ("graph", "node", "edge"):
+            raise ValueError(f"unknown readout_kind {cfg.readout_kind!r}")
         self.cfg = cfg
         dev = resolve_device(device)
         if generator is None:
@@ -244,6 +253,9 @@ class EGTGraphModel(nn.Module):
                                           generator)
         if cfg.use_eig and cfg.transform_eig:
             self.eig_emb = F.dense_params(cfg.sel_eig_features, w, generator)
+        if cfg.max_degree_enc > 0:
+            din = (cfg.max_degree_enc + 1) * (2 if cfg.bidir_degree else 1)
+            self.degree_emb = F.dense_params_uniform(din, w, generator)
         if cfg.needs_edge_embedding:
             if cfg.edge_input_kind == "tokens":
                 self.fm_emb = F.embedding_params(
@@ -253,7 +265,19 @@ class EGTGraphModel(nn.Module):
                 self.fm_emb = F.dense_params(cfg.edge_feature_dim, ew,
                                              generator)
             if cfg.use_adj and cfg.upto_hop >= 1:
-                self.adj_emb = F.dense_params(cfg.upto_hop, ew, generator)
+                self.adj_emb = F.dense_params(
+                    cfg.upto_hop * (2 if cfg.include_xpose else 1), ew,
+                    generator)
+            if cfg.node2edge_embed:
+                if cfg.node_input_kind == "tokens":
+                    self.node2edge_emb = F.embedding_params(
+                        cfg.num_node_features + 1, 2 * ew, generator)
+                else:
+                    self.node2edge_emb = F.dense_params(
+                        cfg.node_feature_dim, 2 * ew, generator)
+            if cfg.max_diffuse_t > 0:
+                self.diffusion_emb = F.dense_params(
+                    ew * cfg.max_diffuse_t, ew, generator)
         k = cfg.num_virtual_nodes
         if k > 0:
             # raw arrays under the JAX names, drawn as JAX draws them
@@ -265,9 +289,11 @@ class EGTGraphModel(nn.Module):
         stack = {"layers": nn.ModuleList(
             [L.EGTLayer(cfg, generator) for _ in range(cfg.model_height)])}
         if (not cfg.add_n_norm) and cfg.do_final_norm:
-            stack["node_norm_final"] = L.norm_params(w)
+            stack["node_norm_final"] = L.norm_params(
+                w, kind=cfg.node_normalization)
             if cfg.edge_residual:
-                stack["edge_norm_final"] = L.norm_params(ew)
+                stack["edge_norm_final"] = L.norm_params(
+                    ew, kind=cfg.edge_normalization)
         self.stack = nn.ModuleDict(stack)
         if cfg.distance_loss > 0:
             mlp, din = self._mlp_params(ew, generator)
@@ -284,11 +310,13 @@ class EGTGraphModel(nn.Module):
         """The readout MLP's input width (`_readout_in_dim` in JAX): the
         graph readout reads the k virtual nodes' rows side by side (or the
         mean node), the edge readout the edge channel, in its pairwise-cat
-        form the two nodes' features before it."""
+        form the two nodes' features before it; `readout_edges` adds the
+        mean pair's edge features to the graph's."""
         cfg = self.cfg
         if cfg.readout_kind == "graph":
             # with virtual nodes, the graph is read from their k rows
-            return cfg.model_width * max(1, cfg.num_virtual_nodes)
+            return cfg.model_width * max(1, cfg.num_virtual_nodes) + (
+                cfg.edge_width if cfg.readout_edges else 0)
         if cfg.readout_kind == "node":
             return cfg.model_width
         if cfg.use_node_embeddings:
@@ -359,8 +387,9 @@ class EGTGraphModel(nn.Module):
     def embed_nodes(self, batch, training: bool = False, pe_seed=None):
         """The node embedding in f32 (virtual nodes not yet prepended):
         tokens (one column or several) or masked dense features, plus
-        the SVD or eigenvector PE. `pe_seed` (the step's seed) keys the PE's
-        sign flips at training time, folded with the JAX tag of each PE."""
+        the SVD or eigenvector PE, plus the degree encoding. `pe_seed` (the
+        step's seed) keys the PE's sign flips at training time, folded with
+        the JAX tag of each PE."""
         cfg = self.cfg
         dev = self.device
         nf = torch.as_tensor(batch["node_features"], device=dev)
@@ -387,23 +416,53 @@ class EGTGraphModel(nn.Module):
                 sel=cfg.sel_eig_features, model_width=cfg.model_width,
                 transform=cfg.transform_eig, random_neg=cfg.random_neg,
                 training=training, seed=seed("eig"))
+        if cfg.max_degree_enc > 0:
+            adj = torch.as_tensor(batch["graph_matrix"], device=dev).float()
+            h = h + F.dense(self.degree_emb, F.degree_encoding(
+                adj, cfg.max_degree_enc, cfg.bidir_degree))
         return h
 
     def _embed_edges(self, batch, adj):
+        """The edge channel in f32: the edge features' embedding, the hop
+        embedding (with `include_xpose` the transposed hops beside the
+        hops), the pairwise sum of the node2edge embedding and the
+        diffusion of the edge features' embedding, summed in that order."""
         cfg = self.cfg
+        dev = self.device
         parts = []
+        fm_emb = None
         if cfg.edge_input_kind != "none":
-            fm = torch.as_tensor(batch["feature_matrix"], device=self.device)
+            fm = torch.as_tensor(batch["feature_matrix"], device=dev)
             if cfg.edge_input_kind == "tokens":
-                parts.append(_token_embed(self.fm_emb, fm,
-                                          cfg.edge_vocab_sizes))
+                fm_emb = _token_embed(self.fm_emb, fm, cfg.edge_vocab_sizes)
             else:
-                parts.append(F.masked_dense_embed(self.fm_emb, fm.float(),
-                                                  cfg.mask_value))
+                fm_emb = F.masked_dense_embed(self.fm_emb, fm.float(),
+                                              cfg.mask_value)
+            parts.append(fm_emb)
         if cfg.use_adj and cfg.upto_hop >= 1:
             hops = F.stack_hops(adj, cfg.upto_hop, cfg.clip_hops)
+            if cfg.include_xpose:
+                hops = torch.cat([hops, hops.transpose(1, 2)], dim=-1)
             parts.append(F.dense(self.adj_emb, hops))
-        return parts[0] if len(parts) == 1 else parts[0] + parts[1]
+        if cfg.node2edge_embed:
+            nf = torch.as_tensor(batch["node_features"], device=dev)
+            if cfg.node_input_kind == "tokens":
+                x = F.token_embed(self.node2edge_emb, nf)
+            else:
+                x = F.dense(self.node2edge_emb, nf.float())
+            parts.append(F.pairwise_add(x))
+        if cfg.max_diffuse_t > 0:
+            if fm_emb is None:
+                raise ValueError("max_diffuse_t diffuses the edge features, "
+                                 "and edge_input_kind is 'none'")
+            parts.append(F.dense(self.diffusion_emb, F.edge_diffusion(
+                fm_emb, adj, self.edge_valid(batch), cfg.max_diffuse_t)))
+        if not parts:
+            raise ValueError("edge stream requested but no edge inputs")
+        e = parts[0]
+        for x in parts[1:]:
+            e = e + x
+        return e
 
     def forward(self, batch: dict, training: bool = False, seeds=None,
                 pe_seed=None, with_context: bool = False,
@@ -422,7 +481,9 @@ class EGTGraphModel(nn.Module):
         in JAX); training draws and dropout need it. `pe_seed` is the step's seed for the PE sign flips
         (`random_neg`). `capture_analysis` runs every layer on the plain
         path and fills the context's `analysis` (with virtual nodes the
-        captures keep their k rows, as in JAX)."""
+        captures keep their k rows, as in JAX). With `cfg.remat` and
+        autograd on, each layer runs under `torch.utils.checkpoint`, off
+        under capture (as in JAX)."""
         cfg = self.cfg
         dev = self.device
         if seeds is not None and len(seeds) != cfg.model_height:
@@ -453,34 +514,63 @@ class EGTGraphModel(nn.Module):
             e = e.to(dtype)
         ctx = ModelContext()
         analysis = ctx.analysis if capture_analysis else None
-        reprs = [] if cfg.combine_layer_repr else None
+        all_reprs = [] if cfg.combine_layer_repr else None
+
+        def run_layer(layer, h, e, seed, i):
+            # the side outputs are returned, not written into the caller's
+            # containers: under `remat` the backward runs this again
+            updates = {}
+            reprs = [] if cfg.combine_layer_repr else None
+            h, e = layer(h, e, node_mask, edge_mask, training, seed,
+                         analysis, i, reprs, updates)
+            return h, e, updates, reprs
+
+        remat = bool(cfg.remat) and not capture_analysis \
+            and torch.is_grad_enabled()
         for i, layer in enumerate(self.stack["layers"]):
-            h, e = layer(h, e, node_mask, edge_mask, training,
-                         None if seeds is None else seeds[i], analysis, i,
-                         reprs)
-        if reprs is not None:
-            ctx.analysis["all_node_repr"] = [n for n, _ in reprs]
-            ctx.analysis["all_edge_repr"] = [x for _, x in reprs
+            seed = None if seeds is None else seeds[i]
+            if remat:
+                # the draws are keyed by explicit seeds (`ops/rng.py`,
+                # `layers.dropout`), so the recompute draws the same bits
+                # with no global RNG state to stash
+                h, e, updates, reprs = checkpoint(
+                    run_layer, layer, h, e, seed, i, use_reentrant=False,
+                    preserve_rng_state=False,
+                    context_fn=remat_context(cfg.remat))
+            else:
+                h, e, updates, reprs = run_layer(layer, h, e, seed, i)
+            for path, upd in updates.items():
+                ctx.stats_updates[("layers", i) + path] = upd
+            if all_reprs is not None:
+                all_reprs += reprs
+        if all_reprs is not None:
+            ctx.analysis["all_node_repr"] = [n for n, _ in all_reprs]
+            ctx.analysis["all_edge_repr"] = [x for _, x in all_reprs
                                              if x is not None]
         # the graph and node readouts read no edges: the final edge norm
         # of the residual / constrained channels runs for the edge readout,
-        # and for the distance head when the caller takes the side outputs;
-        # the `bias` and `none` channels hand them the raw e. Both read the
-        # graph's pairs alone: e loses its virtual rows and columns first
-        # (JAX crops after the norm, which acts on each pair alone)
+        # `readout_edges`, and the distance head when the caller takes the
+        # side outputs (and for a BatchNorm's statistics in training); the
+        # `bias` and `none` channels hand them the raw e. They read the
+        # graph's pairs alone: e loses its virtual rows and columns after
+        # the norm, as in JAX (a BatchNorm's statistics count them)
         distance = with_context and cfg.distance_loss > 0
-        reads_e = distance or cfg.readout_kind == "edge"
+        reads_e = distance or cfg.readout_kind == "edge" or cfg.readout_edges
+        if (not cfg.add_n_norm) and cfg.do_final_norm:
+            st = self.stack
+            h = L.norm(cfg.node_normalization, st["node_norm_final"], h,
+                       training, ctx.stats_updates, ("node_norm_final",))
+            if cfg.edge_residual and (reads_e or (
+                    training and cfg.edge_normalization == "batch")):
+                e = L.norm(cfg.edge_normalization, st["edge_norm_final"], e,
+                           training, ctx.stats_updates, ("edge_norm_final",))
         if k > 0 and reads_e:
             e = e[:, k:, k:]
-        if (not cfg.add_n_norm) and cfg.do_final_norm:
-            h = L.layer_norm(self.stack["node_norm_final"], h)
-            if cfg.edge_residual and reads_e:
-                e = L.layer_norm(self.stack["edge_norm_final"], e)
         if distance:
             metric = self._distance_loss(e, adj)
             ctx.metrics["distance_loss"] = metric
             ctx.losses["distance_loss"] = metric * cfg.distance_loss
-        out = self._readout(h, e, node_mask).float()
+        out = self._readout(h, e, node_mask, batch).float()
         return (out, ctx) if with_context else out
 
     def analyze(self, batch: dict, training: bool = False, seeds=None,
@@ -516,9 +606,11 @@ class EGTGraphModel(nn.Module):
             x = L.activation(self.cfg.activation, F.dense(dp, x))
         return F.dense(self.target, x)
 
-    def _readout(self, h, e, node_mask):
+    def _readout(self, h, e, node_mask, batch):
         """Graph: masked mean-pool over valid nodes (with virtual nodes,
-        their k rows side by side) -> MLP -> target. Node: the MLP on every
+        their k rows side by side), with `readout_edges` the mean of the
+        edge channel over the valid pairs beside it -> MLP -> target. Node:
+        the MLP on every
         node; edge: on every pair of the edge channel (final-normed for the
         residual / constrained channels; padding included, the loss masks
         it), with `use_node_embeddings` preceded by the pair's two node
@@ -533,8 +625,36 @@ class EGTGraphModel(nn.Module):
                 e = torch.cat([F.pairwise_cat(hf, hf), e.float()], dim=-1)
             return self._mlp_out(e)
         if k > 0:
-            return self._mlp_out(h[:, :k].reshape(h.shape[0], -1))
-        m = node_mask.float()[..., None]
-        s = torch.sum(h.float() * m, dim=1)
-        c = torch.sum(m, dim=1)
-        return self._mlp_out(s / torch.clamp(c, min=1.0))
+            x = h[:, :k].reshape(h.shape[0], -1).float()
+        else:
+            m = node_mask.float()[..., None]
+            x = torch.sum(h.float() * m, dim=1) / torch.clamp(
+                torch.sum(m, dim=1), min=1.0)
+        if self.cfg.readout_edges:
+            em = self.edge_valid(batch).float()[..., None]
+            es = torch.sum(e.float() * em, dim=(1, 2))
+            x = torch.cat([x, es / torch.clamp(torch.sum(em, dim=(1, 2)),
+                                               min=1.0)], dim=-1)
+        return self._mlp_out(x)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """`remat: "dots"`, the counterpart of JAX's
+    `dots_with_no_batch_dims_saveable`: the outputs of the plain matrix
+    products (`aten.mm`, `aten.addmm`: the Dense layers) are saved, and
+    everything else is recomputed, the batched products (`aten.bmm`: the
+    attention core's and the hops') included. The hand-written kernels
+    launch inside `autograd.Function`s that no dispatch mode sees, so they
+    are always recomputed, as JAX recomputes a `pallas_call`."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_context(mode):
+    """The checkpoint's `context_fn` for `cfg.remat`: True recomputes the
+    whole layer, "dots" saves the plain matrix products (`_dots_policy`)."""
+    if mode == "dots":
+        return functools.partial(create_selective_checkpoint_contexts,
+                                 _dots_policy)
+    return noop_context_fn

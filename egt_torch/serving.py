@@ -9,8 +9,10 @@ none), `graph_matrix` (b, l, l) (the adjacency may be a narrow integer
 type), and with a positional encoding `singular_vectors` (b, l, k, 2) or
 `eigen_vectors` (b, l, k); -1 pads the features, 0 the PEs. The
 predictions are the readout's alone: the distance head, whose output is a
-training and evaluation metric, does not run here. On a CUDA device the
-layers run through the hand-written kernels (see `models/layers.py`).
+training and evaluation metric, does not run here. A BatchNorm normalises
+with its moving statistics, which travel with the weights. On a CUDA
+device the layers run through the hand-written kernels (see
+`models/layers.py`).
 
 - `load_predictor(config, weights, device=None)` serves the eager model at
   any pad length l.

@@ -82,6 +82,8 @@ def random_flat_params(cfg: GraphModelConfig, seed: int = 0) -> dict:
             x = rng.uniform(-0.05, 0.05, shape)
         elif leaf == "gamma":
             x = 1.0 + 0.1 * rng.normal(size=shape)
+        elif leaf == "moving_var":
+            x = rng.uniform(0.5, 1.5, shape)
         else:
             x = 0.1 * rng.normal(size=shape)
         flat[name] = x.astype(np.float32)

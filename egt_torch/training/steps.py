@@ -7,8 +7,11 @@ seed for the positional encodings' sign flips), the scheme's loss
 (`schemes.py`) plus the model's auxiliary losses (the distance objective),
 whose unweighted values join the metrics as (value, 1) pairs, the
 `l2_reg` penalty on every `kernel` and `table`, backward
-over one or more microbatches with their gradients averaged uniformly, and
-one optimizer update. The scheme's loss is the config's: the MAE of the
+over one or more microbatches with their gradients averaged uniformly, the
+BatchNorm moving statistics written after each microbatch's backward (in
+order, as JAX's scan merges them, with no gradient and outside the
+optimizer; a recomputed forward under `remat` returns none), and one
+optimizer update. The scheme's loss is the config's: the MAE of the
 graph target (ZINC), the cross-entropy of the graph's class with the
 accuracy beside it (MNIST, CIFAR10), the class-weighted cross-entropy
 over the valid nodes with the accuracy beside it (PATTERN, CLUSTER), or the
@@ -43,11 +46,17 @@ L2_KEYS = ("kernel", "table")
 
 
 class Trainer:
-    """Model, optimizer and step counter of one training run."""
+    """Model, optimizer and step counter of one training run.
 
-    def __init__(self, config, weights=None, device=None):
+    `model_config` (a `GraphModelConfig`) replaces the model the run config
+    gives: the model API's variants that no run config names (cross-talk,
+    BatchNorm, the encodings, `readout_edges`), trained with the scheme's
+    loss."""
+
+    def __init__(self, config, weights=None, device=None, model_config=None):
         c = schemes.resolve_config(config)
-        cfg = schemes.model_config_from_config(config)
+        cfg = (schemes.model_config_from_config(config)
+               if model_config is None else model_config)
         self.model = EGTGraphModel(
             cfg, device=device,
             generator=torch.Generator().manual_seed(int(c.seed)))
@@ -91,6 +100,11 @@ class Trainer:
         """(total loss, {metric: (sum, count)}) of a batch: the scheme's
         loss plus the model's auxiliary losses and the L2 penalty; the
         model's metrics join the scheme's as (value, 1) pairs."""
+        loss, pairs, _ = self._loss(batch, training, seeds, pe_seed)
+        return loss, pairs
+
+    def _loss(self, batch, training, seeds=None, pe_seed=None):
+        """`compute_loss` and the forward's BatchNorm updates."""
         out, ctx = self.model(batch, training=training, seeds=seeds,
                               pe_seed=pe_seed, with_context=True)
         target = torch.as_tensor(batch["target"], device=self.device)
@@ -108,7 +122,18 @@ class Trainer:
                                             for p in self._l2)
         for name, v in ctx.metrics.items():
             pairs[name] = (v, torch.ones_like(v))
-        return loss, pairs
+        return loss, pairs, ctx.stats_updates
+
+    @torch.no_grad()
+    def write_stats(self, stats_updates: dict) -> None:
+        """Write a forward's BatchNorm moving statistics ({path under
+        `stack`: {name: tensor}}) into the model."""
+        for path, upd in stats_updates.items():
+            mod = self.model.stack
+            for key in path:
+                mod = mod[key]
+            for name, value in upd.items():
+                mod[name].copy_(value)
 
     @staticmethod
     def _report(loss, pairs) -> dict:
@@ -127,16 +152,18 @@ class Trainer:
         """One optimizer update: the gradients of the microbatches' losses
         summed, then divided by their number (`trainer.py:381-408`: uniform
         averaging, the big batch's gradient for graph-level targets). Each
-        microbatch's pairs go into `acc` if given. Returns the last
-        microbatch's (loss, pairs)."""
+        microbatch's pairs go into `acc` if given, and its BatchNorm
+        moving statistics into the model after its backward. Returns the
+        last microbatch's (loss, pairs)."""
         self.optimizer.zero_grad()
         accum = self.grad_accum_steps > 1
         for i, mb in enumerate(microbatches):
             micro = i if accum else None
-            loss, pairs = self.compute_loss(
+            loss, pairs, stats = self._loss(
                 mb, True, self.layer_seeds(self.step, micro),
                 self.pe_seed(self.step, micro))
             loss.backward()
+            self.write_stats(stats)
             if acc is not None:
                 acc.add(self._with_loss(loss, pairs))
         if len(microbatches) > 1:
@@ -184,9 +211,11 @@ class Trainer:
         return flat_arrays(self.model)
 
 
-def load_trainer(config, weights=None, device=None) -> Trainer:
+def load_trainer(config, weights=None, device=None,
+                 model_config=None) -> Trainer:
     """A `Trainer` for a run config (a dict or JSON path), starting from
     `weights` ({JAX flat name: array} or a flat npz path; None draws them
     from `config.seed`), on `device` (CUDA unless the caller names a
-    device; raises with no GPU)."""
-    return Trainer(config, weights, device)
+    device; raises with no GPU); `model_config` replaces the run config's
+    model (see `Trainer`)."""
+    return Trainer(config, weights, device, model_config)

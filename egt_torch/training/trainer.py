@@ -27,11 +27,16 @@ several batches), each batch's rows are padded with NaN to the split's
 largest pad first (`concat_padded`); JAX's concatenation raises there
 (ROADMAP §C). Wherever JAX completes, the arrays are JAX's.
 
+`profile_dir` traces global steps 10 to 15 with `torch.profiler` (the
+host's activity, and the card's on a CUDA device) into
+`<profile_dir>/trace_steps_10-15.json`, a Chrome trace, as JAX traces
+them with `jax.profiler`; a run that ends inside the window writes what it
+traced.
+
 Not ported yet, and refused rather than ignored: `edge_partition` > 1 and
-`num_devices` > 1 (ROADMAP §A item 6), `profile_dir` (item 5).
-`steps_per_dispatch` is accepted and runs one step a dispatch, which gives
-the JAX `multi_step` result. `distributed` on one card is a mesh of one, as
-in JAX.
+`num_devices` > 1 (ROADMAP §A item 6). `steps_per_dispatch` is accepted
+and runs one step a dispatch, which gives the JAX `multi_step` result.
+`distributed` on one card is a mesh of one, as in JAX.
 """
 
 from __future__ import annotations
@@ -89,6 +94,50 @@ def concat_padded(arrays: list) -> np.ndarray:
 
 SPLIT_FILES = {"training": "trainset", "validation": "valset",
                "test": "testset"}
+
+
+class StepTracer:
+    """`profile_dir`: a `torch.profiler` trace of global steps 10 to 15
+    (JAX's window), the host's activity and, on a CUDA device, the card's,
+    written as a Chrome trace under `directory`. Without a directory it
+    does nothing."""
+
+    START, STOP = 10, 16
+
+    def __init__(self, directory: str | None, device: torch.device):
+        self.directory = directory
+        self.device = device
+        self.prof = None
+
+    @property
+    def path(self) -> str:
+        return join_path(self.directory,
+                         f"trace_steps_{self.START}-{self.STOP - 1}.json")
+
+    def at_step(self, step: int) -> None:
+        """Called before global step `step` runs."""
+        if not self.directory:
+            return
+        if step == self.START and self.prof is None:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self.prof = torch.profiler.profile(activities=acts)
+            self.prof.start()
+        elif step == self.STOP:
+            self.stop()
+
+    def stop(self) -> None:
+        """End the trace if one runs, and write it."""
+        if self.prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.prof.stop()
+        os.makedirs(self.directory, exist_ok=True)
+        self.prof.export_chrome_trace(self.path)
+        self.prof = None
+        print(f"device trace written to {self.directory}", flush=True)
 
 
 class TrainingBase:
@@ -169,9 +218,6 @@ class TrainingBase:
         if c.num_devices is not None and int(c.num_devices) > 1:
             raise NotImplementedError(
                 "num_devices > 1 is not ported yet (ROADMAP §A item 6)")
-        if c.profile_dir:
-            raise NotImplementedError(
-                "profile_dir is not ported yet (ROADMAP §A item 5)")
         self.trainer = Trainer(c, device=self.device)
         self.model = self.trainer.model
         if self.state["lr"] is None:
@@ -280,6 +326,7 @@ class TrainingBase:
         stop = False
         epoch = state["current_epoch"]
         log_interval = float(getattr(cfg, "log_interval", 60) or 0)
+        tracer = StepTracer(cfg.profile_dir, self.device)
         while epoch < cfg.num_epochs and not stop:
             t0 = time.perf_counter()
             last_log = t0
@@ -298,6 +345,7 @@ class TrainingBase:
                     if stop_sched:
                         stop = True
                         break
+                tracer.at_step(step)
                 self.trainer.step = step
                 self.trainer.set_learning_rate(state["lr"])
                 self.trainer.train_into(acc, group)
@@ -370,6 +418,7 @@ class TrainingBase:
             self._log_epoch(epoch + 1, logs)
             epoch += 1
 
+        tracer.stop()
         self._jsonl.close()
         if self._tb is not None:
             self._tb.close()

@@ -6,9 +6,11 @@ The flat names are those of `egt_tpu/training/checkpoint.py::_flatten_params`
 names with `.` for `/`, and Dense kernels keep the JAX (in, out) layout, so
 the transfer is a strict name-for-name copy. Raw arrays of the params tree
 keep their top-level names (`virtual_node_embeddings` (k, w),
-`virtual_edge_embeddings` (k, ew)), and a multi-column token table its one
+`virtual_edge_embeddings` (k, ew)), a multi-column token table its one
 offset-concatenated array (`node_emb/table`: every column's rows end to
-end after the mask row).
+end after the mask row), and a BatchNorm its moving statistics beside
+gamma and beta (`stack/layers/0/norm_mha/moving_mean`, `.../moving_var`:
+parameters that no gradient reaches).
 """
 
 from __future__ import annotations

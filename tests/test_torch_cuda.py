@@ -1495,3 +1495,115 @@ def test_custom_ops_match_plain(dev, dtype, kernel):
     assert kern.launches == before + 1
     for o, r in zip(out, ref):
         _close(o, r, dtype)
+
+
+# the model API's variants on their kernel paths: cross-talk, BatchNorm and
+# gelu (`can_fuse_layer` refuses each: K1 / K2), and the encodings with
+# `readout_edges` on path A (K3 / K4 / K5) and path C (K1, K8 / K9, K2; the
+# readout reads the last layer's edge output, so K9 runs in both layers)
+VARIANTS = {
+    "variant_x": (dict(node2edge_xtalk=0.5, edge2node_xtalk=0.5,
+                       node_normalization="batch", edge_normalization="batch",
+                       activation="gelu"),
+                  dict(fused_attention=True), dict(K1=2, K2=2)),
+    "variant_e_path_a": (dict(max_degree_enc=3, max_diffuse_t=2,
+                              node2edge_embed=True, include_xpose=True,
+                              readout_edges=True),
+                         dict(fused_layer=True), dict(K3=2, K4=2, K5=2)),
+    "variant_e_path_c": (dict(max_degree_enc=3, max_diffuse_t=2,
+                              node2edge_embed=True, include_xpose=True,
+                              readout_edges=True),
+                         dict(fused_attention=True, fused_edge_block=True),
+                         dict(K1=2, K8=2, K9=2, K2=2)),
+}
+COUNTERS = {"K1": att.KERNEL, "K2": att.BWD_KERNEL, "K3": fl.KERNEL,
+            "K4": fl.BWD_TAIL_KERNEL, "K5": fl.BWD_ATTN_KERNEL,
+            "K8": eb.KERNEL, "K9": eb.BWD_KERNEL}
+
+
+def _variant_batch(rng, b=4, l=20):
+    n = rng.integers(5, l + 1, size=b)
+    nf = np.where(np.arange(l)[None] < n[:, None], rng.integers(0, 28, (b, l)),
+                  -1)
+    valid = (nf[:, :, None] >= 0) & (nf[:, None, :] >= 0)
+    adj = ((rng.random((b, l, l)) < 0.2) & valid).astype(np.uint8)
+    fm = np.where(adj > 0, rng.integers(0, 4, (b, l, l)), -1)
+    return {"node_features": nf, "feature_matrix": fm, "graph_matrix": adj}
+
+
+def _variant_models(dev, variant, knobs, **over):
+    cfg = GraphModelConfig(model_width=32, edge_width=64, num_heads=4,
+                           model_height=2, upto_hop=3, random_mask_prob=0.1,
+                           attn_dropout=0.1, **variant, **over)
+    base = EGTGraphModel(cfg, device=dev)
+    flat = {k: p.detach().cpu().numpy()
+            for k, p in weights.flat_names(base).items()}
+    fast = weights.load_flat_params(
+        EGTGraphModel(dataclasses.replace(cfg, **knobs), device=dev), flat)
+    return fast, base
+
+
+@pytest.mark.parametrize("name", list(VARIANTS))
+def test_variant_kernel_paths_match_plain(dev, name):
+    """f32, training with the draws live: the loss, every gradient and the
+    moving-statistics updates of the kernel path against the plain path,
+    the kernels each launched once a layer; then the outputs at
+    inference."""
+    variant, knobs, want = VARIANTS[name]
+    fast, base = _variant_models(dev, variant, knobs)
+    batch = _variant_batch(np.random.default_rng(2))
+    target = torch.randn((4, 1), device=dev)
+    before = {k: c.launches for k, c in COUNTERS.items()}
+    runs = []
+    for model in (fast, base):
+        out, ctx = model(batch, training=True, seeds=[3, 4],
+                         with_context=True)
+        loss = (out - target).abs().mean()
+        loss.backward()
+        runs.append((loss, {k: p.grad for k, p in
+                            weights.flat_names(model).items()},
+                     ctx.stats_updates))
+        if model is fast:
+            assert {k: c.launches - before[k] for k, c in COUNTERS.items()} \
+                == {k: want.get(k, 0) for k in COUNTERS}
+    (lf, gf, sf), (lb, gb, sb) = runs
+    torch.testing.assert_close(lf, lb, atol=1e-5, rtol=1e-5)
+    for k, r in gb.items():
+        if r is None:
+            assert gf[k] is None or not gf[k].any(), k
+            continue
+        torch.testing.assert_close(gf[k], r, atol=1e-4, rtol=1e-4, msg=k)
+    assert sorted(sf) == sorted(sb)
+    for path, upd in sb.items():
+        for key, v in upd.items():
+            torch.testing.assert_close(sf[path][key], v, atol=1e-5,
+                                       rtol=1e-5)
+    with torch.no_grad():
+        torch.testing.assert_close(fast.eval()(batch), base.eval()(batch),
+                                   atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("mode", [True, "dots"])
+def test_remat_gradients_bit_equal_on_path_a(dev, mode):
+    """Path A (K3; K4, K5), f32, the draws live: with `remat` the loss and
+    every gradient equal the step without it bit for bit, and K3 runs twice
+    a layer (the forward's and the recompute's)."""
+    plain, _ = _variant_models(dev, {}, dict(fused_layer=True))
+    flat = {k: p.detach().cpu().numpy()
+            for k, p in weights.flat_names(plain).items()}
+    remat = weights.load_flat_params(EGTGraphModel(
+        dataclasses.replace(plain.cfg, remat=mode), device=dev), flat)
+    batch = _variant_batch(np.random.default_rng(3))
+    target = torch.randn((4, 1), device=dev)
+    runs = []
+    for model in (plain, remat):
+        k3 = fl.KERNEL.launches
+        loss = (model(batch, training=True, seeds=[5, 6]) - target).abs().mean()
+        loss.backward()
+        runs.append((loss, fl.KERNEL.launches - k3,
+                     {k: p.grad for k, p in model.named_parameters()}))
+    (l0, n0, g0), (l1, n1, g1) = runs
+    assert (n0, n1) == (2, 4)
+    assert torch.equal(l0, l1)
+    for k, g in g0.items():
+        assert (g is None and g1[k] is None) or torch.equal(g, g1[k]), k

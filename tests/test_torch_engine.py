@@ -315,14 +315,31 @@ def test_l2_loss_and_grads_match_jax(workdir):
 
 
 def test_refuses_what_is_not_ported(workdir):
-    for kw in (dict(edge_partition=2), dict(num_devices=2),
-               dict(profile_dir="trace")):
+    for kw in (dict(edge_partition=2), dict(num_devices=2)):
         ts = timport("zinc.svd")(tiny_config(workdir, "refuse", **kw),
                                  device="cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ts.load_model()
     # every scheme of the JAX package is ported, PCQM4Mv2's last
     assert timport("pcqm4mv2.svd").__name__ == "Pcqm4mv2SVD"
+
+
+def test_profile_dir_writes_a_trace(workdir, capsys):
+    """`profile_dir`: a run of 17 steps traces global steps 10 to 15 (JAX's
+    window) into a Chrome trace, with JAX's line; the run itself goes on
+    as without it."""
+    trace = workdir / "trace"
+    ts = timport("zinc.svd")(tiny_config(
+        workdir, "profile", batch_size=2, num_epochs=1, steps_per_epoch=17,
+        validation_steps=1, profile_dir=str(trace)), device="cpu")
+    run(ts)
+    assert ts.state["global_step"] == 17
+    assert f"device trace written to {trace}" in capsys.readouterr().out
+    with open(trace / "trace_steps_10-15.json") as fp:
+        events = json.load(fp)["traceEvents"]
+    # the window holds the steps' matrix products, and nothing of the
+    # evaluation that follows step 16
+    assert any(ev.get("name") == "aten::mm" for ev in events)
 
 
 def _cli(module, cfg_path, *extra):
