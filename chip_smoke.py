@@ -71,7 +71,13 @@ final result line):
      and 4 virtual nodes) and l 60 (pad 56, the real data's largest
      molecules), attention dropout 0.3 live, gated with the degree output,
      f32 and bf16, timed beside their bounds, K2's dk and dv bit-identical
-     across two launches at l 60;
+     across two launches at l 60; then (3i) K1 (inference and training)
+     and K2 on the row blocks of edge partitioning over 2 shards (ROW_TILES:
+     one shard's query rows against every key): ZINC 128 graphs, lq 20 /
+     lk 40, 8 heads of 8 (the tensor-core bodies in bf16, asserted), TSP 8
+     graphs, lq 256 / lk 512 and PCQM4Mv2 128 graphs, 32 heads of 24, lq 4
+     + 16 / lk 36 (the CUDA-core bodies), f32 and bf16, timed beside their
+     bounds;
   4. serving paths: `load_predictor` on configs/main/zinc/500k/egt.json with
      seeded weights under the JAX names answers 4 requests of 128 synthetic
      ZINC-shaped graphs, checked against the model's plain path (bf16 and
@@ -100,7 +106,12 @@ final result line):
      1,024 synthetic molecules at l 36 and 2 at l 60, the (b, 1)
      predictions within 5e-4 of the plain path (as shipped) in f32, and in
      bf16 at most 1.5 times as far from the f32 plain path as the bf16
-     plain path;
+     plain path; then (4j, with 5j and 5k after phase 5) two ranks on this
+     one card over gloo (`egt_torch.parallel.launch`): ZINC 500k and TSP
+     500k `egt.json` with `edge_partition` 2 and `use_pallas` true through
+     `load_predictor(..., mesh=)`, 4 requests in f32 and bf16, K1 one launch
+     a layer a request on each rank, the predictions against the unsharded
+     port's on the card (f32 5e-4, bf16 5e-2 + 2e-2 |unsharded|);
   5. training paths: `load_trainer` on the same config and weights takes a
      warm-up step, then 4 timed steps on 128-graph batches (bf16, random
      mask 0.1 live); each path's launches a step are checked, its
@@ -149,7 +160,19 @@ final result line):
      step-1 gradients of 3 micro-batch steps against the plain path's (f32
      and bf16), 20 steps on one micro-batch lowering the loss under a
      10-step warmup; and ZINC `egt.json` with a virtual node through K3 /
-     K4 / K5 (10 each a step) against its plain path;
+     K4 / K5 (10 each a step) against its plain path; then (5j) the same
+     two ranks' `load_trainer(..., mesh=)` of phase 4j's configs: one f32
+     step with the draws off against the unsharded step (loss and every
+     gradient at phase 5's f32 tolerance), 1 + 4 steps as shipped (bf16,
+     random mask live), K1 and K2 10 (ZINC) or 16 (TSP) launches each a
+     step a rank and K3-K9 none, the step time beside the unsharded
+     port's and the collective bytes and host ms a step; and (5k) data
+     parallelism over the two ranks on path A (K3 / K4 / K5 10 each a step
+     at 64 graphs a rank), the draws off: the loss and every parameter
+     after one step against one process's step on the same 128 graphs
+     (f32 1e-5; elements whose exact gradient is 0 to 2 x the learning
+     rate, the bound of a first Adam step), the draws on: the ranks' seeds
+     and random-mask bits differ;
   6. the engine: the CLI triple on the flagship ZINC config over 10,000 /
      1,000 / 1,000 synthetic ZINC graphs (2 epochs, a resume to 3,
      evaluation, final weights; launches counted, the saved weights
@@ -200,7 +223,11 @@ final result line):
      and power limit; `do_analysis` in bf16 and f32 on the card and in f32
      on the CPU (no kernel launch under capture; the 40 keys of 10 layers,
      (256, 40, 40, 8) each; the f32 captures of the card within 1e-4 of
-     the CPU's);
+     the CPU's); and (6j) `torchrun --standalone --nproc_per_node 2 -m
+     egt_torch.run_training` of the flagship config on phase 6's data with
+     `distributed` true and `edge_partition` 2 (both ranks on this card,
+     gloo): one epoch of 20 steps, rank 0's checkpoint, and a resume to
+     epoch 2;
   7. one JSON line listing every kernel with its launches on its training
      path, its times and its bound, and K3, K4 and K5 again at the SBM
      shapes (bf16, training) with PATTERN's launches in each bucket and at
@@ -210,7 +237,9 @@ final result line):
      phase 5e's timed steps there, at the PCQM4Mv2 tile with phase
      5f's, and K3, K1 and K8 (their inference cases at the flagship and
      `egt_simple` ZINC tiles) with the launches of the bf16 serving
-     artifacts of paths A, B and C in phase 6g;
+     artifacts of paths A, B and C in phase 6g, and K1 and K2 at the
+     ZINC and TSP row blocks of phase 3i with rank 0's launches in phase
+     5j's timed steps;
   8. last line: {"ok": true, "device": {...}}.
 TF32 is off for matrix products and convolutions (full f32 references).
 Exits non-zero without a result when no CUDA device is present or when run
@@ -310,6 +339,15 @@ PCQM_MICRO, PCQM_ACCUM, PCQM_REQUEST = 128, 8, 1024
 # the falling-loss run's warmup, in place of the shipped 15,000 steps, whose
 # rate stays near zero through it
 PCQM_FALL_WARMUP = 10
+# the row blocks of edge partitioning over 2 shards (phase 3i): (graphs,
+# heads, query rows, keys, d, the graphs' node range, the draws (random
+# mask, dropout), the bf16 bodies on the tensor cores); PCQM4Mv2's query
+# rows are its 4 virtual rows and half of its 32 atom rows
+ROW_TILES = {
+    "ZINC": (GRAPHS, 8, PAD // 2, PAD, 8, (9, 38), (0.1, 0.1), True),
+    "TSP": (TSP_BATCH, 8, 256, 512, 8, TSP_BUCKETS[512], (0.1, 0.1), False),
+    "PCQM4Mv2": (PCQM_MICRO, PCQM_HEADS, PCQM_K + 16, 36, PCQM_D,
+                 PCQM_PADS[36][0], (0.0, PCQM_DROP), False)}
 # a kernel call past SLOW_MS is timed over SLOW_ITERS launches, not 30
 SLOW_MS, SLOW_ITERS = 100.0, 5
 SOURCES = ("fused_layer_fwd", "egt_attention_fwd", "fused_layer_bwd_tail",
@@ -409,6 +447,113 @@ def card_peaks(name: str):
         if key in name:
             return peaks
     return CARDS["H100"]
+
+
+def _parallel_rank(init: dict, plan: dict) -> dict:
+    """One rank of phases 4j / 5j / 5k (`egt_torch.parallel.launch` starts
+    two on the one card): the `edge_partition` 2 runs of `plan["sp"]`
+    (requests in f32 and bf16, one f32 step with the draws off, then 1 + 4
+    steps as shipped) on a mesh of 1 x 2, then the data-parallel step of
+    `plan["dp"]` on a mesh of 2 x 1 (the draws off, then the draws' seeds
+    and bits with them on). Returns the kernel launches, collective bytes,
+    times and results of each."""
+    import numpy as np
+    import torch
+
+    from egt_torch import serving
+    from egt_torch.ops import edge_block as eb
+    from egt_torch.ops import egt_attention as att
+    from egt_torch.ops import fused_layer as fl
+    from egt_torch.ops import rng
+    from egt_torch.parallel import collectives as C
+    from egt_torch.parallel import mesh as meshlib
+    from egt_torch.training.steps import load_trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels = {"K1": att.KERNEL, "K2": att.BWD_KERNEL, "K3": fl.KERNEL,
+               "K4": fl.BWD_TAIL_KERNEL, "K5": fl.BWD_ATTN_KERNEL,
+               "K6": fl.BWD_MONO_KERNEL, "K7": fl.BWD_MERGED_KERNEL,
+               "K8": eb.KERNEL, "K9": eb.BWD_KERNEL}
+
+    def counted(fn):
+        """fn() with every launch count and the collective counters set to
+        0: (its result, the launches, the collectives)."""
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.launches = 0
+        C.STATS.reset()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, {k: v.launches for k, v in kernels.items()}, \
+            C.STATS.summary()
+
+    def grads_of(model):
+        return {k.replace(".", "/"): p.grad.float().cpu().numpy()
+                for k, p in model.named_parameters() if p.grad is not None}
+
+    def serve_all(predict, requests):
+        preds, lat = [], []
+        for r in requests:
+            t = time.perf_counter()
+            preds.append(predict(r))                   # host numpy: synced
+            lat.append(time.perf_counter() - t)
+        return preds, lat
+
+    def timed_steps(tr, batches):
+        times, losses = [], []
+        for bt in batches:
+            t = time.perf_counter()
+            losses.append(tr.train_step(bt)["loss"])   # .item(): synced
+            times.append(time.perf_counter() - t)
+        return times, losses
+
+    out = {}
+    mesh = meshlib.make_mesh(2, model_parallel=2, **init)
+    out["backend"] = mesh.backend
+    for fam, p in plan["sp"].items():
+        res = out[fam] = {}
+        for dtype in ("float32", "bfloat16"):
+            predict = serving.load_predictor(
+                {**p["config"], "compute_dtype": dtype}, p["flat"],
+                mesh=mesh)
+            predict(p["requests"][0])                  # warm-up
+            (preds, lat), launches, coll = counted(
+                lambda: serve_all(predict, p["requests"]))
+            res[f"serve {dtype}"] = dict(preds=preds, lat=lat,
+                                         launches=launches, coll=coll)
+        tr = load_trainer({**p["config"], "compute_dtype": "float32",
+                           "random_mask_prob": 0.0}, p["flat"], mesh=mesh)
+        loss = tr.train_step(p["train"][0])["loss"]
+        res["agree"] = dict(loss=loss, grads=grads_of(tr.model))
+        del tr
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tr = load_trainer(p["config"], p["flat"], mesh=mesh)
+        tr.train_step(p["train"][0])                       # warm-up
+        (times, losses), launches, coll = counted(
+            lambda: timed_steps(tr, p["train"][1:]))
+        res["steps"] = dict(times=times, losses=losses, launches=launches,
+                            coll=coll,
+                            peak=torch.cuda.max_memory_allocated())
+        del tr
+        torch.cuda.empty_cache()
+    d = plan["dp"]
+    dmesh = meshlib.make_mesh(2, model_parallel=1)
+    tr = load_trainer({**d["config"], "compute_dtype": "float32",
+                       "random_mask_prob": 0.0}, d["flat"], mesh=dmesh)
+    shard = meshlib.batch_shard(d["batch"], dmesh)
+    rep, launches, coll = counted(lambda: tr.train_step(shard))
+    out["dp"] = dict(report=rep, launches=launches, coll=coll,
+                     grads=grads_of(tr.model), params=tr.flat_params())
+    del tr
+    drawn = load_trainer(d["config"], d["flat"], mesh=dmesh)
+    seeds = drawn.layer_seeds(0)
+    l = d["batch"]["graph_matrix"].shape[1]
+    out["dp"]["seeds"] = seeds
+    out["dp"]["bits"] = rng.pair_uniform(
+        seeds[0], (1, l, l, 8), rng.RANDOM_MASK, dmesh.device).cpu().numpy()
+    out["dp"]["drawn"] = drawn.train_step(shard)
+    return out
 
 
 def main() -> int:
@@ -581,7 +726,8 @@ def main() -> int:
     # ---- 3a. attention kernels (K1 forward, K2 backward)
     def attention_case(b, h, l, d, dtype, gated=True, hard=False,
                        training=False, timing=True, qk_scale=2.0, grid=True,
-                       nodes=(9, 38), rerun=False, drops=(0.1, 0.1)):
+                       nodes=(9, 38), rerun=False, drops=(0.1, 0.1),
+                       lq=None):
         # q and k scaled so that the clip binds on a share of pairs; with
         # `grid`, on a 1/8 grid: q.k is then exact in f32 in any summation
         # order, and K2's inclusive clip test on the recomputed raw logit
@@ -589,18 +735,20 @@ def main() -> int:
         # Without it, general values: K2's test may fall otherwise on a
         # pair whose raw logit lies within a few ulps of an edge, and such
         # pairs are left out of K2's comparison with their rows' dq and
-        # their columns' dk
+        # their columns' dk. `lq` < l: a row block of lq queries against
+        # all l keys (edge partitioning)
+        lq = l if lq is None else lq
         if grid:
-            q, k = (torch.round(randn(b, h, l, d, scale=8 * qk_scale)) / 8
-                    for _ in range(2))
+            q, k = (torch.round(randn(b, h, n, d, scale=8 * qk_scale)) / 8
+                    for n in (lq, l))
         else:
-            q, k = (randn(b, h, l, d, scale=qk_scale) for _ in range(2))
+            q, k = (randn(b, h, n, d, scale=qk_scale) for n in (lq, l))
         q, k, v = q.to(dtype), k.to(dtype), randn(b, h, l, d).to(dtype)
-        e = randn(b, h, l, l).to(dtype)
-        g = randn(b, h, l, l).to(dtype) if gated else None
+        e = randn(b, h, lq, l).to(dtype)
+        g = randn(b, h, lq, l).to(dtype) if gated else None
         madd = (ragged_mask(b, l, lo=min(nodes[0], l), hi=min(nodes[1], l))
                 - 1.0) * 1e9
-        maddf = ((torch.rand((b, l, l), generator=gen, device=dev) < 0.6)
+        maddf = ((torch.rand((b, lq, l), generator=gen, device=dev) < 0.6)
                  .float() - 1.0) * 1e9 if hard else None
         # the random mask's and dropout's rates in training mode
         draws = att.Draws(123, *drops) if training else att.OFF
@@ -612,7 +760,8 @@ def main() -> int:
                 if r is not None]
         raw = torch.einsum("bhid,bhjd->bhij", q.float(), k.float()) * d ** -0.5
         binds = float((raw.abs() > 5.0).float().mean())
-        shape = (f"b{b} h{h} l{l} d{d} {str(dtype)[6:]}" +
+        shape = (f"b{b} h{h} {f'lq{lq} lk' if lq != l else 'l'}{l} d{d} "
+                 f"{str(dtype)[6:]}" +
                  (" hard-mask" if hard else "") + ("" if gated else " ungated")
                  + ("" if grid else " general q, k")
                  + f" clip binds {binds:.2f}")
@@ -621,13 +770,14 @@ def main() -> int:
             return " [tensor cores]" if geo["tensor_cores"] else \
                 " [CUDA cores]"
         it = q.element_size()
-        pairs = b * h * l * l
-        nbytes = (3 * b * h * l * d + (2 if gated else 1) * pairs
-                  + b * h * l * d + pairs) * it + b * l * 4 + \
-            (b * h * l * 4 if gated else 0) + (b * l * l * 4 if hard else 0)
+        pairs = b * h * lq * l
+        # q, k, v, e (and g) read; v_att, h_hat (and the degrees) written
+        nbytes = (b * h * (lq + 2 * l) * d + (2 if gated else 1) * pairs
+                  + b * h * lq * d + pairs) * it + b * l * 4 + \
+            (b * h * lq * 4 if gated else 0) + (b * lq * l * 4 if hard else 0)
         res = {"fwd": timed(
             f"attention_fwd{' training' if training else ''} {shape}"
-            + body(att.fwd_geometry(dtype, l, l, d)), errs,
+            + body(att.fwd_geometry(dtype, lq, l, d)), errs,
             lambda: att._egt_core_fwd_cuda(*args),
             lambda: att.egt_core_fwd_plain(*args), nbytes, 4 * pairs * d,
             15 * pairs, dtype, timing)}
@@ -636,8 +786,8 @@ def main() -> int:
         # K2 from the forward's h_hat, with the cotangents of v_att, h_hat
         # and (gated) the degrees
         h_hat = ref[1]
-        gv, gh = randn(b, h, l, d).to(dtype), randn(b, h, l, l).to(dtype)
-        gdeg = randn(b, h, l) if gated else None
+        gv, gh = randn(b, h, lq, d).to(dtype), randn(b, h, lq, l).to(dtype)
+        gdeg = randn(b, h, lq) if gated else None
         bargs = (q, k, v, g, madd, maddf, h_hat, gv, gh, gdeg, (-5.0, 5.0),
                  draws)
         out = att._egt_core_bwd_cuda(*bargs)
@@ -666,12 +816,14 @@ def main() -> int:
         # part; dq, de and dg are per-element values
         errs = [max_err(o, r, dtype, scaled=i in (1, 2))
                 for i, (o, r) in enumerate(zip(out, ref)) if r is not None]
-        nbytes = (3 * b * h * l * d + (3 if gated else 2) * pairs
-                  + 2 * b * h * l * d + (2 if gated else 1) * pairs) * it + \
+        # q, k, v, gv, h_hat, gh (and g, gdeg) read; dq, de (and dg), and
+        # dk, dv in f32 written
+        nbytes = (b * h * (2 * lq + 2 * l) * d + (3 if gated else 2) * pairs
+                  + b * h * lq * d + (2 if gated else 1) * pairs) * it + \
             2 * b * h * l * d * 4 + b * l * 4 + \
-            (b * h * l * 4 if gated else 0) + (b * l * l * 4 if hard else 0)
+            (b * h * lq * 4 if gated else 0) + (b * lq * l * 4 if hard else 0)
         res["bwd"] = timed(f"attention_bwd {shape}"
-                           + body(att.bwd_geometry(dtype, l, l, d)), errs,
+                           + body(att.bwd_geometry(dtype, lq, l, d)), errs,
                            lambda: att._egt_core_bwd_cuda(*bargs),
                            lambda: att.egt_core_bwd_plain(*bargs), nbytes,
                            10 * pairs * d, 30 * pairs, dtype, timing)
@@ -1177,6 +1329,37 @@ def main() -> int:
     except Exception:                               # noqa: BLE001 - report
         traceback.print_exc()
         check(False, "phase 3h: the attention kernels at the PCQM4Mv2 tile")
+
+    # ---- 3i. the row blocks of edge partitioning (ROW_TILES): K1
+    # (inference and training) and K2 on one of 2 shards' query rows
+    # against every key, at the tiles the `edge_partition` 2 paths of
+    # phases 4j / 5j hand them (ZINC lq 20 / lk 40: the tensor-core bodies
+    # in bf16; TSP lq 256 / lk 512 and PCQM4Mv2 lq 4 + 16 / lk 36: the
+    # CUDA-core bodies), the draws live, f32 and bf16, each held to its
+    # plain version and timed beside its bound, the bodies their geometry
+    # queries name asserted
+    try:
+        for fam, (b, h, lq, l, d, nodes, drops, mma) in ROW_TILES.items():
+            geo = {dt: (att.fwd_geometry(dt, lq, l, d),
+                        att.bwd_geometry(dt, lq, l, d))
+                   for dt in (torch.float32, torch.bfloat16)}
+            print(f"  row block {fam} (b {b}, h {h}, lq {lq}, lk {l}, d {d})"
+                  ": " + "; ".join(f"{str(dt)[6:]} fwd_geometry {f}, "
+                                   f"bwd_geometry {g}"
+                                   for dt, (f, g) in geo.items()), flush=True)
+            check(all(x is not None and x["tensor_cores"] == (
+                mma and dt == torch.bfloat16)
+                for dt, pair in geo.items() for x in pair),
+                f"row block {fam}: K1 and K2 take their "
+                f"{'tensor-core' if mma else 'CUDA-core'} bodies in bf16")
+            for dtype in (torch.float32, torch.bfloat16):
+                for training in (False, True):
+                    results[("attention_rows", fam, dtype, training)] = \
+                        attention_case(b, h, l, d, dtype, training=training,
+                                       nodes=nodes, drops=drops, lq=lq)
+    except Exception:                               # noqa: BLE001 - report
+        traceback.print_exc()
+        check(False, "phase 3i: the attention kernels at the row blocks")
 
     # ---- 4. the serving paths
     raw = json.loads(CONFIG.read_text())
@@ -2413,6 +2596,200 @@ def main() -> int:
             traceback.print_exc()
             check(False, f"phase 5i: {what}")
 
+    # ---- 4j / 5j / 5k. the parallel paths on two ranks of this one card
+    # (`egt_torch.parallel.launch`; gloo, which stages CUDA tensors through
+    # the host: NCCL takes one card a rank). 4j / 5j: ZINC 500k `egt.json`
+    # (10 layers, 128 graphs, pad 40) and TSP 500k `egt.json` (16 layers, 8
+    # graphs, l 512) with `edge_partition` 2 and the attention kernel knob
+    # (`use_pallas` true): each rank holds half the query rows, K1 and K2
+    # run on its row block in every layer (10 / 16 launches each a step a
+    # rank), K3-K9 never. 4 requests in f32 and bf16 against the unsharded
+    # port's predictions on the card (f32 5e-4; bf16 5e-2 + 2e-2 |plain|,
+    # the kernels' tolerance: the paths differ by the order of sums), one
+    # f32 step with the draws off against the unsharded step (loss and every
+    # gradient at phase 5's f32 tolerance), then 1 + 4 steps as shipped
+    # (bf16, random mask 0.1 live) timed beside the unsharded port's, with
+    # the collective bytes and host ms a step. 5k: data parallelism over
+    # the two ranks on path A (K3; K4, K5 at 64 graphs a rank) with the
+    # draws off: one step's loss and every parameter against one process's
+    # step on the same 128 graphs (f32 1e-5; an element whose exact
+    # gradient is 0, held by rounding noise alone, to the learning rate,
+    # which bounds a first Adam step), every gradient at phase 5's f32
+    # tolerance; with the draws on the ranks' seeds and bits differ
+    from egt_torch.parallel import launch
+
+    sp_over = {"use_pallas": True, "use_pallas_layer": False,
+               "edge_partition": 2}
+    plan = {"sp": {
+        "ZINC": dict(config={**raw, **sp_over}, flat=flat,
+                     requests=requests, train=train_batches, layers=10),
+        "TSP": dict(config={**tsp_raw, **sp_over}, flat=tsp_flat,
+                    requests=tsp_batches(512, N_REQUESTS, TSP_BATCH, 93),
+                    train=tsp_batches(512, N_STEPS + 1, TSP_BATCH, 94),
+                    layers=16)},
+        "dp": dict(config=raw, flat=flat, batch=train_batches[0])}
+
+    def grad_err(gk, gp):
+        """The worst normalised |sharded - unsharded| over the parameters
+        (phase 5's measure) and where."""
+        top = max(float(np.abs(g).max()) for g in gp.values())
+        worst, where = 0.0, ""
+        for k, g in gp.items():
+            e = float(np.abs(gk[k] - g).max()) / max(float(np.abs(g).max()),
+                                                     1e-2 * top)
+            if not e <= worst:
+                worst, where = e, k
+        return worst, where, top
+
+    def unsharded(fam, p):
+        """The unsharded port's predictions (f32, bf16), f32 step (draws
+        off) and median step ms as shipped, on the card."""
+        ref = {}
+        for dtype in ("float32", "bfloat16"):
+            pr = serving.load_predictor(
+                {**p["config"], "compute_dtype": dtype}, p["flat"])
+            ref[dtype] = [pr(r) for r in p["requests"]]
+        tr = load_trainer({**p["config"], "compute_dtype": "float32",
+                           "random_mask_prob": 0.0}, p["flat"])
+        ref["loss"] = tr.train_step(p["train"][0])["loss"]
+        ref["grads"] = {k.replace(".", "/"): q.grad.float().cpu().numpy()
+                        for k, q in tr.model.named_parameters()
+                        if q.grad is not None}
+        del tr
+        torch.cuda.empty_cache()
+        tr = load_trainer(p["config"], p["flat"])
+        tr.train_step(p["train"][0])
+        torch.cuda.synchronize()
+        times = []
+        for bt in p["train"][1:]:
+            t = time.perf_counter()
+            tr.train_step(bt)
+            times.append(time.perf_counter() - t)
+        ref["step_ms"] = 1e3 * statistics.median(times)
+        del tr
+        torch.cuda.empty_cache()
+        return ref
+
+    ep_launches: dict = {}
+    try:
+        refs = {fam: unsharded(fam, p) for fam, p in plan["sp"].items()}
+        dtr = load_trainer({**raw, "compute_dtype": "float32",
+                            "random_mask_prob": 0.0}, flat)
+        dref = dict(report=dtr.train_step(train_batches[0]),
+                    grads={k.replace(".", "/"): q.grad.float().cpu().numpy()
+                           for k, q in dtr.model.named_parameters()
+                           if q.grad is not None},
+                    params=dtr.flat_params())
+        del dtr
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        ranks = launch.spawn_ranks(_parallel_rank, 2, plan, timeout=900)
+        print(f"  parallel phases: 2 ranks on {name}, backend "
+              f"{ranks[0]['backend']}, {time.perf_counter() - t:.1f} s "
+              f"[{smi}]", flush=True)
+        check(all(r["backend"] == "gloo" for r in ranks),
+              "parallel: two ranks on one card talk over gloo")
+        for fam, p in plan["sp"].items():
+            ref, n = refs[fam], p["layers"]
+            for r, rk in enumerate(ranks):
+                res = rk[fam]
+                for dtype, (atol, rtol) in (("float32", (5e-4, 0.0)),
+                                            ("bfloat16", (5e-2, 2e-2))):
+                    sv = res[f"serve {dtype}"]
+                    want = {k: 0 for k in sv["launches"]}
+                    want["K1"] = n * N_REQUESTS
+                    check(sv["launches"] == want,
+                          f"4j {fam} sp 2 rank {r} {dtype}: launches "
+                          f"{sv['launches']} for {N_REQUESTS} requests "
+                          f"(expected {want})")
+                    err = max(float(np.abs(o - q).max())
+                              for o, q in zip(sv["preds"], ref[dtype]))
+                    ok = all(o.shape == q.shape and np.all(
+                        np.abs(o - q) <= atol + rtol * np.abs(q))
+                        for o, q in zip(sv["preds"], ref[dtype]))
+                    check(ok, f"4j {fam} sp 2 rank {r} {dtype}: predictions "
+                          f"against the unsharded port, max diff {err:.3g} "
+                          f"(tol {atol} + {rtol} |unsharded|); request ms "
+                          f"{[round(x * 1e3, 3) for x in sv['lat']]}; "
+                          f"collectives {sv['coll']}")
+                ag = res["agree"]
+                ltol, gtol = TRAIN_TOL["float32"]
+                dl = abs(ag["loss"] - ref["loss"]) / max(abs(ref["loss"]),
+                                                         1e-6)
+                worst, where, top = grad_err(ag["grads"], ref["grads"])
+                # a parameter no loss reaches: None unsharded, zeros from
+                # the ranks' gradient sum
+                unreached = [k for k in ag["grads"] if k not in ref["grads"]]
+                check(dl <= ltol and worst <= gtol and
+                      ref["grads"].keys() <= ag["grads"].keys() and
+                      not any(np.any(ag["grads"][k]) for k in unreached),
+                      f"5j {fam} sp 2 rank {r} f32 draws off: loss "
+                      f"{ag['loss']:.6f} vs unsharded {ref['loss']:.6f} (rel "
+                      f"{dl:.3g}, tol {ltol}); gradients worst normalised "
+                      f"diff {worst:.3g} at {where} (tol {gtol}; largest "
+                      f"{top:.3g})")
+                st = res["steps"]
+                want = {k: 0 for k in st["launches"]}
+                want.update(K1=n * N_STEPS, K2=n * N_STEPS)
+                check(st["launches"] == want and
+                      bool(np.all(np.isfinite(st["losses"]))),
+                      f"5j {fam} sp 2 rank {r}: {N_STEPS} steps as shipped "
+                      f"(bf16, draws live), launches {st['launches']} "
+                      f"(expected {want}), losses "
+                      f"{[round(x, 5) for x in st['losses']]}")
+                coll = {k: {"bytes": v["bytes"] // N_STEPS,
+                            "calls": v["calls"] // N_STEPS,
+                            "ms": round(v["ms"] / N_STEPS, 3)}
+                        for k, v in st["coll"].items()}
+                print(f"  5j {fam} sp 2 rank {r}: step ms "
+                      f"{[round(x * 1e3, 3) for x in st['times']]}, median "
+                      f"{1e3 * statistics.median(st['times']):.3f} ms (the "
+                      f"unsharded port {ref['step_ms']:.3f} ms), collectives "
+                      f"a step {coll}, peak device memory "
+                      f"{st['peak'] / 2**30:.2f} GiB [{smi}]", flush=True)
+            ep_launches[fam] = ranks[0][fam]["steps"]["launches"]
+        lr = float(schemes.resolve_config(raw).initial_lr)
+        for r, rk in enumerate(ranks):
+            dp = rk["dp"]
+            want = {k: 0 for k in dp["launches"]}
+            want.update(K3=10, K4=10, K5=10)
+            check(dp["launches"] == want,
+                  f"5k dp 2 rank {r}: launches {dp['launches']} a step "
+                  f"(expected {want}); collectives {dp['coll']}")
+            dl = abs(dp["report"]["loss"] - dref["report"]["loss"]) / abs(
+                dref["report"]["loss"])
+            worst, where, top = grad_err(dp["grads"], dref["grads"])
+            pmax, nmax, noisy = 0.0, 0.0, 0
+            ok = dl <= 1e-5 and worst <= TRAIN_TOL["float32"][1]
+            for k, v in dref["params"].items():
+                g = dref["grads"].get(k)
+                noise = (np.zeros(v.shape, bool) if g is None
+                         else np.abs(g) <= 1e-6 * top)
+                diff = np.abs(dp["params"][k] - v)
+                ok = ok and bool(np.all(diff[~noise] <= 1e-5 + 1e-5 * np.abs(
+                    v[~noise]))) and bool(np.all(diff[noise] <= 2 * lr))
+                pmax = max(pmax, float(diff[~noise].max(initial=0.0)))
+                nmax = max(nmax, float(diff[noise].max(initial=0.0)))
+                noisy += int(noise.sum())
+            check(ok, f"5k dp 2 rank {r} path A f32 draws off: loss "
+                  f"{dp['report']['loss']:.7f} vs one process "
+                  f"{dref['report']['loss']:.7f} (rel {dl:.3g}, tol 1e-5); "
+                  f"parameters after the step max diff {pmax:.3g} (tol 1e-5 "
+                  f"+ 1e-5 |one process|; the {noisy} elements of gradient "
+                  f"<= 1e-6 x {top:.3g}, rounding noise, {nmax:.3g}, held "
+                  f"to 2 x lr {2 * lr}); gradients worst normalised diff "
+                  f"{worst:.3g} at {where}")
+        check(set(ranks[0]["dp"]["seeds"]).isdisjoint(ranks[1]["dp"]["seeds"])
+              and not np.array_equal(ranks[0]["dp"]["bits"],
+                                     ranks[1]["dp"]["bits"])
+              and all(np.isfinite(rk["dp"]["drawn"]["loss"]) for rk in ranks),
+              "5k dp 2 draws on: the ranks' layer seeds and random-mask bits "
+              "for their graph 0 differ, losses "
+              f"{[rk['dp']['drawn']['loss'] for rk in ranks]}")
+    except Exception:                               # noqa: BLE001 - report
+        traceback.print_exc()
+        check(False, "phases 4j / 5j / 5k: the parallel paths")
+
     # ---- 6. the engine: the CLI triple on synthetic ZINC at the ZINC-12k
     # split sizes, the flagship config as shipped (path A: K3; K4, K5)
     from egt_torch import do_evaluations, end_training, native, run_training
@@ -2569,6 +2946,57 @@ def main() -> int:
               f"{busy / 1e3:.3f} ms of kernels; {files[0].name}, "
               f"{files[0].stat().st_size} B; the run "
               f"{time.perf_counter() - t:.1f} s) [{smi}]")
+
+    # ---- 6j. the engine on two ranks: `torchrun --standalone
+    # --nproc_per_node 2 -m egt_torch.run_training` of the flagship config
+    # on phase 6's data with `distributed` true and `edge_partition` 2 (a
+    # mesh of 1 x 2: each rank holds half the edge rows; both on this card,
+    # over gloo): one epoch of 20 steps and 4 validation batches, rank 0's
+    # checkpoint, logs and weights, then a resume to epoch 2
+    def torchrun_run(tmp: Path, cfg: dict):
+        path = tmp / "sp2.json"
+        run_dir = tmp / "sp2_run"
+
+        def launch(epochs):
+            path.write_text(json.dumps({
+                **cfg, "save_path": str(run_dir), "num_epochs": epochs,
+                "steps_per_epoch": 20, "validation_steps": 4,
+                "log_tensorboard": False, "distributed": True,
+                "edge_partition": 2}))
+            t = time.perf_counter()
+            res = subprocess.run(
+                [sys.executable, "-m", "torch.distributed.run",
+                 "--standalone", "--nproc_per_node", "2", "-m",
+                 "egt_torch.run_training", str(path)],
+                cwd=REPO, capture_output=True, text=True, timeout=600)
+            text = res.stdout + res.stderr
+            lines = [x for x in text.splitlines()
+                     if x.startswith(("rank ", "Epoch ", "CHECKPOINT"))]
+            print("\n".join(f"  torchrun: {x}" for x in lines), flush=True)
+            check(res.returncode == 0, f"6j torchrun 2 ranks, {epochs} "
+                  f"epoch(s): exit code {res.returncode} in "
+                  f"{time.perf_counter() - t:.1f} s [{smi}]"
+                  + ("" if res.returncode == 0 else "\n" + text[-4000:]))
+            return text
+
+        text = launch(1)
+        check("backend gloo" in text and "1 data x 2 model" in text,
+              "6j: both ranks on the card, gloo, a mesh of 1 data x 2 model")
+        check((run_dir / "checkpoint" / "ckpt_1.pt").is_file(),
+              "6j: rank 0 wrote checkpoint/ckpt_1.pt")
+        launch(2)
+        state = json.loads((run_dir / "checkpoint" /
+                            "train_state_2.json").read_text())
+        recs = [json.loads(x) for x in
+                (run_dir / "logs" / "metrics.jsonl").read_text().splitlines()]
+        check(state["current_epoch"] == 2 and state["global_step"] == 40
+              and len(recs) == 2 and all(np.isfinite(r["loss"]) and
+                                         np.isfinite(r["val_loss"])
+                                         for r in recs)
+              and (run_dir / "saved" / f"{raw['model_name']}.npz").is_file(),
+              f"6j: resumed to epoch 2 (state {state}), metrics "
+              f"{[(round(r['loss'], 5), round(r['val_loss'], 5)) for r in recs]}"
+              ", final weights written")
 
     # ---- 6g. the remaining entry points on the engine's ZINC run (its
     # final weights): the prediction dump, the serving artifacts of paths A
@@ -2745,6 +3173,11 @@ def main() -> int:
             except Exception:                       # noqa: BLE001 - report
                 traceback.print_exc()
                 check(False, "phase 6h: profile_dir")
+            try:
+                torchrun_run(Path(tmp), engine_out[0])
+            except Exception:                       # noqa: BLE001 - report
+                traceback.print_exc()
+                check(False, "phase 6j: torchrun on two ranks")
     except Exception:                               # noqa: BLE001 - report
         traceback.print_exc()
         check(False, "phase 6: engine")
@@ -3251,6 +3684,24 @@ def main() -> int:
             rows.append({"name": f"{Path(source).stem} (PCQM4Mv2, l {l})",
                          "route": "cuda", "source": source,
                          "replaces": replaces, "launches": n, **r,
+                         "library_ms": None})
+    # K1 and K2 on the row blocks of edge partitioning: the bf16
+    # training-mode cases of phase 3i, with rank 0's launches in phase 5j's
+    # timed steps (ZINC and TSP with `edge_partition` 2)
+    for fam, n in ep_launches.items():
+        for key, part, source, replaces in (
+                ("K1", "fwd", "egt_torch/csrc/egt_attention_fwd.cu",
+                 "egt_tpu/ops/egt_pallas.py:116"),
+                ("K2", "bwd", "egt_torch/csrc/egt_attention_bwd.cu",
+                 "egt_tpu/ops/egt_pallas.py:184")):
+            r = results.get(("attention_rows", fam, torch.bfloat16, True),
+                            {}).get(part)
+            if r is None or not n.get(key):
+                continue
+            rows.append({"name": f"{Path(source).stem} ({fam} row block, "
+                                 "edge_partition 2)",
+                         "route": "cuda", "source": source,
+                         "replaces": replaces, "launches": n[key], **r,
                          "library_ms": None})
     # K3, K1 and K8 in the bf16 serving artifacts of phase 6g: their
     # inference cases of phase 3 (128 graphs; K1 at the `egt_simple` ZINC

@@ -135,7 +135,9 @@ class GraphDataset:
 
     def _save_cache(self, path: Path, data: dict) -> None:
         self.cache_dir.mkdir(parents=True, exist_ok=True)
-        tmp = str(path) + ".tmp.npz"
+        # one temporary file a process: the ranks of a parallel run build
+        # the same cache at once
+        tmp = f"{path}.{os.getpid()}.tmp.npz"
         np.savez(tmp, **data)
         os.replace(tmp, path)
 

@@ -10,6 +10,11 @@ over the column-normalised adjacency, the pairwise sum of a node2edge
 embedding, the pairwise concatenation of the TSP edge readout, the virtual
 nodes' rows, edge blocks and hard-mask extension, and the SVD and
 eigenvector positional encodings with their training-time sign flips.
+The `_sp` twins (`stack_hops_sp`, `distance_targets_sp`,
+`degree_encoding_sp`, `edge_diffusion_sp`, `pairwise_add_sp`,
+`prepend_virtual_edges_sp`) build the same from one shard's rows of the
+adjacency and the edge features under edge partitioning, gathering rows or
+summing over the shards where a row needs the whole matrix.
 
 The flips are drawn from the port's Philox (`ops/rng.py`, draw index
 `PE_FLIP`) on the input tensor's device from an explicit seed: one uniform a
@@ -26,6 +31,7 @@ import torch
 from torch import nn
 
 from ..ops import rng
+from ..parallel.collectives import all_gather_rows, psum
 
 
 # ---------------------------------------------------------------------- initializers
@@ -136,6 +142,31 @@ def stack_hops(adj, upto_hop: int, clip_hops: bool = True):
     return torch.stack(hops, dim=-1)
 
 
+def stack_hops_sp(adj_rows, upto_hop: int, group, clip_hops: bool = True,
+                  include_xpose: bool = False, index: int = 0,
+                  lq: int | None = None):
+    """`stack_hops` of a row shard (`features.py:122` in JAX): each hop's
+    rows need the previous hop whole, so its rows are gathered over the
+    shards first. With `include_xpose` each hop's transposed rows (the
+    whole hop's columns of this shard) follow the hops."""
+    hops = [adj_rows]
+    hops_full = []
+    hop_rows = adj_rows
+    for _ in range(upto_hop - 1):
+        hop_full = all_gather_rows(hop_rows, group)
+        hops_full.append(hop_full)
+        hop_rows = torch.matmul(adj_rows, hop_full)
+        if clip_hops:
+            hop_rows = torch.clamp(hop_rows, 0.0, 1.0)
+        hops.append(hop_rows)
+    stacked = torch.stack(hops, dim=-1)
+    if not include_xpose:
+        return stacked
+    hops_full.append(all_gather_rows(hop_rows, group))
+    xpose = [hf.transpose(1, 2).narrow(1, index * lq, lq) for hf in hops_full]
+    return torch.cat([stacked, torch.stack(xpose, dim=-1)], dim=-1)
+
+
 def distance_targets(adj, distance_target: int):
     """k-hop reachability counts: round(sum_k clip(A^k, 0, 1)) as int64, the
     distance objective's target."""
@@ -147,17 +178,44 @@ def distance_targets(adj, distance_target: int):
     return torch.round(total).long()
 
 
+def distance_targets_sp(adj_rows, distance_target: int, group):
+    """`distance_targets` of a row shard: each hop gathered whole first,
+    as in `stack_hops_sp`."""
+    total = adj_rows
+    hop_rows = adj_rows
+    for _ in range(distance_target - 1):
+        hop_full = all_gather_rows(hop_rows, group)
+        hop_rows = torch.clamp(torch.matmul(adj_rows, hop_full), 0.0, 1.0)
+        total = total + hop_rows
+    return torch.round(total).long()
+
+
+def _degree_one_hot(deg, max_degree: int):
+    deg = torch.clamp(deg, max=max_degree).long()
+    return torch.nn.functional.one_hot(deg, max_degree + 1).float()
+
+
 def degree_encoding(adj, max_degree: int, bidir: bool):
     """(b, l, max_degree + 1) f32: the one-hot in-degree (column sums of
     the adjacency, clipped to `max_degree`), with `bidir` the one-hot
     out-degree (row sums) beside it."""
-    def one_hot(deg):
-        deg = torch.clamp(deg, max=max_degree).long()
-        return torch.nn.functional.one_hot(deg, max_degree + 1).float()
-    in_oh = one_hot(torch.sum(adj, dim=1))
+    in_oh = _degree_one_hot(torch.sum(adj, dim=1), max_degree)
     if not bidir:
         return in_oh
-    return torch.cat([in_oh, one_hot(torch.sum(adj, dim=2))], dim=-1)
+    return torch.cat([in_oh, _degree_one_hot(torch.sum(adj, dim=2),
+                                             max_degree)], dim=-1)
+
+
+def degree_encoding_sp(adj_rows, max_degree: int, bidir: bool, group):
+    """`degree_encoding` from a row shard, whole on every rank: the
+    in-degrees (column sums) a psum of the shards' partial sums, the
+    out-degrees (row sums) gathered by rows."""
+    in_oh = _degree_one_hot(psum(torch.sum(adj_rows, dim=1), group),
+                            max_degree)
+    if not bidir:
+        return in_oh
+    out_deg = all_gather_rows(torch.sum(adj_rows, dim=2), group)
+    return torch.cat([in_oh, _degree_one_hot(out_deg, max_degree)], dim=-1)
 
 
 def edge_diffusion(e, adj, edge_valid, steps: int):
@@ -176,11 +234,33 @@ def edge_diffusion(e, adj, edge_valid, steps: int):
     return torch.cat(outs, dim=-1)
 
 
+def edge_diffusion_sp(e_rows, adj_rows, edge_valid_rows, steps: int, group):
+    """`edge_diffusion` of a row shard: the column normaliser a psum of
+    the shards' column sums, and each step's rows gathered whole before the
+    next contraction."""
+    den = psum(torch.sum(adj_rows, dim=1, keepdim=True), group)
+    a_norm = torch.where(den > 0, adj_rows / torch.where(den > 0, den, 1.0),
+                         0.0)
+    ed = e_rows * edge_valid_rows.to(e_rows.dtype)[..., None]
+    outs = []
+    for _ in range(steps):
+        ed = torch.einsum("bij,bjkl->bikl", a_norm, all_gather_rows(ed, group))
+        outs.append(ed)
+    return torch.cat(outs, dim=-1)
+
+
 def pairwise_add(x):
     """(b, l, 2w) -> (b, l, l, w): the row node's first half plus the
     column node's second half on every pair."""
     w = x.shape[-1] // 2
     return x[:, :, None, :w] + x[:, None, :, w:]
+
+
+def pairwise_add_sp(x, index: int, lq: int):
+    """`pairwise_add` for a row shard: this shard's rows' first half
+    against every column's second half."""
+    w = x.shape[-1] // 2
+    return x[:, index * lq:(index + 1) * lq, None, :w] + x[:, None, :, w:]
 
 
 def pairwise_cat(row, col):
@@ -218,13 +298,28 @@ def prepend_virtual_edges(e, ve_emb):
                       torch.cat([rows, e], dim=1)], dim=2)
 
 
+def prepend_virtual_edges_sp(e_rows, ve_emb):
+    """`prepend_virtual_edges` for a row shard (b, lq, l, w) -> (b, k + lq,
+    k + l, w): every shard holds the k virtual rows whole (replicated query
+    rows), then its own rows with the k virtual columns before them."""
+    b, lq, l, w = e_rows.shape
+    k = ve_emb.shape[0]
+    emb = ve_emb.to(e_rows.dtype)
+    emb_r, emb_c = emb[None, :, None, :], emb[None, None, :, :]
+    box = (0.5 * (emb_r + emb_c)).expand(b, k, k, w)
+    vn_rows = torch.cat([box, emb_r.expand(b, k, l, w)], dim=2)
+    local = torch.cat([emb_c.expand(b, lq, k, w), e_rows], dim=2)
+    return torch.cat([vn_rows, local], dim=1)
+
+
 def extend_edge_mask_for_vn(edge_mask, num_virtual_nodes: int):
-    """A (b, l, l, h) hard attention mask with the k virtual rows and
-    columns always on: (b, k + l, k + l, h)."""
-    b, l, _, h = edge_mask.shape
+    """A (b, l_q, l, h) hard attention mask (l_q = l, or a shard's rows)
+    with the k virtual rows and columns always on: (b, k + l_q, k + l,
+    h)."""
+    b, lq, l, h = edge_mask.shape
     k = num_virtual_nodes
     m = torch.cat([edge_mask.new_ones((b, k, l, h)), edge_mask], dim=1)
-    return torch.cat([edge_mask.new_ones((b, l + k, k, h)), m], dim=2)
+    return torch.cat([edge_mask.new_ones((b, lq + k, k, h)), m], dim=2)
 
 
 # --------------------------------------------------------------- positional encodings

@@ -1,6 +1,8 @@
 """EGTGraphModel: config + `nn.Module` with the forward pass.
 
-Port of `egt_tpu/models/graph_model.py` on one device: token (one column,
+Port of `egt_tpu/models/graph_model.py` (one device, or one shard of a
+parallel run: `forward(..., sp=, data=, tp=)`, driven by
+`egt_torch/parallel/`): token (one column,
 or the multi-column OGB atom features) or dense (Keras-masked) node
 embeddings, the SVD or eigenvector positional encoding added to them (with
 its training-time sign flips) and the one-hot degree encoding; the edge
@@ -54,6 +56,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from . import features as F
 from . import layers as L
+from ..parallel import collectives as C
 from ..ops.rng import fold_seed
 
 
@@ -384,12 +387,14 @@ class EGTGraphModel(nn.Module):
             return self.node_valid(batch)
         return self.edge_valid(batch)
 
-    def embed_nodes(self, batch, training: bool = False, pe_seed=None):
+    def embed_nodes(self, batch, training: bool = False, pe_seed=None,
+                    sp=None):
         """The node embedding in f32 (virtual nodes not yet prepended):
         tokens (one column or several) or masked dense features, plus
         the SVD or eigenvector PE, plus the degree encoding. `pe_seed` (the
         step's seed) keys the PE's sign flips at training time, folded with
-        the JAX tag of each PE."""
+        the JAX tag of each PE. Under `sp` the adjacency holds a shard's
+        rows, and the degrees come whole from the shards."""
         cfg = self.cfg
         dev = self.device
         nf = torch.as_tensor(batch["node_features"], device=dev)
@@ -418,15 +423,21 @@ class EGTGraphModel(nn.Module):
                 training=training, seed=seed("eig"))
         if cfg.max_degree_enc > 0:
             adj = torch.as_tensor(batch["graph_matrix"], device=dev).float()
-            h = h + F.dense(self.degree_emb, F.degree_encoding(
-                adj, cfg.max_degree_enc, cfg.bidir_degree))
+            if sp is not None:
+                deg = F.degree_encoding_sp(adj, cfg.max_degree_enc,
+                                           cfg.bidir_degree, sp.group)
+            else:
+                deg = F.degree_encoding(adj, cfg.max_degree_enc,
+                                        cfg.bidir_degree)
+            h = h + F.dense(self.degree_emb, deg)
         return h
 
-    def _embed_edges(self, batch, adj):
+    def _embed_edges(self, batch, adj, sp=None):
         """The edge channel in f32: the edge features' embedding, the hop
         embedding (with `include_xpose` the transposed hops beside the
         hops), the pairwise sum of the node2edge embedding and the
-        diffusion of the edge features' embedding, summed in that order."""
+        diffusion of the edge features' embedding, summed in that order.
+        Under `sp`, this shard's rows (the `_sp` twins of `features.py`)."""
         cfg = self.cfg
         dev = self.device
         parts = []
@@ -440,9 +451,14 @@ class EGTGraphModel(nn.Module):
                                               cfg.mask_value)
             parts.append(fm_emb)
         if cfg.use_adj and cfg.upto_hop >= 1:
-            hops = F.stack_hops(adj, cfg.upto_hop, cfg.clip_hops)
-            if cfg.include_xpose:
-                hops = torch.cat([hops, hops.transpose(1, 2)], dim=-1)
+            if sp is not None:
+                hops = F.stack_hops_sp(adj, cfg.upto_hop, sp.group,
+                                       cfg.clip_hops, cfg.include_xpose,
+                                       sp.index, sp.lq)
+            else:
+                hops = F.stack_hops(adj, cfg.upto_hop, cfg.clip_hops)
+                if cfg.include_xpose:
+                    hops = torch.cat([hops, hops.transpose(1, 2)], dim=-1)
             parts.append(F.dense(self.adj_emb, hops))
         if cfg.node2edge_embed:
             nf = torch.as_tensor(batch["node_features"], device=dev)
@@ -450,13 +466,21 @@ class EGTGraphModel(nn.Module):
                 x = F.token_embed(self.node2edge_emb, nf)
             else:
                 x = F.dense(self.node2edge_emb, nf.float())
-            parts.append(F.pairwise_add(x))
+            parts.append(F.pairwise_add(x) if sp is None
+                         else F.pairwise_add_sp(x, sp.index, sp.lq))
         if cfg.max_diffuse_t > 0:
             if fm_emb is None:
                 raise ValueError("max_diffuse_t diffuses the edge features, "
                                  "and edge_input_kind is 'none'")
-            parts.append(F.dense(self.diffusion_emb, F.edge_diffusion(
-                fm_emb, adj, self.edge_valid(batch), cfg.max_diffuse_t)))
+            if sp is not None:
+                diffused = F.edge_diffusion_sp(fm_emb, adj,
+                                               self.edge_valid(batch),
+                                               cfg.max_diffuse_t, sp.group)
+            else:
+                diffused = F.edge_diffusion(fm_emb, adj,
+                                            self.edge_valid(batch),
+                                            cfg.max_diffuse_t)
+            parts.append(F.dense(self.diffusion_emb, diffused))
         if not parts:
             raise ValueError("edge stream requested but no edge inputs")
         e = parts[0]
@@ -466,7 +490,8 @@ class EGTGraphModel(nn.Module):
 
     def forward(self, batch: dict, training: bool = False, seeds=None,
                 pe_seed=None, with_context: bool = False,
-                capture_analysis: bool = False):
+                capture_analysis: bool = False, sp=None, data=None,
+                tp=None):
         """batch: node_features (b, l) int tokens, (b, l, c) int columns
         (`node_vocab_sizes`) or (b, l, f) f32 dense features (-1 /
         `mask_value` padding), feature_matrix (b, l, l) int, (b, l, l, c)
@@ -483,17 +508,29 @@ class EGTGraphModel(nn.Module):
         path and fills the context's `analysis` (with virtual nodes the
         captures keep their k rows, as in JAX). With `cfg.remat` and
         autograd on, each layer runs under `torch.utils.checkpoint`, off
-        under capture (as in JAX)."""
+        under capture (as in JAX).
+
+        Parallel runs (`parallel/edge_partition.py` drives them): with `sp`
+        (a `layers.SPContext`), graph_matrix and feature_matrix hold the
+        query rows of this rank's shard, every pair tensor is a row block,
+        and a node or edge readout returns this shard's rows (the caller
+        gathers them); the distance objective's sum and `readout_edges`
+        are psums over the shards. `data` (a `collectives.Group`) makes the
+        BatchNorm statistics the global batch's when the batch is a shard
+        of it. `tp` (a `collectives.Group`) when the layers hold their
+        tensor-parallel shards (`parallel/partitioning.py`)."""
         cfg = self.cfg
         dev = self.device
+        if sp is not None:
+            self._check_sp_supported(training)
         if seeds is not None and len(seeds) != cfg.model_height:
             raise ValueError(f"need {cfg.model_height} layer seeds, got "
                              f"{len(seeds)}")
         # the dataset ships the adjacency in a narrow integer dtype
         adj = torch.as_tensor(batch["graph_matrix"], device=dev).float()
         node_mask = self.node_valid(batch)
-        h = self.embed_nodes(batch, training, pe_seed)
-        e = self._embed_edges(batch, adj) if cfg.needs_edge_embedding \
+        h = self.embed_nodes(batch, training, pe_seed, sp)
+        e = self._embed_edges(batch, adj, sp) if cfg.needs_edge_embedding \
             else None
         edge_mask = adj if cfg.edge_channel_type == "constrained" else None
 
@@ -501,7 +538,9 @@ class EGTGraphModel(nn.Module):
         if k > 0:
             h = F.prepend_virtual_nodes(h, self.virtual_node_embeddings)
             if e is not None:
-                e = F.prepend_virtual_edges(e, self.virtual_edge_embeddings)
+                e = (F.prepend_virtual_edges(e, self.virtual_edge_embeddings)
+                     if sp is None else F.prepend_virtual_edges_sp(
+                         e, self.virtual_edge_embeddings))
             node_mask = torch.nn.functional.pad(node_mask, (k, 0),
                                                 value=True)
             if edge_mask is not None:
@@ -522,7 +561,7 @@ class EGTGraphModel(nn.Module):
             updates = {}
             reprs = [] if cfg.combine_layer_repr else None
             h, e = layer(h, e, node_mask, edge_mask, training, seed,
-                         analysis, i, reprs, updates)
+                         analysis, i, reprs, updates, sp, data, tp)
             return h, e, updates, reprs
 
         remat = bool(cfg.remat) and not capture_analysis \
@@ -559,18 +598,20 @@ class EGTGraphModel(nn.Module):
         if (not cfg.add_n_norm) and cfg.do_final_norm:
             st = self.stack
             h = L.norm(cfg.node_normalization, st["node_norm_final"], h,
-                       training, ctx.stats_updates, ("node_norm_final",))
+                       training, ctx.stats_updates, ("node_norm_final",),
+                       data)
             if cfg.edge_residual and (reads_e or (
                     training and cfg.edge_normalization == "batch")):
                 e = L.norm(cfg.edge_normalization, st["edge_norm_final"], e,
-                           training, ctx.stats_updates, ("edge_norm_final",))
+                           training, ctx.stats_updates, ("edge_norm_final",),
+                           data if sp is None else sp.stats)
         if k > 0 and reads_e:
             e = e[:, k:, k:]
         if distance:
-            metric = self._distance_loss(e, adj)
+            metric = self._distance_loss(e, adj, sp)
             ctx.metrics["distance_loss"] = metric
             ctx.losses["distance_loss"] = metric * cfg.distance_loss
-        out = self._readout(h, e, node_mask, batch).float()
+        out = self._readout(h, e, node_mask, batch, sp).float()
         return (out, ctx) if with_context else out
 
     def analyze(self, batch: dict, training: bool = False, seeds=None,
@@ -582,14 +623,17 @@ class EGTGraphModel(nn.Module):
                       capture_analysis=True)
         return ctx.analysis
 
-    def _distance_loss(self, e, adj):
+    def _distance_loss(self, e, adj, sp=None):
         """The distance objective in f32: the head's (b, l, l,
         distance_target + 1) logits on the edge channel, the
         cross-entropy to the k-hop reachability count on the pairs it is
         positive, summed a graph and averaged over the batch. (A count past
-        the last class, which the data never gives, is clamped to it.)"""
+        the last class, which the data never gives, is clamped to it.)
+        Under `sp` a graph's sum is a psum of its shards' rows."""
         cfg = self.cfg
-        target = F.distance_targets(adj, cfg.distance_target)
+        target = (F.distance_targets(adj, cfg.distance_target) if sp is None
+                  else F.distance_targets_sp(adj, cfg.distance_target,
+                                             sp.group))
         x = e.float()
         for dp in self.distance_head["mlp"]["dense"]:
             x = L.activation(cfg.activation, F.dense(dp, x))
@@ -598,7 +642,10 @@ class EGTGraphModel(nn.Module):
         idx = torch.clamp(target, 0, cfg.distance_target)
         elem = -torch.gather(logp, -1, idx[..., None])[..., 0]
         elem = elem * (target > 0)
-        return torch.mean(torch.sum(elem.reshape(elem.shape[0], -1), dim=-1))
+        per_graph = torch.sum(elem.reshape(elem.shape[0], -1), dim=-1)
+        if sp is not None:
+            per_graph = C.psum(per_graph, sp.group)
+        return torch.mean(per_graph)
 
     def _mlp_out(self, x):
         x = x.float()
@@ -606,7 +653,7 @@ class EGTGraphModel(nn.Module):
             x = L.activation(self.cfg.activation, F.dense(dp, x))
         return F.dense(self.target, x)
 
-    def _readout(self, h, e, node_mask, batch):
+    def _readout(self, h, e, node_mask, batch, sp=None):
         """Graph: masked mean-pool over valid nodes (with virtual nodes,
         their k rows side by side), with `readout_edges` the mean of the
         edge channel over the valid pairs beside it -> MLP -> target. Node:
@@ -615,14 +662,17 @@ class EGTGraphModel(nn.Module):
         residual / constrained channels; padding included, the loss masks
         it), with `use_node_embeddings` preceded by the pair's two node
         features (pairwise cat). The node and edge readouts leave the
-        virtual nodes out. In f32."""
+        virtual nodes out. In f32. Under `sp` the node and edge readouts
+        give this shard's rows, and the edge means are psums."""
         k = self.cfg.num_virtual_nodes
         if self.cfg.readout_kind == "node":
-            return self._mlp_out(h[:, k:])
+            return self._mlp_out(h[:, k:] if sp is None
+                                 else C.sp_row_slice(h, sp))
         if self.cfg.readout_kind == "edge":
             if self.cfg.use_node_embeddings:
                 hf = h[:, k:].float()
-                e = torch.cat([F.pairwise_cat(hf, hf), e.float()], dim=-1)
+                row = hf if sp is None else C.sp_row_slice(h, sp).float()
+                e = torch.cat([F.pairwise_cat(row, hf), e.float()], dim=-1)
             return self._mlp_out(e)
         if k > 0:
             x = h[:, :k].reshape(h.shape[0], -1).float()
@@ -633,9 +683,30 @@ class EGTGraphModel(nn.Module):
         if self.cfg.readout_edges:
             em = self.edge_valid(batch).float()[..., None]
             es = torch.sum(e.float() * em, dim=(1, 2))
-            x = torch.cat([x, es / torch.clamp(torch.sum(em, dim=(1, 2)),
-                                               min=1.0)], dim=-1)
+            ec = torch.sum(em, dim=(1, 2))
+            if sp is not None:      # the shards' rows are disjoint: exact
+                es, ec = C.psum(es, sp.group), C.psum(ec, sp.group)
+            x = torch.cat([x, es / torch.clamp(ec, min=1.0)], dim=-1)
         return self._mlp_out(x)
+
+    def _check_sp_supported(self, training: bool):
+        """The combinations edge partitioning refuses, as JAX refuses them
+        (`graph_model.py:690-704`)."""
+        cfg = self.cfg
+        refused = []
+        if cfg.num_virtual_nodes > 0:
+            if cfg.edge_normalization == "batch":
+                # the replicated virtual rows would count once a shard in
+                # the edge stream's statistics
+                refused.append("BatchNorm edge normalization with virtual "
+                               "nodes")
+            if training and (cfg.random_mask_prob > 0
+                             or cfg.attn_dropout > 0):
+                refused.append("stochastic attention with virtual nodes "
+                               "(replicated VN rows would diverge)")
+        if refused:
+            raise NotImplementedError(
+                "edge partitioning does not support: " + ", ".join(refused))
 
 
 def _dots_policy(ctx, op, *args, **kwargs):

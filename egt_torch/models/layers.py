@@ -1,8 +1,8 @@
 """The dual-stream (node + edge channel) EGT layer.
 
-Port of `egt_tpu/models/layers.py` for the four edge channels on one
-device: `layer_norm` and `batch_norm` (eps 1e-3, f32 islands; BatchNorm's
-batch statistics over every axis but the last, padding included, and its
+Port of `egt_tpu/models/layers.py` for the four edge channels:
+`layer_norm` and `batch_norm` (eps 1e-3, f32 islands; BatchNorm's batch
+statistics over every axis but the last, padding included, and its
 moving statistics with momentum 0.99, returned and never written here),
 `activation` (every `jax.nn` function that keeps its input's shape, with
 JAX's defaults), `dropout`, `_attention`, `_mha_block`, `edge_update`,
@@ -41,11 +41,26 @@ BatchNorm's moving-statistics updates go into the `updates` dict a caller
 hands `layer_forward`, under JAX's paths (`("norm_mha",)`, `("node_ffn",
 "norm")`, ...): a training step writes them after its backward, so a
 recomputed forward (`remat`) cannot write them twice.
+
+Parallel runs (`egt_torch/parallel/`): under edge partitioning (`sp`, an
+`SPContext`, JAX's `sp` branches) e and every pair tensor hold one
+shard's query rows (a replicated virtual-node prefix, then its own rows)
+against every key, and the node stream is whole: the queries are the
+shard's rows (K1 / K2 on a row block), the attention output is gathered by
+rows, cross-talk psums its row sums, the edge-stream BatchNorm psums its
+statistics, and row dropout folds the shard in (`sp_dropout_rows`). Under
+tensor parallelism (`tp`, `parallel/partitioning.py`) the QKV and FFN-up
+Dense layers hold this rank's columns, the attention-out and FFN-down
+layers its rows (`dense_rows` psums them), and h_hat is gathered over the
+heads. With `data` (the batch one shard of the global batch) BatchNorm
+takes the global batch's statistics. A sharded layer never takes the
+whole-layer or edge-block kernels.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 from torch import nn
@@ -54,8 +69,23 @@ from ..ops.edge_block import edge_block_apply
 from ..ops.egt_attention import egt_attention_fused
 from ..ops.fused_layer import can_fuse_layer, fused_layer_apply
 from ..ops.rng import fold_seed
+from ..parallel import collectives as C
+from ..parallel.collectives import sp_gather_rows, sp_take_rows
 from .egt import egt_attention_core, split_qkv
 from .features import dense, dense_params
+
+
+class SPContext(NamedTuple):
+    """Edge partitioning (JAX's `SPContext`, `layers.py:41-47`): the pair
+    tensors of this rank hold the query rows of its shard (after a
+    replicated virtual-node prefix of `vn` rows) against every key; the
+    node stream is whole on every rank."""
+    group: object     # `collectives.Group` of the shards
+    size: int         # shards
+    index: int        # this shard's position
+    lq: int           # query rows a shard (virtual nodes excluded)
+    vn: int = 0       # virtual-node rows, replicated at the top of each shard
+    stats: object = None  # the group of the edge-stream BatchNorm statistics
 
 
 # -------------------------------------------------------------------- normalization
@@ -70,17 +100,30 @@ def layer_norm(p, x, eps: float = 1e-3):
 
 
 def batch_norm(p, x, training: bool, eps: float = 1e-3,
-               momentum: float = 0.99):
+               momentum: float = 0.99, group=None):
     """(y, moving-statistics updates | None). In training the statistics
     run over every axis but the last, with no mask (as Keras and JAX take
     them), and the updates are the new `moving_mean` / `moving_var`; in
-    eval the norm reads the moving statistics."""
+    eval the norm reads the moving statistics. With a `group` of more than
+    one rank, x is one shard of the logical tensor (a batch shard, a row
+    shard or both) and the statistics are the whole tensor's: a psum of
+    (sum, sum of squares, count) over the group (`layers.py:96-120` in
+    JAX)."""
     xf = x.float()
     updates = None
     if training:
         axes = tuple(range(xf.dim() - 1))
-        mu = xf.mean(axes)
-        var = torch.square(xf - mu).mean(axes)
+        if group is not None and group.size > 1:
+            n = torch.full((1,), float(xf.numel() // xf.shape[-1]),
+                           device=xf.device)
+            tot = C.psum(torch.cat([xf.sum(axes), torch.square(xf).sum(axes),
+                                    n]), group)
+            c = xf.shape[-1]
+            mu = tot[:c] / tot[-1]
+            var = tot[c:2 * c] / tot[-1] - torch.square(mu)
+        else:
+            mu = xf.mean(axes)
+            var = torch.square(xf - mu).mean(axes)
         updates = {
             "moving_mean": (momentum * p["moving_mean"]
                             + (1 - momentum) * mu).detach(),
@@ -92,14 +135,16 @@ def batch_norm(p, x, training: bool, eps: float = 1e-3,
     return y.to(x.dtype), updates
 
 
-def norm(kind: str, p, x, training: bool, updates: dict | None, path: tuple):
+def norm(kind: str, p, x, training: bool, updates: dict | None, path: tuple,
+         group=None):
     """The `kind` ("layer" or "batch") norm of x; a BatchNorm's updates go
-    into `updates` (if given) under `path`."""
+    into `updates` (if given) under `path`, and its statistics are taken
+    over `group`'s shards of x."""
     if kind == "layer":
         return layer_norm(p, x)
     if kind != "batch":
         raise ValueError(f"unknown normalization {kind!r}")
-    y, upd = batch_norm(p, x, training)
+    y, upd = batch_norm(p, x, training, group=group)
     if upd is not None and updates is not None:
         updates[path] = upd
     return y
@@ -211,15 +256,57 @@ def _sub_seed(seed, tag):
     return None if seed is None else fold_seed(seed, tag)
 
 
+def sp_dropout_rows(x_rows, rate: float, training: bool, seed,
+                    sp: SPContext):
+    """Dropout on a shard's row block: the replicated virtual-node rows
+    draw bits every shard shares (tag 7001), so they stay identical; the
+    local rows draw with the shard folded in (7002, index)."""
+    if not training or rate <= 0.0:
+        return x_rows
+    local = dropout(x_rows[:, sp.vn:], rate, training,
+                    None if seed is None else fold_seed(seed, 7002, sp.index))
+    if sp.vn == 0:
+        return local
+    return torch.cat([dropout(x_rows[:, :sp.vn], rate, training,
+                              _sub_seed(seed, 7001)), local], dim=1)
+
+
+def _row_dropout(x, rate, training, seed, sp):
+    """Node / edge dropout of a tensor whose rows are this shard's under
+    `sp`, with the seed JAX folds for each."""
+    if sp is not None:
+        return sp_dropout_rows(x, rate, training, seed, sp)
+    return dropout(x, rate, training, seed)
+
+
 # ------------------------------------------------------------------ attention block
 
 
 def _attention(p, cfg, h_n, e_bias_raw, gates_raw, node_mask, edge_mask,
-               training=False, seed=None, capture: bool = False):
+               training=False, seed=None, capture: bool = False, sp=None,
+               tp=None):
     """QKV projection + EGT attention. `e_bias_raw`/`gates_raw` are the
-    (b, l, l, h) projections; `edge_mask` is (b, l, l) head-shared or None.
-    Returns (v_att (b, l, d*h), h_hat (b, l, l, h), a_tild (b, l, l, h), None
-    from the attention kernel); `capture` takes the plain core."""
+    (b, l_q, l, h) projections; `edge_mask` is (b, l_q, l) head-shared or
+    None. Returns (v_att (b, l_q, d*h), h_hat (b, l_q, l, h), a_tild (b,
+    l_q, l, h), None from the attention kernel); `capture` takes the plain
+    core. Under `sp` the queries are this shard's rows (l_q = vn + lq)
+    against every key, and the draws fold in (613, index). Under `tp` (a
+    tensor-parallel `collectives.Group`) the QKV projection holds this
+    rank's heads, the attention runs on them with their columns of the
+    edge bias and the gates, and h_hat is gathered over the heads."""
+    heads = cfg.num_heads
+    if tp is not None and tp.size > 1:
+        heads //= tp.size
+        cols = slice(tp.index * heads, (tp.index + 1) * heads)
+        e_bias_raw = None if e_bias_raw is None else e_bias_raw[..., cols]
+        gates_raw = None if gates_raw is None else gates_raw[..., cols]
+    if sp is not None and training and (cfg.random_mask_prob > 0
+                                        or cfg.attn_dropout > 0):
+        if sp.vn > 0:
+            raise NotImplementedError(
+                "stochastic attention with virtual nodes under edge "
+                "partitioning (replicated VN rows would diverge)")
+        seed = None if seed is None else fold_seed(seed, 613, sp.index)
     kw = dict(
         clip_logits_value=(tuple(cfg.clip_logits_value)
                            if cfg.clip_logits_value is not None else None),
@@ -246,43 +333,63 @@ def _attention(p, cfg, h_n, e_bias_raw, gates_raw, node_mask, edge_mask,
                 ":538); set use_pallas: false to run it on the plain "
                 "attention core")
         b, l, f = qkv.shape
-        d = f // (3 * cfg.num_heads)
-        qkv_hm = qkv.reshape(b, l, 3, d, cfg.num_heads)
+        d = f // (3 * heads)
+        qkv_hm = qkv.reshape(b, l, 3, d, heads)
         q, k, v = (qkv_hm[:, :, i].permute(0, 3, 1, 2) for i in range(3))
+        if sp is not None:
+            # a rectangular block: this shard's query rows, every key
+            q = sp_take_rows(q, sp, dim=2)
         e_hm = e_bias_raw.permute(0, 3, 1, 2)
         g_hm = None if gates_raw is None else gates_raw.permute(0, 3, 1, 2)
         out = egt_attention_fused(q, k, v, e_hm, g_hm, node_mask=node_mask,
                                   attn_mask_hm=edge_mask, **kw)
-        return out.v_att, out.h_hat.permute(0, 2, 3, 1), None
+        return (out.v_att, C.all_gather_rows(out.h_hat.permute(0, 2, 3, 1),
+                                             tp, dim=3), None)
 
-    q, k, v = split_qkv(qkv, cfg.num_heads)
+    q, k, v = split_qkv(qkv, heads)
+    if sp is not None:
+        q = sp_take_rows(q, sp)
     am = None if edge_mask is None else edge_mask[..., None]
     out = egt_attention_core(q, k, v, e_bias_raw, gates_raw,
                              node_mask=node_mask, attn_mask=am,
                              chain_f32=bool(cfg.attn_chain_f32), **kw)
-    return out.v_att, out.h_hat, out.a_tild
+    return out.v_att, C.all_gather_rows(out.h_hat, tp, dim=3), out.a_tild
+
+
+def dense_rows(p, x, tp=None):
+    """A row-parallel Dense under `tp`: this rank's rows of the kernel on
+    its share of the input features, the partial products summed over the
+    group, then the bias (whole on every rank); a plain `dense` without."""
+    if tp is None or tp.size == 1:
+        return dense(p, x)
+    return C.psum(x @ p["kernel"].to(x.dtype), tp) + p["bias"].to(x.dtype)
 
 
 def _mha_block(p, cfg, h, e_bias, gates, node_mask, edge_mask,
                training=False, seed=None, analysis=None, tag="00",
-               updates=None):
-    """Pre/post-norm MHA with residual. Returns (h, h_hat, node_repr)."""
+               updates=None, sp=None, groups=(None, None), tp=None):
+    """Pre/post-norm MHA with residual. Returns (h, h_hat, node_repr).
+    Under `sp`, h is whole and the attention output's rows are gathered
+    back to whole rows."""
     y = h
     if not cfg.add_n_norm:
         h = norm(cfg.node_normalization, p["norm_mha"], h, training, updates,
-                 ("norm_mha",))
+                 ("norm_mha",), groups[0])
     node_repr = h
     v_att, h_hat, a_tild = _attention(p, cfg, h, e_bias, gates, node_mask,
                                       edge_mask, training, seed,
-                                      analysis is not None)
+                                      analysis is not None, sp, tp)
     if analysis is not None:
         analysis[f"mha_{tag}/e"] = h_hat
         analysis[f"mha_{tag}/mat"] = a_tild
-    h = dropout(dense(p["dense_mha"], v_att), cfg.node_dropout, training,
-                _sub_seed(seed, 2)) + y
+    h = _row_dropout(dense_rows(p["dense_mha"], v_att, tp), cfg.node_dropout,
+                     training, _sub_seed(seed, 2), sp)
+    if sp is not None:
+        h = sp_gather_rows(h, sp)
+    h = h + y
     if cfg.add_n_norm:
         h = norm(cfg.node_normalization, p["norm_mha"], h, training, updates,
-                 ("norm_mha",))
+                 ("norm_mha",), groups[0])
     return h, h_hat, node_repr
 
 
@@ -292,16 +399,18 @@ def _edge_bias(p, cfg, e):
 
 def edge_update(p, cfg, h, e, node_mask, edge_mask, training=False,
                 seed=None, defer_edge_tail: bool = False, analysis=None,
-                tag="00", updates=None):
+                tag="00", updates=None, sp=None, groups=(None, None),
+                tp=None):
     """The attention sub-layer of each edge channel. Returns (h, e,
     node_repr, edge_repr); with `defer_edge_tail` (residual / constrained),
     the edge tail is left to the edge-block kernel and `e` comes back as the
     pair (h_hat, e_residual). `none` and `bias` pass e through unchanged:
     `none` attends with no edge bias and no gates, `bias` takes both from
-    the raw e. `analysis` (a dict) captures this layer's tensors."""
+    the raw e. `analysis` (a dict) captures this layer's tensors. `groups`
+    are those of the node and the edge stream's BatchNorm statistics."""
     cap = analysis is not None
     mha = dict(training=training, seed=seed, analysis=analysis, tag=tag,
-               updates=updates)
+               updates=updates, sp=sp, groups=groups, tp=tp)
     if cfg.edge_channel_type == "none":
         if cap:
             analysis[f"dense_edge_b_{tag}/e"] = e
@@ -311,7 +420,7 @@ def edge_update(p, cfg, h, e, node_mask, edge_mask, training=False,
     y_e = e
     if cfg.edge_residual and not cfg.add_n_norm:
         e = norm(cfg.edge_normalization, p["norm_edge"], e, training,
-                 updates, ("norm_edge",))
+                 updates, ("norm_edge",), groups[1])
     edge_repr = e if cfg.edge_residual else None
     gates = dense(p["attention_gates"], e) if cfg.gate_attention else None
     eb = _edge_bias(p, cfg, e)
@@ -325,11 +434,11 @@ def edge_update(p, cfg, h, e, node_mask, edge_mask, training=False,
         return h, y_e, node_repr, None
     if defer_edge_tail:
         return h, (h_hat, y_e), node_repr, edge_repr
-    e = dropout(dense(p["dense_edge_r"], h_hat), cfg.edge_dropout, training,
-                _sub_seed(seed, 3)) + y_e
+    e = _row_dropout(dense(p["dense_edge_r"], h_hat), cfg.edge_dropout,
+                     training, _sub_seed(seed, 3), sp) + y_e
     if cfg.add_n_norm:
         e = norm(cfg.edge_normalization, p["norm_edge"], e, training,
-                 updates, ("norm_edge",))
+                 updates, ("norm_edge",), groups[1])
     return h, e, node_repr, edge_repr
 
 
@@ -353,21 +462,32 @@ def ffn_dims(cfg) -> tuple[int, int, int, int]:
     return hn, he, hn - 2 * nx_n2e + nx_e2n, he - 2 * nx_e2n + nx_n2e
 
 
-def _xtalk(cfg, x_h, x_e, node_mask):
+def _xtalk(cfg, x_h, x_e, node_mask, sp=None):
     """Node <-> edge cross-talk on the FFN hidden features. Edge to node:
     the first slice of each pair's features summed over the valid rows, the
     second over the valid columns, both over the graph's valid nodes (zeros
     for a graph with none). Node to edge: a node's first slice on its row
     plus its second on its column. Each side keeps the rest of its features
-    and the other side's exchange is concatenated after them."""
+    and the other side's exchange is concatenated after them. Under `sp`,
+    x_e holds this shard's rows: the row sums are a psum of the shards'
+    partial sums (the replicated virtual rows counted once), and the column
+    sums are gathered by rows."""
     x_h_n = x_e_n = None
     if cfg.edge2node_xtalk > 0.0:
         he = x_e.shape[-1]
         nx = xtalk_sizes(cfg, he, cfg.edge2node_xtalk)
         x_er, x_ec, x_e = torch.split(x_e, [nx, nx, he - 2 * nx], dim=3)
         m = node_mask.to(x_h.dtype)
-        x_er = torch.sum(x_er * m[:, :, None, None], dim=1)
-        x_ec = torch.sum(x_ec * m[:, None, :, None], dim=2)
+        if sp is not None:
+            weighted = x_er * sp_take_rows(m, sp)[:, :, None, None]
+            x_er = C.psum(torch.sum(weighted[:, sp.vn:], dim=1), sp.group)
+            if sp.vn:
+                x_er = x_er + torch.sum(weighted[:, :sp.vn], dim=1)
+            x_ec = sp_gather_rows(
+                torch.sum(x_ec * m[:, None, :, None], dim=2), sp)
+        else:
+            x_er = torch.sum(x_er * m[:, :, None, None], dim=1)
+            x_ec = torch.sum(x_ec * m[:, None, :, None], dim=2)
         m_sum = torch.sum(m, dim=1)[:, None, None]
         x_h_n = torch.where(
             m_sum > 0, (x_er + x_ec) / torch.where(m_sum > 0, m_sum, 1.0),
@@ -376,6 +496,8 @@ def _xtalk(cfg, x_h, x_e, node_mask):
         hn = x_h.shape[-1]
         nx = xtalk_sizes(cfg, hn, cfg.node2edge_xtalk)
         x_hr, x_hc, x_h = torch.split(x_h, [nx, nx, hn - 2 * nx], dim=2)
+        if sp is not None:
+            x_hr = sp_take_rows(x_hr, sp)
         x_e_n = x_hr[:, :, None, :] + x_hc[:, None, :, :]
     if x_h_n is not None:
         x_h = torch.cat([x_h, x_h_n], dim=-1)
@@ -385,7 +507,8 @@ def _xtalk(cfg, x_h, x_e, node_mask):
 
 
 def ffn_block(p, cfg, h, e, skip_edge: bool = False, training=False,
-              seed=None, node_mask=None, updates=None):
+              seed=None, node_mask=None, updates=None, sp=None,
+              groups=(None, None), tp=None):
     """Dual FFN: norm (pre-norm) -> lr1 -> act -> lr2 (-> dropout) +
     residual (post-norm after) on each stream. With cross-talk the
     activation comes after the exchange (which needs `node_mask`). Returns
@@ -396,31 +519,32 @@ def ffn_block(p, cfg, h, e, skip_edge: bool = False, training=False,
         and not skip_edge
     pn = p["node_ffn"]
 
-    def pre(kind, q, x, path):
+    def pre(kind, q, x, path, group):
         if not cfg.add_n_norm:
-            x = norm(kind, q["norm"], x, training, updates, path)
+            x = norm(kind, q["norm"], x, training, updates, path, group)
         x = dense(q["lr1"], x)
         return x if xtalk else activation(act, x)
 
-    def post(kind, q, x, y, rate, tag, path):
+    def post(kind, q, x, y, rate, tag, path, group, rows):
         if xtalk:
             x = activation(act, x)
-        x = dropout(dense(q["lr2"], x), rate, training,
-                    _sub_seed(seed, tag)) + y
+        x = _row_dropout(dense_rows(q["lr2"], x, tp), rate, training,
+                         _sub_seed(seed, tag), rows) + y
         if cfg.add_n_norm:
-            x = norm(kind, q["norm"], x, training, updates, path)
+            x = norm(kind, q["norm"], x, training, updates, path, group)
         return x
 
-    x_h = pre(cfg.node_normalization, pn, h, ("node_ffn", "norm"))
+    x_h = pre(cfg.node_normalization, pn, h, ("node_ffn", "norm"), groups[0])
     if edge:
         pe = p["edge_ffn"]
-        x_e = pre(cfg.edge_normalization, pe, e, ("edge_ffn", "norm"))
+        x_e = pre(cfg.edge_normalization, pe, e, ("edge_ffn", "norm"),
+                  groups[1])
         if xtalk:
-            x_h, x_e = _xtalk(cfg, x_h, x_e, node_mask)
+            x_h, x_e = _xtalk(cfg, x_h, x_e, node_mask, sp)
         e = post(cfg.edge_normalization, pe, x_e, e, cfg.edge_dropout, 4,
-                 ("edge_ffn", "norm"))
+                 ("edge_ffn", "norm"), groups[1], sp)
     h = post(cfg.node_normalization, pn, x_h, h, cfg.node_dropout, 5,
-             ("node_ffn", "norm"))
+             ("node_ffn", "norm"), groups[0], None)
     return h, e
 
 
@@ -459,25 +583,39 @@ class EGTLayer(nn.ModuleDict):
         self.cfg = cfg
 
     def forward(self, h, e, node_mask, edge_mask, training=False, seed=None,
-                analysis=None, layer_idx: int = 0, reprs=None, updates=None):
+                analysis=None, layer_idx: int = 0, reprs=None, updates=None,
+                sp=None, data=None, tp=None):
         return layer_forward(self, self.cfg, h, e, node_mask, edge_mask,
                              training, seed, analysis, layer_idx, reprs,
-                             updates)
+                             updates, sp, data, tp)
 
 
 def layer_forward(p, cfg, h, e, node_mask, edge_mask, training=False,
                   seed=None, analysis=None, layer_idx: int = 0, reprs=None,
-                  updates=None):
+                  updates=None, sp=None, data=None, tp=None):
     """Attention sub-layer + FFN sub-layer. Returns (h, e). `seed` is this
     layer's seed for the step (training). With `analysis` (a dict) the
     layer runs the plain path and captures its tensors under the tag of
     `layer_idx`; with `reprs` (a list) it appends (node_repr, edge_repr);
     with `updates` (a dict) it puts its BatchNorms' moving-statistics
-    updates there under JAX's paths."""
+    updates there under JAX's paths.
+
+    Parallel runs: `sp` (an `SPContext`) when e, the edge mask and the
+    pair tensors hold one shard's rows; the layer then takes the attention
+    kernel (K1 / K2) on its row block and never the whole-layer or
+    edge-block kernels (JAX's `can_fuse_layer` / `can_fuse_edge_block`
+    refuse `sp`). `data` (a `collectives.Group`) when the batch is one
+    shard of the global batch: the node stream's BatchNorm statistics are
+    taken over it, the edge stream's over `sp.stats` under `sp`. `tp` (a
+    `collectives.Group`) when the layer's parameters are its tensor-parallel
+    shards (`parallel/partitioning.py`): the attention kernel on this
+    rank's heads, no whole-layer or edge-block kernel."""
     capture = analysis is not None
+    groups = (data, sp.stats if sp is not None else data)
     ffn = dict(training=training, seed=seed, node_mask=node_mask,
-               updates=updates)
-    if (can_fuse_layer(cfg, training, capture)
+               updates=updates, sp=sp, groups=groups, tp=tp)
+    sharded = sp is not None or tp is not None
+    if (not sharded and can_fuse_layer(cfg, training, capture)
             and (cfg.edge_channel_type != "constrained"
                  or edge_mask is not None)):
         # whole-layer kernel: edge pre-LN -> gates/bias -> attention ->
@@ -492,11 +630,12 @@ def layer_forward(p, cfg, h, e, node_mask, edge_mask, training=False,
                     _sub_seed(seed, 2)) + y_h
         h, _ = ffn_block(p, cfg, h, None, skip_edge=True, **ffn)
         return h, e
-    fuse_edge = can_fuse_edge_block(cfg, training, capture)
+    fuse_edge = not sharded and can_fuse_edge_block(cfg, training, capture)
     h, e, node_repr, edge_repr = edge_update(
         p, cfg, h, e, node_mask, edge_mask, training, seed,
         defer_edge_tail=fuse_edge, analysis=analysis,
-        tag=f"{layer_idx:0>2d}", updates=updates)
+        tag=f"{layer_idx:0>2d}", updates=updates, sp=sp, groups=groups,
+        tp=tp)
     if reprs is not None:
         reprs.append((node_repr, edge_repr))
     if fuse_edge:
@@ -511,8 +650,8 @@ def layer_forward(p, cfg, h, e, node_mask, edge_mask, training=False,
 def can_fuse_edge_block(cfg, training: bool = False,
                         capture: bool = False) -> bool:
     """Eligibility of the edge-block kernel: the JAX `can_fuse_edge_block`
-    (without sequence parallelism, which the port does not run; analysis
-    capture refuses it). Like the JAX rule it does not look at
+    (analysis capture refuses it; `layer_forward` takes it only on an
+    unsharded layer). Like the JAX rule it does not look at
     `cfg.activation`: the kernel's activation is ELU."""
     return (bool(cfg.fused_edge_block)
             and not capture

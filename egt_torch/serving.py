@@ -14,8 +14,10 @@ with its moving statistics, which travel with the weights. On a CUDA
 device the layers run through the hand-written kernels (see
 `models/layers.py`).
 
-- `load_predictor(config, weights, device=None)` serves the eager model at
-  any pad length l.
+- `load_predictor(config, weights, device=None, mesh=None)` serves the
+  eager model at any pad length l; with a `parallel.mesh.Mesh`, on every
+  rank of the mesh with the edge rows split over its model group (edge
+  partitioning, `parallel/edge_partition.py`).
 - `export_predict` / `save_serving` trace the model's inference forward
   with `torch.export` (under `torch.no_grad`) into a program that holds
   the weights; its forward kernels K3, K1 and K8 stay in the graph as the
@@ -65,17 +67,24 @@ def load_model(config, weights, device=None):
     return model.eval()
 
 
-def load_predictor(config, weights, device=None):
+def load_predictor(config, weights, device=None, mesh=None):
     """Returns `fn(batch) -> np.ndarray` of f32 predictions: (b,
     num_targets) for a graph readout (ZINC, MNIST, CIFAR10), (b, l,
     num_targets) for a node readout (PATTERN, CLUSTER), (b, l, l,
     num_targets) for an edge readout (TSP). Only the keys the model reads
-    are taken from the batch."""
-    model = load_model(config, weights, device)
+    are taken from the batch. With `mesh`, every rank calls `fn` on the
+    same request, on the mesh's device; each holds the request's edge rows
+    of its shard and returns the whole prediction."""
+    if mesh is None:
+        model = load_model(config, weights, device)
+    else:
+        from .parallel.edge_partition import forward_shard
+        model = load_model(config, weights, mesh.device)
 
     def predict(batch: dict) -> np.ndarray:
         with torch.inference_mode():
-            out = model({k: batch[k] for k in model.input_keys})
+            b = {k: batch[k] for k in model.input_keys}
+            out = model(b) if mesh is None else forward_shard(model, b, mesh)
         return out.cpu().numpy()
 
     return predict

@@ -14,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel.collectives import all_reduce_
+
 
 def class_weights_from_sizes(class_sizes) -> np.ndarray:
     sizes = np.asarray(class_sizes, dtype="float32")
@@ -93,9 +95,12 @@ class DeviceAccumulator:
     """(sum, count) pairs of a run of steps, summed where they are computed
     and read once: the counterpart of the JAX engine's on-device accumulator
     (`egt_tpu/training/trainer.py:417-422`), so that a step reads no value
-    back from the card. The sums are kept in f64."""
+    back from the card. The sums are kept in f64. With a `group`
+    (`parallel.collectives.Group`) of several ranks, each rank adds its
+    shard's pairs and the read sums them over the group first."""
 
-    def __init__(self):
+    def __init__(self, group=None):
+        self.group = group
         self._names: tuple | None = None
         self._acc = None
 
@@ -115,6 +120,9 @@ class DeviceAccumulator:
         """{name: sum / count}; the one read of the device values."""
         if self._acc is None:
             return {}
+        v = self._acc
+        if self.group is not None and self.group.size > 1:
+            v = all_reduce_(v.clone(), self.group)
         acc = MetricAccumulator()
-        acc.update(dict(zip(self._names, self._acc.cpu().tolist())))
+        acc.update(dict(zip(self._names, v.cpu().tolist())))
         return acc.result()

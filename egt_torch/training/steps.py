@@ -29,6 +29,20 @@ JAX engine keeps its sums on the device until the end of an epoch.
 
 On a CUDA device the layers' forward and backward run through the
 hand-written kernels (see `models/layers.py`).
+
+Parallel runs (a `parallel.mesh.Mesh` of more than one rank): each rank
+holds its data group's graphs and, with a model group of more than one
+rank, its edge rows (`parallel/edge_partition.py`). The loss is the global
+batch's, as JAX's jitted loss over a sharded batch gives it: the scheme's
+loss is the mean of its first (sum, count) pair, whose counts are summed
+over the data group before the division; the model's auxiliary losses and
+the L2 penalty count 1 / data ranks a rank. Every rank of a model group
+computes the same loss and back-propagates it scaled by 1 / model ranks
+(`parallel/collectives.py`), and after a step's micro-batches the
+gradients are summed over every rank. The pairs a step adds into a
+`DeviceAccumulator` are this rank's share, which its read sums over the
+data group. The draws fold in the data rank, so that two ranks never draw
+the same bits for their graph 0.
 """
 
 from __future__ import annotations
@@ -39,10 +53,15 @@ import torch
 from .. import schemes
 from ..models.graph_model import EGTGraphModel
 from ..ops.rng import fold_seed
+from ..parallel import collectives as C
+from ..parallel.edge_partition import forward_shard
+from ..parallel.mesh import replicate
 from ..weights import flat_arrays, load_flat_params, load_npz
+from . import metrics as M
 from . import optim
 
 L2_KEYS = ("kernel", "table")
+DATA_RANK_TAG = 7003      # folded with the data rank into a rank's seeds
 
 
 class Trainer:
@@ -51,12 +70,17 @@ class Trainer:
     `model_config` (a `GraphModelConfig`) replaces the model the run config
     gives: the model API's variants that no run config names (cross-talk,
     BatchNorm, the encodings, `readout_edges`), trained with the scheme's
-    loss."""
+    loss. `mesh` (a `parallel.mesh.Mesh`) runs it on every rank of the
+    mesh, on the mesh's device."""
 
-    def __init__(self, config, weights=None, device=None, model_config=None):
+    def __init__(self, config, weights=None, device=None, model_config=None,
+                 mesh=None):
         c = schemes.resolve_config(config)
         cfg = (schemes.model_config_from_config(config)
                if model_config is None else model_config)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        if self.mesh is not None:
+            device = self.mesh.device
         self.model = EGTGraphModel(
             cfg, device=device,
             generator=torch.Generator().manual_seed(int(c.seed)))
@@ -64,6 +88,8 @@ class Trainer:
             load_npz(self.model, weights)
         elif weights is not None:
             load_flat_params(self.model, weights)
+        if self.mesh is not None:
+            replicate(self.model, self.mesh)
         named = list(self.model.named_parameters())
         self.optimizer = optim.make_optimizer(
             optim.trainable(named), c.optimizer, float(c.initial_lr),
@@ -73,8 +99,24 @@ class Trainer:
         self.loss_and_metrics = schemes.loss_fn(c)
         self.grad_accum_steps = max(1, int(c.grad_accum_steps))
         # the JAX trainer's base key is PRNGKey(seed + 1), folded per step
-        self.base_seed = fold_seed(int(c.seed) + 1)
+        # (and here with the data rank, where there are several)
+        self.base_seed = (fold_seed(int(c.seed) + 1) if self.data_size == 1
+                          else fold_seed(int(c.seed) + 1, DATA_RANK_TAG,
+                                         self.mesh.data.index))
         self.step = 0
+
+    @property
+    def data_size(self) -> int:
+        return 1 if self.mesh is None else self.mesh.data.size
+
+    @property
+    def model_size(self) -> int:
+        return 1 if self.mesh is None else self.mesh.model.size
+
+    def accumulator(self) -> M.DeviceAccumulator:
+        """A `DeviceAccumulator` whose read sums over the data group."""
+        return M.DeviceAccumulator(None if self.mesh is None
+                                   else self.mesh.data)
 
     @property
     def device(self) -> torch.device:
@@ -103,10 +145,20 @@ class Trainer:
         loss, pairs, _ = self._loss(batch, training, seeds, pe_seed)
         return loss, pairs
 
-    def _loss(self, batch, training, seeds=None, pe_seed=None):
-        """`compute_loss` and the forward's BatchNorm updates."""
-        out, ctx = self.model(batch, training=training, seeds=seeds,
+    def _forward(self, batch, training: bool, seeds=None, pe_seed=None):
+        """(predictions, `ModelContext`) of this rank's batch (its data
+        shard under a mesh)."""
+        if self.mesh is None:
+            return self.model(batch, training=training, seeds=seeds,
                               pe_seed=pe_seed, with_context=True)
+        return forward_shard(self.model, batch, self.mesh, training=training,
+                             seeds=seeds, pe_seed=pe_seed, with_context=True)
+
+    def _loss(self, batch, training, seeds=None, pe_seed=None):
+        """`compute_loss` and the forward's BatchNorm updates. Under a mesh
+        of several data ranks, this rank's share of the global loss (see
+        the module's docstring) and of the model's metrics."""
+        out, ctx = self._forward(batch, training, seeds, pe_seed)
         target = torch.as_tensor(batch["target"], device=self.device)
         if not torch.is_floating_point(target):
             target = target.long()     # class labels: (b,), (b, l), (b, l, l)
@@ -115,13 +167,20 @@ class Trainer:
             out, target, self.model.output_mask(batch),
             None if sample_mask is None
             else torch.as_tensor(sample_mask, device=self.device))
+        dp = self.data_size
+        if dp > 1:
+            # the scheme's loss is the mean of its first pair: the global
+            # mean divides this rank's sum by the data group's count
+            s, c = next(iter(pairs.values()))
+            count = C.all_reduce_(c.detach().float().clone(), self.mesh.data)
+            loss = s / torch.clamp(count, min=1.0)
         for v in ctx.losses.values():
-            loss = loss + v
+            loss = loss + v / dp
         if self.l2_reg > 0:
-            loss = loss + self.l2_reg * sum(torch.sum(torch.square(p))
-                                            for p in self._l2)
+            loss = loss + self.l2_reg / dp * sum(torch.sum(torch.square(p))
+                                                 for p in self._l2)
         for name, v in ctx.metrics.items():
-            pairs[name] = (v, torch.ones_like(v))
+            pairs[name] = (v / dp, torch.full_like(v, 1.0 / dp))
         return loss, pairs, ctx.stats_updates
 
     @torch.no_grad()
@@ -135,18 +194,17 @@ class Trainer:
             for name, value in upd.items():
                 mod[name].copy_(value)
 
-    @staticmethod
-    def _report(loss, pairs) -> dict:
-        res = {"loss": loss.detach().item()}
-        for name, (s, c) in pairs.items():
-            res[name] = s.detach().item() / max(c.detach().item(), 1.0)
-        return res
+    def _report(self, loss, pairs) -> dict:
+        acc = self.accumulator()
+        acc.add(self._with_loss(loss, pairs))
+        return acc.result()
 
-    @staticmethod
-    def _with_loss(loss, pairs) -> dict:
-        """The pairs a step adds up: (loss, 1) first, as in JAX."""
+    def _with_loss(self, loss, pairs) -> dict:
+        """The pairs a step adds up: (loss, 1) first, as in JAX (this
+        rank's share, (loss, 1 / data ranks), under a mesh)."""
         loss = loss.detach()
-        return {"loss": (loss, torch.ones_like(loss)), **pairs}
+        return {"loss": (loss, torch.full_like(loss, 1.0 / self.data_size)),
+                **pairs}
 
     def _update(self, microbatches: list, acc=None):
         """One optimizer update: the gradients of the microbatches' losses
@@ -162,10 +220,15 @@ class Trainer:
             loss, pairs, stats = self._loss(
                 mb, True, self.layer_seeds(self.step, micro),
                 self.pe_seed(self.step, micro))
-            loss.backward()
+            # each rank of a model group holds the same loss: its backward
+            # counts 1 / model ranks of it
+            (loss / self.model_size).backward()
             self.write_stats(stats)
             if acc is not None:
                 acc.add(self._with_loss(loss, pairs))
+        if self.mesh is not None:
+            C.sum_gradients((p for g in self.optimizer.inner.param_groups
+                             for p in g["params"]), self.mesh.world)
         if len(microbatches) > 1:
             with torch.no_grad():
                 for group in self.optimizer.inner.param_groups:
@@ -211,11 +274,12 @@ class Trainer:
         return flat_arrays(self.model)
 
 
-def load_trainer(config, weights=None, device=None,
-                 model_config=None) -> Trainer:
+def load_trainer(config, weights=None, device=None, model_config=None,
+                 mesh=None) -> Trainer:
     """A `Trainer` for a run config (a dict or JSON path), starting from
     `weights` ({JAX flat name: array} or a flat npz path; None draws them
     from `config.seed`), on `device` (CUDA unless the caller names a
     device; raises with no GPU); `model_config` replaces the run config's
-    model (see `Trainer`)."""
-    return Trainer(config, weights, device, model_config)
+    model (see `Trainer`); `mesh` runs it on a mesh's ranks (train and
+    evaluate each rank's data shard of the same global batch)."""
+    return Trainer(config, weights, device, model_config, mesh)

@@ -33,10 +33,21 @@ host's activity, and the card's on a CUDA device) into
 them with `jax.profiler`; a run that ends inside the window writes what it
 traced.
 
-Not ported yet, and refused rather than ignored: `edge_partition` > 1 and
-`num_devices` > 1 (ROADMAP §A item 6). `steps_per_dispatch` is accepted
-and runs one step a dispatch, which gives the JAX `multi_step` result.
-`distributed` on one card is a mesh of one, as in JAX.
+Parallel runs: `distributed`, `num_devices` and `edge_partition` size the
+world as JAX sizes its mesh (`trainer.py:295-305`): `edge_partition` ranks
+without `distributed`, else `num_devices` (None: the world as started),
+laid out as (ranks / edge_partition) data x edge_partition model
+(`parallel/mesh.py`). JAX opens its devices in one process; here a run of
+several ranks is one process a rank, started by
+`torchrun --standalone --nproc_per_node N -m egt_torch.run_training <config>`,
+and a world that does not match the config raises. Every rank iterates the
+same global batches and trains on its data shard's graphs (with its edge
+rows, `parallel/edge_partition.py`); evaluation sums the shards; predictions
+and analysis run whole batches on every rank (their edge rows under edge
+partitioning). Only rank 0 writes the run directory (config, summary, logs,
+checkpoints, weight snapshots, predictions); every rank reads it.
+`steps_per_dispatch` is accepted and runs one step a dispatch, which gives
+the JAX `multi_step` result.
 """
 
 from __future__ import annotations
@@ -53,10 +64,11 @@ import torch
 from .. import schemes
 from ..data.prefetch import Prefetcher
 from ..models.graph_model import resolve_device
+from ..parallel import mesh as meshlib
+from ..parallel.edge_partition import forward_shard
 from ..utils.hparams import HParams, join_path, save_config_to_file
 from ..weights import flat_names
 from . import checkpoint as ckpt
-from . import metrics as M
 from . import schedules
 from .steps import Trainer
 
@@ -149,7 +161,9 @@ class TrainingBase:
     def __init__(self, config: dict | None = None, device=None):
         self.config_input = config
         self.config = self.get_default_config().strict_update(config)
+        self.device_arg = device
         self.device = resolve_device(device)
+        self.mesh = None
         self.state = self.get_default_state()
         self.pred_flag = False
         self.eval_flag = False
@@ -199,6 +213,21 @@ class TrainingBase:
             split, bs, shuffle=shuffle, seed=self.config.seed, epoch=epoch,
             pad_len=self.pad_len, buckets=self.config.length_buckets)
 
+    @property
+    def is_main(self) -> bool:
+        """Whether this rank writes the run directory (rank 0)."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _barrier(self) -> None:
+        if self.mesh is not None and self.mesh.size > 1:
+            torch.distributed.barrier(group=self.mesh.world.pg)
+
+    def _to_shard(self, batch: dict) -> dict:
+        """This rank's data shard of a global batch, on the device."""
+        if self.mesh is not None:
+            batch = meshlib.batch_shard(batch, self.mesh)
+        return self._to_device(batch)
+
     def _to_device(self, batch: dict) -> dict:
         """A numpy batch on the run's device. On the card the copy starts
         from pinned memory without blocking, on the prefetch thread."""
@@ -210,15 +239,28 @@ class TrainingBase:
 
     # ----------------------------------------------------------------- model build
 
+    def make_mesh(self):
+        """The run's mesh, sized as JAX sizes it (`trainer.py:295-303`):
+        the pad length must divide by `edge_partition`; `edge_partition`
+        ranks without `distributed`, else `num_devices` (None: the world as
+        started), else one."""
+        c = self.config
+        ep = int(c.edge_partition)
+        if ep > 1 and self.pad_len % ep:
+            raise ValueError(f"pad length {self.pad_len} must divide by "
+                             f"edge_partition={ep}")
+        if ep > 1 and not c.distributed:
+            n_dev = ep
+        else:
+            n_dev = c.num_devices if c.distributed else 1
+        return meshlib.make_mesh(n_dev, model_parallel=ep,
+                                 device=self.device_arg)
+
     def load_model(self):
         c = self.config
-        if int(c.edge_partition) > 1:
-            raise NotImplementedError(
-                "edge_partition > 1 is not ported yet (ROADMAP §A item 6)")
-        if c.num_devices is not None and int(c.num_devices) > 1:
-            raise NotImplementedError(
-                "num_devices > 1 is not ported yet (ROADMAP §A item 6)")
-        self.trainer = Trainer(c, device=self.device)
+        self.mesh = self.make_mesh()
+        self.device = self.mesh.device
+        self.trainer = Trainer(c, device=self.device, mesh=self.mesh)
         self.model = self.trainer.model
         if self.state["lr"] is None:
             self.state["lr"] = float(c.initial_lr)
@@ -227,6 +269,8 @@ class TrainingBase:
     def model_summary(self):
         """Architecture summary written to summary.txt (the reference writes
         the Keras `model.summary()` there, `training_base.py:220-224`)."""
+        if not self.is_main:
+            return
         path = Path(self.config.summary_path)
         path.parent.mkdir(parents=True, exist_ok=True)
         params = flat_names(self.model)
@@ -254,6 +298,8 @@ class TrainingBase:
             print(f"{k} : {v}", flush=True)
 
     def save_config_file(self):
+        if not self.is_main:
+            return
         os.makedirs(self.config.config_path, exist_ok=True)
         save_config_to_file(self.config.resolved(),
                             join_path(self.config.config_path, "config.json"))
@@ -271,6 +317,9 @@ class TrainingBase:
                   f"(epoch {self.state['current_epoch']})", flush=True)
 
     def _make_loggers(self):
+        self._jsonl = self._tb = None
+        if not self.is_main:
+            return
         os.makedirs(self.config.log_path, exist_ok=True)
         self._jsonl = open(
             join_path(self.config.log_path, "metrics.jsonl"), "a")
@@ -280,6 +329,8 @@ class TrainingBase:
             self._tb = EventWriter(self.config.log_path)
 
     def _log_epoch(self, epoch: int, logs: dict):
+        if self._jsonl is None:
+            return
         rec = {"epoch": epoch, "time": time.time(), **logs}
         self._jsonl.write(json.dumps(rec) + "\n")
         self._jsonl.flush()
@@ -294,7 +345,7 @@ class TrainingBase:
         state = self.state
         self._make_loggers()
         save_when = ckpt.SaveWhen(os.path.dirname(cfg.saved_model_path),
-                                  cfg.save_when)
+                                  cfg.save_when if self.is_main else "")
         plateau_cfg = schedules.PlateauConfig(
             monitor=cfg.save_best_monitor,
             rlr_factor=cfg.rlr_factor,
@@ -321,16 +372,17 @@ class TrainingBase:
         def to_device(group):
             nonlocal n_graphs
             n_graphs += sum(int(b["sample_mask"].sum()) for b in group)
-            return [self._to_device(b) for b in group]
+            return [self._to_shard(b) for b in group]
 
         stop = False
         epoch = state["current_epoch"]
         log_interval = float(getattr(cfg, "log_interval", 60) or 0)
-        tracer = StepTracer(cfg.profile_dir, self.device)
+        tracer = StepTracer(cfg.profile_dir if self.is_main else None,
+                            self.device)
         while epoch < cfg.num_epochs and not stop:
             t0 = time.perf_counter()
             last_log = t0
-            acc = M.DeviceAccumulator()
+            acc = self.trainer.accumulator()
             n_steps = 0
             n_graphs = 0
             batches = Prefetcher(feed(epoch), transform=to_device)
@@ -411,15 +463,18 @@ class TrainingBase:
                         stop = True
 
             # 4) checkpoint every epoch
-            self.checkpointer.save(epoch + 1, self.model,
-                                   self.trainer.optimizer, dict(state))
+            if self.is_main:
+                self.checkpointer.save(epoch + 1, self.model,
+                                       self.trainer.optimizer, dict(state))
+            self._barrier()
             print(f"CHECKPOINT Epoch: {epoch + 1}", flush=True)
 
             self._log_epoch(epoch + 1, logs)
             epoch += 1
 
         tracer.stop()
-        self._jsonl.close()
+        if self._jsonl is not None:
+            self._jsonl.close()
         if self._tb is not None:
             self._tb.close()
 
@@ -428,11 +483,11 @@ class TrainingBase:
     def evaluate_split(self, split: str, max_steps=None) -> dict:
         """The split's loss and metrics at inference, over its batches (one
         shape a length bucket, with `length_buckets`)."""
-        acc = M.DeviceAccumulator()
+        acc = self.trainer.accumulator()
         src = self._batches(split, shuffle=False)
         if max_steps:
             src = itertools.islice(src, max_steps)
-        for batch in Prefetcher(src, transform=self._to_device):
+        for batch in Prefetcher(src, transform=self._to_shard):
             self.trainer.eval_into(acc, batch)
         return acc.result()
 
@@ -445,7 +500,8 @@ class TrainingBase:
         for batch, dbatch in Prefetcher(self._batches(split, shuffle=False),
                                         transform=pair):
             with torch.no_grad():
-                out = self.model(dbatch)
+                # every rank runs the whole batch (its edge rows)
+                out = forward_shard(self.model, dbatch, self.mesh)
             yield batch, out.float().cpu().numpy()
 
     # ----------------------------------------------------------- top-level commands
@@ -460,6 +516,8 @@ class TrainingBase:
         self.finalize_training(skip_init=True)
 
     def save_model(self):
+        if not self.is_main:
+            return
         path = self.config.saved_model_path + ".npz"
         ckpt.save_weights(self.model, path)
         print(f"Saved model to {path}", flush=True)
@@ -501,7 +559,8 @@ class TrainingBase:
                 for batch, out in self.predict_split(split)]
         path = join_path(self.config.predictions_path,
                          f"{SPLIT_FILES.get(split, split)}_predictions.npz")
-        np.savez(path, predictions=concat_padded(outs))
+        if self.is_main:
+            np.savez(path, predictions=concat_padded(outs))
         print(f"saved predictions to {path}", flush=True)
 
     def make_predictions(self):
@@ -538,8 +597,9 @@ class TrainingBase:
                 dumps.setdefault(k, []).append(v.float().cpu().numpy())
         path = join_path(self.config.predictions_path,
                          f"{SPLIT_FILES.get(split, split)}_analysis.npz")
-        np.savez(path, **{k.replace("/", "."): concat_padded(v)
-                          for k, v in dumps.items()})
+        if self.is_main:
+            np.savez(path, **{k.replace("/", "."): concat_padded(v)
+                              for k, v in dumps.items()})
         print(f"saved analysis tensors to {path}", flush=True)
         return path
 
@@ -554,6 +614,8 @@ class TrainingBase:
         self.prepare_for_test()
         if path is None:
             path = join_path(self.config.save_path, "serving", "model.pt2")
+        if not self.is_main:
+            return path
         spec = serving.batch_spec(
             self.dataset, self.pad_len,
             self.config.batch_size * self.config.prediction_bmult)
@@ -578,8 +640,9 @@ class TrainingBase:
         os.makedirs(self.config.predictions_path, exist_ok=True)
         path = join_path(self.config.predictions_path,
                          f"{SPLIT_FILES.get(split, split)}_evals.txt")
-        with open(path, "a") as fp:
-            for ln in lines:
-                print(ln, file=fp)
+        if self.is_main:
+            with open(path, "a") as fp:
+                for ln in lines:
+                    print(ln, file=fp)
         for ln in lines:
             print(ln, flush=True)

@@ -77,6 +77,12 @@ ATT_SHAPES = {
     # PCQM4Mv2's EGT-Large: 32 heads of 24 (the CUDA-core bodies, lanes
     # 24-31 idle in A.V) at the synthetic pad 32 plus 4 virtual nodes
     "pcqm_l36": (2, 32, 36, 36, 24, (-5.0, 5.0)),
+    # the row blocks of edge partitioning over 2 shards: one shard's query
+    # rows against every key at ZINC's pad 40 (the tensor-core bodies),
+    # TSP's l 512 and PCQM4Mv2's 4 virtual rows and 16 of its 32 atoms
+    "zinc_sp2_rows": (4, 8, 20, 40, 8, (-5.0, 5.0)),
+    "tsp_sp2_rows": (2, 8, 256, 512, 8, (-5.0, 5.0)),
+    "pcqm_sp2_rows": (2, 32, 20, 36, 24, (-5.0, 5.0)),
 }
 
 
@@ -1607,3 +1613,27 @@ def test_remat_gradients_bit_equal_on_path_a(dev, mode):
     assert torch.equal(l0, l1)
     for k, g in g0.items():
         assert (g is None and g1[k] is None) or torch.equal(g, g1[k]), k
+
+
+def test_edge_partitioned_forward_on_two_ranks_of_one_card(dev, tmp_path):
+    """Two ranks on this card over gloo (`parallel/launch.py`), each with
+    half the query rows, give the unsharded forward through K1 (f32, the
+    attention kernel's tolerance); K1 runs once a layer on every rank."""
+    from egt_torch.parallel.launch import spawn_ranks
+    from tests import torch_parallel_ranks as ranks
+
+    cfg = GraphModelConfig(model_width=32, edge_width=16, num_heads=4,
+                           model_height=2, upto_hop=3, fused_attention=True,
+                           readout_edges=True, max_degree_enc=4)
+    model = EGTGraphModel(cfg, device=dev)
+    path = str(tmp_path / "w.npz")
+    np.savez(path, **{k: p.detach().cpu().numpy()
+                      for k, p in weights.flat_names(model).items()})
+    batch = _variant_batch(np.random.default_rng(4))
+    with torch.no_grad():
+        ref = model(batch).cpu().numpy()
+    out = spawn_ranks(ranks.sp_forward, 2, dataclasses.asdict(cfg), path,
+                      batch, timeout=300)
+    for y, launches in out:
+        np.testing.assert_allclose(y, ref, rtol=1e-4, atol=1e-4)
+        assert launches == cfg.model_height

@@ -315,13 +315,33 @@ def test_l2_loss_and_grads_match_jax(workdir):
 
 
 def test_refuses_what_is_not_ported(workdir):
-    for kw in (dict(edge_partition=2), dict(num_devices=2)):
-        ts = timport("zinc.svd")(tiny_config(workdir, "refuse", **kw),
-                                 device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ts.load_model()
+    # edge partitioning and several ranks run (tests/test_torch_parallel_*);
     # every scheme of the JAX package is ported, PCQM4Mv2's last
     assert timport("pcqm4mv2.svd").__name__ == "Pcqm4mv2SVD"
+
+
+@pytest.mark.parametrize("kw", [
+    dict(edge_partition=2), dict(edge_partition=2, distributed=True),
+    dict(num_devices=2, distributed=True)])
+def test_a_world_of_one_refuses_a_parallel_config(workdir, kw):
+    """A config that needs several ranks, in one process: JAX opens the
+    devices itself, the port is started one process a rank by torchrun,
+    and says so."""
+    ts = timport("zinc.svd")(tiny_config(workdir, "world", **kw),
+                             device="cpu")
+    ts.load_data()
+    with pytest.raises(ValueError, match="torchrun"):
+        ts.load_model()
+
+
+def test_pad_must_divide_by_edge_partition(workdir):
+    """JAX's check (`trainer.py:295-298`), before any rank is started."""
+    ts = timport("zinc.svd")(tiny_config(workdir, "pad", edge_partition=3),
+                             device="cpu")
+    ts.load_data()
+    assert ts.pad_len % 3
+    with pytest.raises(ValueError, match="must divide by edge_partition=3"):
+        ts.load_model()
 
 
 def test_profile_dir_writes_a_trace(workdir, capsys):
