@@ -56,6 +56,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from . import features as F
 from . import layers as L
+from .. import tracing
 from ..parallel import collectives as C
 from ..ops.rng import fold_seed
 
@@ -526,31 +527,34 @@ class EGTGraphModel(nn.Module):
         if seeds is not None and len(seeds) != cfg.model_height:
             raise ValueError(f"need {cfg.model_height} layer seeds, got "
                              f"{len(seeds)}")
-        # the dataset ships the adjacency in a narrow integer dtype
-        adj = torch.as_tensor(batch["graph_matrix"], device=dev).float()
-        node_mask = self.node_valid(batch)
-        h = self.embed_nodes(batch, training, pe_seed, sp)
-        e = self._embed_edges(batch, adj, sp) if cfg.needs_edge_embedding \
-            else None
-        edge_mask = adj if cfg.edge_channel_type == "constrained" else None
+        with tracing.span("embed"):
+            # the dataset ships the adjacency in a narrow integer dtype
+            adj = torch.as_tensor(batch["graph_matrix"], device=dev).float()
+            node_mask = self.node_valid(batch)
+            h = self.embed_nodes(batch, training, pe_seed, sp)
+            e = (self._embed_edges(batch, adj, sp)
+                 if cfg.needs_edge_embedding else None)
+            edge_mask = (adj if cfg.edge_channel_type == "constrained"
+                         else None)
 
-        k = cfg.num_virtual_nodes
-        if k > 0:
-            h = F.prepend_virtual_nodes(h, self.virtual_node_embeddings)
+            k = cfg.num_virtual_nodes
+            if k > 0:
+                h = F.prepend_virtual_nodes(h, self.virtual_node_embeddings)
+                if e is not None:
+                    e = (F.prepend_virtual_edges(
+                        e, self.virtual_edge_embeddings) if sp is None
+                        else F.prepend_virtual_edges_sp(
+                            e, self.virtual_edge_embeddings))
+                node_mask = torch.nn.functional.pad(node_mask, (k, 0),
+                                                    value=True)
+                if edge_mask is not None:
+                    edge_mask = F.extend_edge_mask_for_vn(
+                        edge_mask[..., None], k)[..., 0]
+
+            dtype = self.compute_dtype
+            h = h.to(dtype)
             if e is not None:
-                e = (F.prepend_virtual_edges(e, self.virtual_edge_embeddings)
-                     if sp is None else F.prepend_virtual_edges_sp(
-                         e, self.virtual_edge_embeddings))
-            node_mask = torch.nn.functional.pad(node_mask, (k, 0),
-                                                value=True)
-            if edge_mask is not None:
-                edge_mask = F.extend_edge_mask_for_vn(edge_mask[..., None],
-                                                      k)[..., 0]
-
-        dtype = self.compute_dtype
-        h = h.to(dtype)
-        if e is not None:
-            e = e.to(dtype)
+                e = e.to(dtype)
         ctx = ModelContext()
         analysis = ctx.analysis if capture_analysis else None
         all_reprs = [] if cfg.combine_layer_repr else None
@@ -560,8 +564,9 @@ class EGTGraphModel(nn.Module):
             # containers: under `remat` the backward runs this again
             updates = {}
             reprs = [] if cfg.combine_layer_repr else None
-            h, e = layer(h, e, node_mask, edge_mask, training, seed,
-                         analysis, i, reprs, updates, sp, data, tp)
+            with tracing.span("layer", index=i):
+                h, e = layer(h, e, node_mask, edge_mask, training, seed,
+                             analysis, i, reprs, updates, sp, data, tp)
             return h, e, updates, reprs
 
         remat = bool(cfg.remat) and not capture_analysis \
@@ -593,25 +598,28 @@ class EGTGraphModel(nn.Module):
         # `bias` and `none` channels hand them the raw e. They read the
         # graph's pairs alone: e loses its virtual rows and columns after
         # the norm, as in JAX (a BatchNorm's statistics count them)
-        distance = with_context and cfg.distance_loss > 0
-        reads_e = distance or cfg.readout_kind == "edge" or cfg.readout_edges
-        if (not cfg.add_n_norm) and cfg.do_final_norm:
-            st = self.stack
-            h = L.norm(cfg.node_normalization, st["node_norm_final"], h,
-                       training, ctx.stats_updates, ("node_norm_final",),
-                       data)
-            if cfg.edge_residual and (reads_e or (
-                    training and cfg.edge_normalization == "batch")):
-                e = L.norm(cfg.edge_normalization, st["edge_norm_final"], e,
-                           training, ctx.stats_updates, ("edge_norm_final",),
-                           data if sp is None else sp.stats)
-        if k > 0 and reads_e:
-            e = e[:, k:, k:]
-        if distance:
-            metric = self._distance_loss(e, adj, sp)
-            ctx.metrics["distance_loss"] = metric
-            ctx.losses["distance_loss"] = metric * cfg.distance_loss
-        out = self._readout(h, e, node_mask, batch, sp).float()
+        with tracing.span("readout"):
+            distance = with_context and cfg.distance_loss > 0
+            reads_e = (distance or cfg.readout_kind == "edge"
+                       or cfg.readout_edges)
+            if (not cfg.add_n_norm) and cfg.do_final_norm:
+                st = self.stack
+                h = L.norm(cfg.node_normalization, st["node_norm_final"], h,
+                           training, ctx.stats_updates, ("node_norm_final",),
+                           data)
+                if cfg.edge_residual and (reads_e or (
+                        training and cfg.edge_normalization == "batch")):
+                    e = L.norm(cfg.edge_normalization, st["edge_norm_final"],
+                               e, training, ctx.stats_updates,
+                               ("edge_norm_final",),
+                               data if sp is None else sp.stats)
+            if k > 0 and reads_e:
+                e = e[:, k:, k:]
+            if distance:
+                metric = self._distance_loss(e, adj, sp)
+                ctx.metrics["distance_loss"] = metric
+                ctx.losses["distance_loss"] = metric * cfg.distance_loss
+            out = self._readout(h, e, node_mask, batch, sp).float()
         return (out, ctx) if with_context else out
 
     def analyze(self, batch: dict, training: bool = False, seeds=None,

@@ -65,6 +65,7 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
+from .. import tracing
 from ..ops.edge_block import edge_block_apply
 from ..ops.egt_attention import egt_attention_fused
 from ..ops.fused_layer import can_fuse_layer, fused_layer_apply
@@ -621,30 +622,31 @@ def layer_forward(p, cfg, h, e, node_mask, edge_mask, training=False,
         # whole-layer kernel: edge pre-LN -> gates/bias -> attention ->
         # dense_edge_r + residual -> edge-FFN; the node-stream denses stay out
         # (LayerNorm only: `can_fuse_layer` refuses BatchNorm)
-        y_h = h
-        h_n = layer_norm(p["norm_mha"], h)
-        qkv = dense(p["dense_qkv"], h_n)
-        e, v_att = fused_layer_apply(p, cfg, e, qkv, node_mask, edge_mask,
-                                     training, seed)
-        h = dropout(dense(p["dense_mha"], v_att), cfg.node_dropout, training,
-                    _sub_seed(seed, 2)) + y_h
-        h, _ = ffn_block(p, cfg, h, None, skip_edge=True, **ffn)
-        return h, e
+        with tracing.span("attention"):
+            y_h = h
+            h_n = layer_norm(p["norm_mha"], h)
+            qkv = dense(p["dense_qkv"], h_n)
+            e, v_att = fused_layer_apply(p, cfg, e, qkv, node_mask,
+                                         edge_mask, training, seed)
+            h = dropout(dense(p["dense_mha"], v_att), cfg.node_dropout,
+                        training, _sub_seed(seed, 2)) + y_h
+        with tracing.span("ffn"):
+            return ffn_block(p, cfg, h, e, skip_edge=True, **ffn)
     fuse_edge = not sharded and can_fuse_edge_block(cfg, training, capture)
-    h, e, node_repr, edge_repr = edge_update(
-        p, cfg, h, e, node_mask, edge_mask, training, seed,
-        defer_edge_tail=fuse_edge, analysis=analysis,
-        tag=f"{layer_idx:0>2d}", updates=updates, sp=sp, groups=groups,
-        tp=tp)
+    with tracing.span("attention"):
+        h, e, node_repr, edge_repr = edge_update(
+            p, cfg, h, e, node_mask, edge_mask, training, seed,
+            defer_edge_tail=fuse_edge, analysis=analysis,
+            tag=f"{layer_idx:0>2d}", updates=updates, sp=sp, groups=groups,
+            tp=tp)
+        if fuse_edge:
+            # edge-block kernel: dense_edge_r + residual + edge FFN
+            h_hat, y_e = e
+            e = edge_block_apply(p, h_hat, y_e)
     if reprs is not None:
         reprs.append((node_repr, edge_repr))
-    if fuse_edge:
-        # edge-block kernel: dense_edge_r + residual + edge FFN in one pass
-        h_hat, y_e = e
-        e = edge_block_apply(p, h_hat, y_e)
-        h, _ = ffn_block(p, cfg, h, None, skip_edge=True, **ffn)
-        return h, e
-    return ffn_block(p, cfg, h, e, **ffn)
+    with tracing.span("ffn"):
+        return ffn_block(p, cfg, h, e, skip_edge=fuse_edge, **ffn)
 
 
 def can_fuse_edge_block(cfg, training: bool = False,

@@ -41,11 +41,14 @@ Usage: `python -m egt_torch.export_serving <config> [output_path]`, or
 from __future__ import annotations
 
 import collections
+import itertools
 import json
 import os
 
 import numpy as np
 import torch
+
+from . import tracing
 
 SPEC_FILE = "egt_serving.json"      # the request spec inside the artifact
 
@@ -81,11 +84,16 @@ def load_predictor(config, weights, device=None, mesh=None):
         from .parallel.edge_partition import forward_shard
         model = load_model(config, weights, mesh.device)
 
+    requests = itertools.count()
+
     def predict(batch: dict) -> np.ndarray:
-        with torch.inference_mode():
-            b = {k: batch[k] for k in model.input_keys}
-            out = model(b) if mesh is None else forward_shard(model, b, mesh)
-        return out.cpu().numpy()
+        with tracing.span("predict", group=next(requests)):
+            with torch.inference_mode(), tracing.span("forward"):
+                b = {k: batch[k] for k in model.input_keys}
+                out = (model(b) if mesh is None
+                       else forward_shard(model, b, mesh))
+            with tracing.span("readback"):
+                return out.cpu().numpy()
 
     return predict
 

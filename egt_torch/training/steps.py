@@ -50,7 +50,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import schemes
+from .. import schemes, tracing
 from ..models.graph_model import EGTGraphModel
 from ..ops.rng import fold_seed
 from ..parallel import collectives as C
@@ -158,30 +158,34 @@ class Trainer:
         """`compute_loss` and the forward's BatchNorm updates. Under a mesh
         of several data ranks, this rank's share of the global loss (see
         the module's docstring) and of the model's metrics."""
-        out, ctx = self._forward(batch, training, seeds, pe_seed)
-        target = torch.as_tensor(batch["target"], device=self.device)
-        if not torch.is_floating_point(target):
-            target = target.long()     # class labels: (b,), (b, l), (b, l, l)
-        sample_mask = batch.get("sample_mask")
-        loss, pairs = self.loss_and_metrics(
-            out, target, self.model.output_mask(batch),
-            None if sample_mask is None
-            else torch.as_tensor(sample_mask, device=self.device))
-        dp = self.data_size
-        if dp > 1:
-            # the scheme's loss is the mean of its first pair: the global
-            # mean divides this rank's sum by the data group's count
-            s, c = next(iter(pairs.values()))
-            count = C.all_reduce_(c.detach().float().clone(), self.mesh.data)
-            loss = s / torch.clamp(count, min=1.0)
-        for v in ctx.losses.values():
-            loss = loss + v / dp
-        if self.l2_reg > 0:
-            loss = loss + self.l2_reg / dp * sum(torch.sum(torch.square(p))
-                                                 for p in self._l2)
-        for name, v in ctx.metrics.items():
-            pairs[name] = (v / dp, torch.full_like(v, 1.0 / dp))
-        return loss, pairs, ctx.stats_updates
+        with tracing.span("forward"):
+            out, ctx = self._forward(batch, training, seeds, pe_seed)
+        with tracing.span("loss"):
+            target = torch.as_tensor(batch["target"], device=self.device)
+            if not torch.is_floating_point(target):
+                # class labels: (b,), (b, l), (b, l, l)
+                target = target.long()
+            sample_mask = batch.get("sample_mask")
+            loss, pairs = self.loss_and_metrics(
+                out, target, self.model.output_mask(batch),
+                None if sample_mask is None
+                else torch.as_tensor(sample_mask, device=self.device))
+            dp = self.data_size
+            if dp > 1:
+                # the scheme's loss is the mean of its first pair: the global
+                # mean divides this rank's sum by the data group's count
+                s, c = next(iter(pairs.values()))
+                count = C.all_reduce_(c.detach().float().clone(),
+                                      self.mesh.data)
+                loss = s / torch.clamp(count, min=1.0)
+            for v in ctx.losses.values():
+                loss = loss + v / dp
+            if self.l2_reg > 0:
+                loss = loss + self.l2_reg / dp * sum(
+                    torch.sum(torch.square(p)) for p in self._l2)
+            for name, v in ctx.metrics.items():
+                pairs[name] = (v / dp, torch.full_like(v, 1.0 / dp))
+            return loss, pairs, ctx.stats_updates
 
     @torch.no_grad()
     def write_stats(self, stats_updates: dict) -> None:
@@ -213,29 +217,33 @@ class Trainer:
         microbatch's pairs go into `acc` if given, and its BatchNorm
         moving statistics into the model after its backward. Returns the
         last microbatch's (loss, pairs)."""
-        self.optimizer.zero_grad()
-        accum = self.grad_accum_steps > 1
-        for i, mb in enumerate(microbatches):
-            micro = i if accum else None
-            loss, pairs, stats = self._loss(
-                mb, True, self.layer_seeds(self.step, micro),
-                self.pe_seed(self.step, micro))
-            # each rank of a model group holds the same loss: its backward
-            # counts 1 / model ranks of it
-            (loss / self.model_size).backward()
-            self.write_stats(stats)
-            if acc is not None:
-                acc.add(self._with_loss(loss, pairs))
-        if self.mesh is not None:
-            C.sum_gradients((p for g in self.optimizer.inner.param_groups
-                             for p in g["params"]), self.mesh.world)
-        if len(microbatches) > 1:
-            with torch.no_grad():
-                for group in self.optimizer.inner.param_groups:
-                    for p in group["params"]:
-                        if p.grad is not None:
-                            p.grad.div_(len(microbatches))
-        self.optimizer.step()
+        with tracing.span("step", group=self.step):
+            self.optimizer.zero_grad()
+            accum = self.grad_accum_steps > 1
+            for i, mb in enumerate(microbatches):
+                micro = i if accum else None
+                loss, pairs, stats = self._loss(
+                    mb, True, self.layer_seeds(self.step, micro),
+                    self.pe_seed(self.step, micro))
+                with tracing.span("backward"):
+                    # each rank of a model group holds the same loss: its
+                    # backward counts 1 / model ranks of it
+                    (loss / self.model_size).backward()
+                with tracing.span("accumulate"):
+                    self.write_stats(stats)
+                    if acc is not None:
+                        acc.add(self._with_loss(loss, pairs))
+            if self.mesh is not None:
+                C.sum_gradients((p for g in self.optimizer.inner.param_groups
+                                 for p in g["params"]), self.mesh.world)
+            with tracing.span("optimizer"):
+                if len(microbatches) > 1:
+                    with torch.no_grad():
+                        for group in self.optimizer.inner.param_groups:
+                            for p in group["params"]:
+                                if p.grad is not None:
+                                    p.grad.div_(len(microbatches))
+                self.optimizer.step()
         self.step += 1
         return loss, pairs
 

@@ -28,7 +28,8 @@ largest pad first (`concat_padded`); JAX's concatenation raises there
 (ROADMAP §C). Wherever JAX completes, the arrays are JAX's.
 
 `profile_dir` traces global steps 10 to 15 with `torch.profiler` (the
-host's activity, and the card's on a CUDA device) into
+host's activity with the port's spans, `tracing.py`, and the card's on a
+CUDA device) into
 `<profile_dir>/trace_steps_10-15.json`, a Chrome trace, as JAX traces
 them with `jax.profiler`; a run that ends inside the window writes what it
 traced.
@@ -61,7 +62,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .. import schemes
+from .. import schemes, tracing
 from ..data.prefetch import Prefetcher
 from ..models.graph_model import resolve_device
 from ..parallel import mesh as meshlib
@@ -110,9 +111,9 @@ SPLIT_FILES = {"training": "trainset", "validation": "valset",
 
 class StepTracer:
     """`profile_dir`: a `torch.profiler` trace of global steps 10 to 15
-    (JAX's window), the host's activity and, on a CUDA device, the card's,
-    written as a Chrome trace under `directory`. Without a directory it
-    does nothing."""
+    (JAX's window), the host's activity with the port's spans
+    (`tracing.py`) and, on a CUDA device, the card's, written as a Chrome
+    trace under `directory`. Without a directory it does nothing."""
 
     START, STOP = 10, 16
 
@@ -136,6 +137,7 @@ class StepTracer:
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
             self.prof = torch.profiler.profile(activities=acts)
             self.prof.start()
+            tracing.start(annotate=True)
         elif step == self.STOP:
             self.stop()
 
@@ -143,6 +145,7 @@ class StepTracer:
         """End the trace if one runs, and write it."""
         if self.prof is None:
             return
+        tracing.stop()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.prof.stop()

@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from egt_torch import tracing
 from egt_torch.training import checkpoint as tckpt
 from egt_torch.training import metrics as tm
 from egt_torch.training.schemes import import_scheme as timport
@@ -346,8 +347,8 @@ def test_pad_must_divide_by_edge_partition(workdir):
 
 def test_profile_dir_writes_a_trace(workdir, capsys):
     """`profile_dir`: a run of 17 steps traces global steps 10 to 15 (JAX's
-    window) into a Chrome trace, with JAX's line; the run itself goes on
-    as without it."""
+    window) into a Chrome trace, with JAX's line and the port's spans; the
+    run itself goes on as without it."""
     trace = workdir / "trace"
     ts = timport("zinc.svd")(tiny_config(
         workdir, "profile", batch_size=2, num_epochs=1, steps_per_epoch=17,
@@ -360,6 +361,9 @@ def test_profile_dir_writes_a_trace(workdir, capsys):
     # the window holds the steps' matrix products, and nothing of the
     # evaluation that follows step 16
     assert any(ev.get("name") == "aten::mm" for ev in events)
+    names = {ev.get("name") for ev in events}
+    assert {"step", "forward", "layer", "backward", "optimizer"} <= names
+    assert tracing.span("step") is tracing.NO_SPAN
 
 
 def _cli(module, cfg_path, *extra):
