@@ -57,8 +57,9 @@ final result line):
      points), ew 8, hidden 16, 8 heads, width 64, f32 and bf16, timed
      beside their bounds (a call past 100 ms over 5 launches, not 30), K5
      also ungated at l 512, and the layouts at each pad, K5's bf16 body
-     asserted to keep k, v, dk and dv in device memory (`kv_global`), one
-     block a graph, at l 256 and 512; then (3g) K1 (inference and
+     asserted to be the tiled one at l 128 and 256 and to keep k, v, dk and
+     dv in device memory (`kv_global`), one block a graph, at l 512; then
+     (3g) K1 (inference and
      training) and K2 at the `egt_simple` shapes (the `bias` edge channel's
      main path, 8 heads): ZINC 128 graphs, l 40, d 10 (the tensor-core
      bodies, asserted), the superpixel pads 75 / 150 and the SBM buckets
@@ -924,10 +925,12 @@ def main() -> int:
         check_attn_rerun(f"fused_layer_bwd_attn {shape}", out, aargs)
         if dtype == torch.bfloat16:
             g = fl.bwd_attn_geometry(spec)
-            print(f"  fused_layer_bwd_attn {shape}: "
-                  f"{'general' if g['general'] else 'register'} body, "
+            kind = g["body"] if g["body"] == "tiled" else \
+                ("general" if g["general"] else "register")
+            print(f"  fused_layer_bwd_attn {shape}: {kind} body, "
                   f"{g['warps']} warps x {g['cluster']} blocks a graph, "
-                  f"{g['rows_per_block']} rows a block, {g['smem']} B, "
+                  f"{g['rows_per_block']} rows a block, "
+                  f"{g['keys_per_warp']} keys a warp, {g['smem']} B, "
                   f"kv_global {g['kv_global']}", flush=True)
         nproj = 2 * h
         nbytes = (3 * pairs * ew + 2 * pairs * h + b * l * 3 * dh
@@ -1052,8 +1055,9 @@ def main() -> int:
                f"{' constrained' if constrained else ''}")
         if dtype == torch.bfloat16:
             g = fl.bwd_attn_geometry(spec)
-            tag += (f" ({'general' if g['general'] else 'register'} body, "
-                    f"{g['warps']} warps x {g['cluster']} blocks)")
+            kind = g["body"] if g["body"] == "tiled" else \
+                ("general" if g["general"] else "register")
+            tag += f" ({kind} body, {g['warps']} warps x {g['cluster']} blocks)"
         check(all(x[1] for x in errs),
               f"{tag}: max |kernel - plain| {max(x[0] for x in errs):.3g}")
         check_attn_rerun(tag, out, aargs)
@@ -1228,8 +1232,8 @@ def main() -> int:
     # TSP batch of 8 in the three length buckets (ew 8, hidden 16, 8 heads,
     # width 64; each bucket's graphs of its node range), timed beside their
     # bounds; K5 also ungated at l 512 (the `ungated` ablation); the layouts
-    # of K5's and K4's bf16 bodies at each pad, K5's `kv_global` with one
-    # block a graph asserted at l 256 and 512
+    # of K5's and K4's bf16 bodies at each pad, K5's tiled body asserted at
+    # l 128 and 256, its `kv_global` with one block a graph at l 512
     try:
         for dtype in (torch.float32, torch.bfloat16):
             for l, nodes in TSP_BUCKETS.items():
@@ -1250,12 +1254,16 @@ def main() -> int:
                       f"bwd_attn_geometry {g}, bwd_tail_geometry "
                       f"{fl.bwd_tail_geometry(spec, torch.bfloat16)}",
                       flush=True)
-                if l > 128:
+                if l == 512:
                     check(g is not None and bool(g["kv_global"])
                           and g["cluster"] == 1,
                           f"TSP l {l}{'' if gated else ' ungated'}: K5's bf16 "
                           "body keeps k, v, dk and dv in device memory, one "
                           "block a graph")
+                else:
+                    check(g is not None and g["body"] == "tiled",
+                          f"TSP l {l}{'' if gated else ' ungated'}: K5 runs "
+                          "its tiled body, 16 keys a warp")
     except Exception:                               # noqa: BLE001 - report
         traceback.print_exc()
         check(False, "phase 3f: the kernels at the TSP shapes")

@@ -27,7 +27,17 @@
 // q, k, v, gv, dq, dk, dv), ~27 us at 3.35 TB/s, against ~1.4 GFLOP of
 // products: bytes bound it.
 //
-// Design of the bf16 body (bwd_attn_mma_kernel). dk and dv are sums over a
+// Two bf16 bodies, chosen by shape (attn_takes_tile; no setting): the tiled
+// body (bwd_attn_tile_kernel) takes the shapes of its class (ew <= 16, h <= 8
+// dividing 32, nproj <= 16, dh even and <= 64, l <= 256) at which the
+// cluster body would seat fewer than 8 warps a block: the SBM pads (l 128,
+// 192), the superpixel pads (75, 150) and TSP's l 128 and 256, all at ew 8,
+// h 8, dh 64. The cluster body (bwd_attn_mma_kernel) takes every other
+// shape: the ZINC flagship (l 40, 8 warps a block), the wide and
+// many-headed shapes (its general body), TSP's l 512 (kv_global), and K7's
+// and K6's f32 hand-off. The tiled body's design is at its kernel below.
+//
+// Design of the cluster body (bwd_attn_mma_kernel). dk and dv are sums over a
 // graph's query rows and the weight gradients sums over every pair; the TPU
 // kernel carried both across its in-order grid of row blocks. Here a
 // graph's rows are spread over a thread-block cluster of up to 8 blocks,
@@ -83,7 +93,11 @@
 // K5`) the softmax chain with its Philox draws takes ~0.09 ms, the
 // per-head products ~0.06 ms and the tensor-core products ~0.015 ms; with
 // all three skipped ~0.20 ms remain: the loads, LN1 and its backward over
-// the key tiles, the stores and the cluster's sum.
+// the key tiles, the stores and the cluster's sum. Its shared memory grows
+// with l (a block holds the graph's k, v and f32 dk, dv; a warp its row's
+// whole key row), so past l ~48 at ew 8 it seats fewer warps: three a
+// block at l 128, one at l 192 (4.76 and 37.6 ms at b 128), which is why
+// those shapes take the tiled body.
 //
 // The f32 body (bwd_attn_kernel, exact f32 products on the CUDA cores) is
 // the first port's: one block takes one whole graph and loops over its
@@ -1550,6 +1564,709 @@ int launch_mma(const AttnParams& p, float* dw, const AttnMmaLayout& L,
   return launch_sum_partials(p.partials, p.B, L.nwg, dw, stream);
 }
 
+// ---------------------------------------------------------------- bf16 tiled
+// The key-tiled body (K5 only). A block takes all of a graph's keys, 16 a
+// warp (warp w owns keys 16 w .. 16 w + 15), and a contiguous range of its
+// query rows; a cluster of C blocks splits the rows. The block's warps take
+// its rows one at a time together: each warp runs the row's pairs with its
+// own 16 keys (one m16 tile of the edge head), and the softmax's three sums
+// over the row's keys (max, denominator, sum_j da_sm a_sm) are per-warp parts
+// in shared memory, added in warp order after a block barrier each. So no
+// shared memory holds a whole key row, and a warp's shared memory is that of
+// its 16 keys whatever l is. Shared memory:
+//   block f32:  the weight-gradient sums (output order), [bg | bb], g1, b1,
+//               the key mask's additive term (LK), the warps' parts of the
+//               three row sums (W x h each) and of the row's dq (W x dh);
+//   warp f32:   the tile's G and P, rnd(ds) and rnd(a_drop) (16 x h
+//               each), the warp's dg1 / db1 column sums (EK each);
+//   block bf16: [Wg | Wb] as stored (EK x NPK);
+//   warp bf16:  k of the warp's keys (16 x skv) and v head-major (v[j][hd
+//               ndd + c] = v_j's feature c h + hd, for the da dot product);
+//               two row buffers, each the row's e and de_mid tiles (16 x
+//               se), hh and dhh tiles (16 x h), q_i and gv_i;
+//               rnd([dgate | dP]) (16 x sd).
+// dk and dv of the warp's keys are sums over the block's rows kept in
+// registers (two features a lane, rows in order); dq_i is the warps' parts
+// added in warp order by one warp after the next row's first barrier. At the
+// end the block puts [weight-gradient sums | dk | dv] in shared memory and
+// rank r of the cluster adds its 1/C share over the ranks in rank order, as
+// the cluster body does. No float atomics: a rerun is bit-identical. The
+// arithmetic is the cluster body's: the same bf16 rounding points, the
+// strict clip test on the saved h_hat, the same Philox draws by (graph,
+// query, key, head); only the order of the sums changes (the row's three
+// sums, dq, dk, dv and the weight gradients).
+//
+// The block's shape follows l: W = l / 16 warps (rounded up; at most 16, so
+// l <= 256 with 128 registers a thread, 168 where W is 9-12 and one block
+// takes an SM anyway), and a cluster of C blocks (C the power of two up to 8
+// that leaves at least 32 rows a block: 4 at l 128 and 192). A warp's shared
+// memory is ~12.2 KB at ew 8, h 8, dh 64, so l 128 seats two 8-warp blocks
+// a SM (102 KB each) and l 192 one of 12 warps (152 KB).
+//
+// What bounds it is instruction issue, not bytes or FLOPs: ~1,400
+// instructions a lane a row, most of them in the mask's Philox draws, the
+// softmax's and gate's IEEE divisions, the da dot products and the dk / dv /
+// dq updates on the CUDA cores. By ablation at l 192 (b 128, the mask's
+// draws live), on an earlier build of this body at ~4.0 ms: the dk / dv / dq
+// updates ~0.9 ms, the tile's edge-head backward ~0.65, the da dot products
+// ~0.35, the draws ~0.2; warp barriers in place of the three block barriers
+// a row did not make it faster.
+//
+// Measured (NVIDIA H100 80GB HBM3, 700.00 W; CUDA events, L2 flushed, both
+// draws live, medians of 15 launches, in turns with the cluster body): b
+// 128, ew 8, h 8, dh 64: l 192 3.60-3.62 ms (cluster body, one warp a
+// block: 37.6), l 128 1.74 (4.76), l 150 2.76-2.78 (10.3), l 75 0.72-0.73
+// (1.03); b 8: l 128 0.527 (0.551), l 256 0.630-0.631 (17.3, kv_global).
+constexpr int ATT_TILE_MAX_WARPS = 16;   // 256 keys a block
+
+// Whether the tiled body can take a shape: the register body's class (ew
+// <= 64, nproj <= 16, h | 32) cut to ew <= 16 (one n16 step of LN1's
+// tile), h <= 8 (at most four keys of a head a lane), dh even and at most 64
+// (two features a lane) and l <= 256 (16 warps)
+__host__ __device__ inline bool attn_tile_class(int l, int ew, int h, int dh,
+                                                int gated) {
+  return !attn_mma_general(ew, h, gated) && ew <= 16 && h <= 8 &&
+         (dh & 1) == 0 && dh <= 64 && round16(l) <= 16 * ATT_TILE_MAX_WARPS;
+}
+
+struct AttnTileLayout {
+  int W, C, RB;                    // warps a block (16 keys each), blocks a
+                                   // graph (the cluster), rows a block
+  int LK, EK, NPK, nproj, se, sd, skv, nwg;
+  int acc, vec, madd, smx, sden, sts, sdq, nfb;   // block f32 offsets
+  int gs, ps, ds, ad, wrow, nfw;                  // warp f32 offsets
+  int w, nbb;                                     // block bf16 offsets
+  int kv, rb, nrb, e, dm, hh, dhh, qg, dcol, nbw; // warp bf16 offsets
+  size_t bytes;
+  __host__ __device__ AttnTileLayout(int l, int ew, int h, int dh, int gated) {
+    LK = round16(l);
+    W = LK / 16;
+    C = 1;                         // at least 32 rows a block
+    while (C < ATT_MAX_CLUSTER && l >= 64 * C) C *= 2;
+    RB = (l + C - 1) / C;
+    C = (l + RB - 1) / RB;         // no block without a row
+    nproj = gated ? 2 * h : h;
+    EK = round16(ew); NPK = round16(nproj);
+    se = EK + 8; sd = NPK + 8;
+    skv = dh + 8;                  // rows 4 banks apart (the da loop)
+    nwg = ew * nproj + nproj + 2 * ew;
+    int o = 0;
+    acc = o;  o += r4(nwg);
+    vec = o;  o += r4(NPK + 2 * EK);
+    madd = o; o += r4(LK);
+    smx = o;  o += r4(W * h);
+    sden = o; o += r4(W * h);
+    sts = o;  o += r4(W * h);
+    sdq = o;  o += r4(W * dh);
+    nfb = o;
+    o = 0;
+    gs = o;   o += 16 * h;
+    ps = o;   o += 16 * h;
+    ds = o;   o += 16 * h;
+    ad = o;   o += 16 * h;
+    wrow = o; o += 2 * EK;
+    nfw = o;
+    o = 0;
+    w = o;    o += r8(EK * sd);
+    nbb = o;
+    o = 0;
+    kv = o;   o += r8(2 * 16 * skv);
+    rb = o;                        // row buffer b at rb + b nrb
+    e = 0;    int q = 16 * se;
+    dm = q;   q += 16 * se;
+    hh = q;   q += 16 * h;
+    dhh = q;  q += 16 * h;
+    qg = q;   q += 2 * r8(dh);     // q_i, then gv_i
+    nrb = r8(q);
+    o += 2 * nrb;
+    dcol = o; o += 16 * sd;
+    nbw = r8(o);
+    const size_t stage = (size_t)(nfb + W * nfw) * 4 + (size_t)(nbb + W * nbw) * 2;
+    const size_t red = (size_t)(r4(nwg) + 2 * l * dh) * 4;
+    bytes = stage > red ? stage : red;
+  }
+};
+
+// NTE: n8 tiles of the edge width (EK = 16); MAXW: the most warps a block
+// the instantiation takes (its registers a thread: 65,536 / (32 MAXW))
+template <int NTE, int MAXW>
+__global__ void __launch_bounds__(MAXW * 32, 1)
+    bwd_attn_tile_kernel(AttnParams p) {
+  constexpr int NPT = 2;           // n8 tiles of [gates | bias] (NPK 16)
+  using bf = __nv_bfloat16;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int l = p.l, ew = p.ew, h = p.h, dh = p.dh;
+  const AttnTileLayout L(l, ew, h, dh, p.gated);
+  const int nw = L.W, nproj = L.nproj, EK = L.EK, NPK = L.NPK;
+  const int se = L.se, sd = L.sd, skv = L.skv;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int C = L.C, rank = (int)cluster.block_rank();
+  const int b = blockIdx.x / C;
+  const bool dropping = p.dr.dropping();
+  const int j0 = 16 * warp, nk = min(16, l - j0);   // the warp's keys
+
+  float* acc = sm + L.acc;                 // weight-gradient sums
+  float *bgb = sm + L.vec, *g1 = bgb + NPK, *b1 = g1 + EK;
+  float* madd = sm + L.madd;
+  float *smx = sm + L.smx, *sden = sm + L.sden, *sts = sm + L.sts;
+  float* sdq = sm + L.sdq;
+  float* wf = sm + L.nfb + warp * L.nfw;
+  float *gs = wf + L.gs, *ps = wf + L.ps, *wrow = wf + L.wrow;
+  float *ds_s = wf + L.ds, *ad_s = wf + L.ad;
+  bf* bs = reinterpret_cast<bf*>(sm + L.nfb + nw * L.nfw);
+  bf* Ws = bs + L.w;
+  bf* wb = bs + L.nbb + warp * L.nbw;
+  bf *ks = wb + L.kv, *vs = ks + 16 * skv;
+  bf* dcol = wb + L.dcol;
+
+  const bf* E = (const bf*)p.e;
+  const bf* QKV = (const bf*)p.qkv;
+  const bf* HH = (const bf*)p.hh;
+  const bf* DHH = (const bf*)p.dhh;
+  const bf* DM = (const bf*)p.demid;
+  const bf* GV = (const bf*)p.gv;
+  bf* DE = (bf*)p.de;
+  bf* DQ = (bf*)p.dq;
+
+  // ---- zero the sums and the staging (padding rows and columns are never
+  // written again); weights, biases, the key mask, the warp's k and v
+  zero_smem(bs, L.nbb + nw * L.nbw);
+  for (int t = tid; t < L.nfb + nw * L.nfw; t += blockDim.x) sm[t] = 0.f;
+  __syncthreads();
+  const bf* Wg = (const bf*)p.wg;
+  const bf* Wb = (const bf*)p.wb;
+  for (int t = tid; t < nproj + 2 * ew + l; t += blockDim.x) {
+    if (t < nproj) {
+      bgb[t] = (p.gated && t < h) ? p.bg[t] : p.bb[t - (nproj - h)];
+    } else if (t < nproj + ew) {
+      g1[t - nproj] = p.g1[t - nproj];
+    } else if (t < nproj + 2 * ew) {
+      b1[t - nproj - ew] = p.b1[t - nproj - ew];
+    } else {
+      const int j = t - nproj - 2 * ew;
+      madd[j] = (p.mask[(size_t)b * l + j] - 1.f) * 1e9f;
+    }
+  }
+  for (int t = tid; t < ew * nproj; t += blockDim.x) {
+    const int c = t / nproj, n = t - c * nproj;
+    Ws[c * sd + n] = (p.gated && n < h) ? Wg[c * h + n]
+                                        : Wb[c * h + (n - (nproj - h))];
+  }
+  {
+    const int hdh = dh >> 1;                 // dh is even: 4-byte copies
+    for (int t = lane; t < nk * hdh; t += 32) {
+      const int j = t / hdh, f = 2 * (t - j * hdh);
+      const bf* r = QKV + ((size_t)b * l + j0 + j) * 3 * dh;
+      *reinterpret_cast<uint32_t*>(ks + j * skv + f) =
+          *reinterpret_cast<const uint32_t*>(r + dh + f);
+    }
+    const int ndd = dh / h;
+    for (int t = lane; t < nk * dh; t += 32) {
+      const int j = t / dh, f = t - j * dh, hd = f % h, c = f / h;
+      vs[j * skv + hd * ndd + c] =
+          QKV[((size_t)b * l + j0 + j) * 3 * dh + 2 * dh + f];
+    }
+  }
+
+  // a row's tiles into row buffer rbuf: e, de_mid, hh, dhh of the warp's
+  // keys (zeros past l), q_i and gv_i; one group. Where the widths allow
+  // 16-byte copies (ew and dh multiples of 8, l h of 8), each lane's copy
+  // of a tile is the same every row: lane c takes e's and de_mid's 16-byte
+  // chunk c (row c / ecpr), hh's and dhh's chunk c, q's chunk c or gv's
+  // chunk c - dh / 8
+  const bool fast = (ew & 7) == 0 && (dh & 7) == 0 && ((l * h) & 7) == 0;
+  const int ecpr = ew >> 3, er = lane / max(ecpr, 1);
+  const int ec = 8 * (lane - er * ecpr);
+  const bool ecp = lane < 16 * ecpr, eok = er < nk;
+  const bool hcp = 8 * lane < 16 * h, hok = 8 * lane + 8 <= nk * h;
+  const bool qcp = lane < (dh >> 3), gcp = !qcp && lane < (dh >> 2);
+  auto issue_row = [&](int i, int rbuf) {
+    const size_t row = (size_t)b * l + i;
+    bf* rp = wb + L.rb + rbuf * L.nrb;
+    const bf* esrc = E + (row * l + j0) * ew;
+    const bf* msrc = DM + (row * l + j0) * ew;
+    const bf* hsrc = HH + (row * l + j0) * h;
+    const bf* dsrc = DHH + (row * l + j0) * h;
+    if (fast) {
+      if (ecp) {
+        const int o = er * ew + ec;
+        cp_async16(rp + L.e + er * se + ec, eok ? esrc + o : esrc, eok);
+        cp_async16(rp + L.dm + er * se + ec, eok ? msrc + o : msrc, eok);
+      }
+      if (hcp) {                   // nk h is a multiple of 8 here
+        cp_async16(rp + L.hh + 8 * lane, hok ? hsrc + 8 * lane : hsrc, hok);
+        cp_async16(rp + L.dhh + 8 * lane, hok ? dsrc + 8 * lane : dsrc, hok);
+      }
+      if (qcp) cp_async16(rp + L.qg + 8 * lane, QKV + row * 3 * dh + 8 * lane,
+                          true);
+      if (gcp) cp_async16(rp + L.qg + r8(dh) + 8 * lane - dh,
+                          GV + row * dh + 8 * lane - dh, true);
+    } else {
+      stage_rows(rp + L.e, se, esrc, 16, nk, ew);
+      stage_rows(rp + L.dm, se, msrc, 16, nk, ew);
+      for (int t = lane; t < nk * h; t += 32) {   // keys past l stay zero
+        rp[L.hh + t] = hsrc[t];
+        rp[L.dhh + t] = dsrc[t];
+      }
+      stage_vec(rp + L.qg, QKV + row * 3 * dh, dh);
+      stage_vec(rp + L.qg + r8(dh), GV + row * dh, dh);
+    }
+    cp_async_commit();
+  };
+
+  const int rbeg = rank * L.RB, rend = min(l, rbeg + L.RB);
+  // lane (kg, hd0): keys kg, kg + KG, ... (< 16) of the tile, head hd0
+  const int HL = h, KG = 32 / HL;
+  const int kg = lane / HL, hd0 = lane - kg * HL;
+  const int ndd = dh / h;
+  // lane's features f0, f0 + 1 in dq, dk and dv; their heads hf0, hf0 + 1
+  // (h > 1: h is even, so hf0 is)
+  const int f0 = 2 * lane, hf0 = f0 % h;
+  const bool fown = f0 < dh;
+  float dka[16][2], dva[16][2];
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+    dka[j][0] = dka[j][1] = dva[j][0] = dva[j][1] = 0.f;
+  float dwacc[NTE / 2][NPT][4];
+#pragma unroll
+  for (int a = 0; a < NTE / 2; ++a)
+#pragma unroll
+    for (int n = 0; n < NPT; ++n)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) dwacc[a][n][q] = 0.f;
+  float sdg = 0.f, sdp = 0.f;
+
+  // dq_i: the warps' parts in warp order, by one warp, two features a lane
+  auto sum_dq = [&](int i) {
+    if (fown) {
+      float a0 = 0.f, a1 = 0.f;
+      for (int w = 0; w < nw; ++w) {
+        const float2 v = *reinterpret_cast<const float2*>(sdq + w * dh + f0);
+        a0 += v.x;
+        a1 += v.y;
+      }
+      st_bf2(DQ + ((size_t)b * l + i) * dh + f0, a0, a1);
+    }
+  };
+
+  issue_row(rbeg, 0);                        // every block has a row
+  __syncthreads();                           // setup done
+
+  for (int i = rbeg; i < rend; ++i) {
+    const int rbuf = (i - rbeg) & 1;
+    const size_t row = (size_t)b * l + i;
+    if (i + 1 < rend) issue_row(i + 1, rbuf ^ 1);
+    else cp_async_commit();
+    cp_async_wait<1>();                      // row i's tiles
+    __syncwarp();
+    bf* rp = wb + L.rb + rbuf * L.nrb;
+    bf *erow = rp + L.e, *dmb = rp + L.dm, *hh_s = rp + L.hh;
+    bf *dhh_s = rp + L.dhh, *qb = rp + L.qg, *gb = qb + r8(dh);
+
+    // ---- LN1 and [G | P] = rnd(e_ln) . [Wg | Wb] + [bg | bb] of the tile;
+    // e_ln goes from the C-fragment layout of e straight into A fragments
+    float mu[2], rs[2];
+    {
+      float x[NTE][4];
+#pragma unroll
+      for (int j = 0; j < NTE; ++j) {
+        const int c = 8 * j + 2 * tq;
+        const float2 e0 = ld_bf2(erow + gq * se + c);
+        const float2 e1 = ld_bf2(erow + (gq + 8) * se + c);
+        x[j][0] = e0.x; x[j][1] = e0.y; x[j][2] = e1.x; x[j][3] = e1.y;
+      }
+      ln_stats(x, ew, mu, rs);
+      float gp[NPT][4];
+#pragma unroll
+      for (int n = 0; n < NPT; ++n)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) gp[n][q] = 0.f;
+#pragma unroll
+      for (int kb = 0; kb < NTE / 2; ++kb) {
+        float v[2][4];
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int c = 16 * kb + 8 * jj + 2 * tq + (q & 1);
+            v[jj][q] = c < ew ? g1[c] * ((x[2 * kb + jj][q] - mu[q >> 1]) *
+                                         rs[q >> 1]) + b1[c]
+                              : 0.f;
+          }
+        const uint32_t a[4] = {pack_bf16(v[0][0], v[0][1]),
+                               pack_bf16(v[0][2], v[0][3]),
+                               pack_bf16(v[1][0], v[1][1]),
+                               pack_bf16(v[1][2], v[1][3])};
+        uint32_t bb[4];
+        ldb_kn(bb, Ws, sd, 16 * kb, 0);
+        mma16816(gp[0], a, bb[0], bb[1]);
+        mma16816(gp[1], a, bb[2], bb[3]);
+      }
+#pragma unroll
+      for (int jn = 0; jn < NPT; ++jn)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int n = 8 * jn + 2 * tq + (q & 1);
+          const int j = gq + ((q >> 1) << 3);
+          if (n < nproj) {
+            const float z = gp[jn][q] + bgb[n];
+            if (p.gated && n < h) gs[j * h + n] = z;
+            else ps[j * h + n - (nproj - h)] = z;
+          }
+        }
+    }
+    __syncwarp();
+
+    // ---- the softmax chain re-entered at the saved h_hat; the row's sums
+    // over its keys are the warps' parts, added in warp order. The draws
+    // and da = gv_i . v_j come first, for every key slot of the lane at
+    // once, so that their chains overlap
+    const float* arow = p.amask ? p.amask + row * l : nullptr;
+    float s0[4], s1[4];          // logit, exp, a_sm; gate's sigmoid, da_sm
+    float dav[4];                // da, then / keep where kept, 0 where not
+    unsigned kept = 0xfu;        // dropout's kept bit of each slot
+    float gvh[8];                // ndd 8: gv_i's features of head hd0
+    if (ndd == 8)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) gvh[c] = to_f(gb[c * h + hd0]);
+    float mx = -INFINITY;
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int jj = kg + KG * t, j = j0 + jj;
+      const int jc = min(j, l - 1);          // a key of the row, for loads
+      float add = madd[jc];
+      if (arow) add += (arow[jc] - 1.f) * 1e9f;
+      const float rm = p.dr.mask_add(b, i, j, hd0);
+      const int u = (jj & 15) * h + hd0;
+      const bf* vr = vs + (jj & 15) * skv + hd0 * ndd;
+      float da = 0.f;
+      if (ndd == 8) {              // one 16-byte read of v_j's head
+        const uint4 v8 = *reinterpret_cast<const uint4*>(vr);
+        const uint32_t vw[4] = {v8.x, v8.y, v8.z, v8.w};
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float2 v2 = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&vw[c]));
+          da = fmaf(gvh[2 * c], v2.x, da);
+          da = fmaf(gvh[2 * c + 1], v2.y, da);
+        }
+      } else {
+        for (int c = 0; c < ndd; ++c)
+          da = fmaf(to_f(gb[c * h + hd0]), to_f(vr[c]), da);
+      }
+      if (dropping) {
+        const bool kp = p.dr.kept(b, i, j, hd0);
+        if (!kp) kept &= ~(1u << t);
+        da = kp ? da / p.dr.keep : 0.f;
+      }
+      dav[t] = da;
+      s0[t] = to_f(hh_s[u]) + add + rm;
+      s1[t] = p.gated ? sigmoid(gs[u] + add + rm) : 1.f;
+      if (jj < 16 && j < l) mx = fmaxf(mx, s0[t]);
+    }
+    mx = head_max(mx, HL);
+    if (kg == 0) smx[warp * h + hd0] = mx;
+    __syncthreads();
+    if (i > rbeg && warp == (i - 1 - rbeg) % nw) sum_dq(i - 1);
+    mx = -INFINITY;
+    for (int w = 0; w < nw; ++w) mx = fmaxf(mx, smx[w * h + hd0]);
+    float sum = 0.f;
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int jj = kg + KG * t;
+      if (jj < 16 && j0 + jj < l) {
+        const float ex = expf(s0[t] - mx);
+        s0[t] = ex;
+        sum += ex;
+      }
+    }
+    sum = head_sum(sum, HL);
+    if (kg == 0) sden[warp * h + hd0] = sum;
+    __syncthreads();
+    float den = 0.f;
+    for (int w = 0; w < nw; ++w) den += sden[w * h + hd0];
+    den = fmaxf(den, 1e-30f);
+    // dropout and gate backward; a_sm and da_sm replace exp and sg
+    float ts = 0.f, dgs = 0.f, dps = 0.f;
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int jj = kg + KG * t;
+      if (jj < 16 && j0 + jj < l) {
+        const float da = dav[t];
+        const float a_sm = s0[t] / den, s = s1[t];
+        float a = p.gated ? a_sm * s : a_sm;
+        if (dropping) a = (kept >> t) & 1u ? a / p.dr.keep : 0.f;
+        ad_s[jj * h + hd0] = rnd<bf>(a);
+        float dasm = da;
+        if (p.gated) {
+          dasm = da * s;
+          const float dgt = da * a_sm * s * (1.f - s);
+          dcol[jj * sd + hd0] = __float2bfloat16_rn(dgt);
+          dgs += dgt;
+        }
+        s0[t] = a_sm;
+        s1[t] = dasm;
+        ts += dasm * a_sm;
+      }
+    }
+    ts = head_sum(ts, HL);
+    if (kg == 0) sts[warp * h + hd0] = ts;
+    __syncthreads();
+    ts = 0.f;
+    for (int w = 0; w < nw; ++w) ts += sts[w * h + hd0];
+    // softmax and clip backward; edge-bias activation backward
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int jj = kg + KG * t;
+      if (jj < 16 && j0 + jj < l) {
+        const int u = jj * h + hd0;
+        const float dH = s0[t] * (s1[t] - ts) + to_f(dhh_s[u]);
+        float d = dH * p.scale;
+        const float P = ps[u];
+        const float Ev = act_fn(p.edge_act, p.edge_alpha, P);
+        if (p.has_clip) {
+          const float sc = to_f(hh_s[u]) - Ev;
+          if (!(sc > p.lo && sc < p.hi)) d = 0.f;
+        }
+        ds_s[u] = rnd<bf>(d);
+        const float dp = dH * act_grad(p.edge_act, p.edge_alpha, P, Ev);
+        dcol[jj * sd + (nproj - h) + hd0] = __float2bfloat16_rn(dp);
+        dps += dp;
+      }
+    }
+    sdg += dgs;
+    sdp += dps;
+    __syncwarp();
+
+    // ---- dq_i's part over the warp's keys; dk_j += rnd(ds) q_i, dv_j +=
+    // rnd(a_drop) gv_i (keys past l add zeros)
+    if (fown) {
+      const float2 qv = ld_bf2(qb + f0), gv = ld_bf2(gb + f0);
+      float a0 = 0.f, a1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        float2 dsv, av;
+        if (h > 1) {
+          dsv = *reinterpret_cast<const float2*>(ds_s + j * h + hf0);
+          av = *reinterpret_cast<const float2*>(ad_s + j * h + hf0);
+        } else {
+          dsv.x = dsv.y = ds_s[j];
+          av.x = av.y = ad_s[j];
+        }
+        const float2 kv = ld_bf2(ks + j * skv + f0);
+        a0 = fmaf(dsv.x, kv.x, a0);
+        a1 = fmaf(dsv.y, kv.y, a1);
+        dka[j][0] = fmaf(dsv.x, qv.x, dka[j][0]);
+        dka[j][1] = fmaf(dsv.y, qv.y, dka[j][1]);
+        dva[j][0] = fmaf(av.x, gv.x, dva[j][0]);
+        dva[j][1] = fmaf(av.y, gv.y, dva[j][1]);
+      }
+      *reinterpret_cast<float2*>(sdq + warp * dh + f0) = make_float2(a0, a1);
+    }
+
+    // ---- the tile's de_ln = rnd([dgate | dP]) . [Wg | Wb]^T, dW +=
+    // rnd(e_ln)^T rnd([dgate | dP]), LN1 backward plus de_mid
+    {
+      float x1[NTE][4];
+#pragma unroll
+      for (int j = 0; j < NTE; ++j) {
+        const int c = 8 * j + 2 * tq;
+        const float2 e0 = ld_bf2(erow + gq * se + c);
+        const float2 e1 = ld_bf2(erow + (gq + 8) * se + c);
+        const float ev[4] = {e0.x, e0.y, e1.x, e1.y};
+        float y[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const bool ok = c + (q & 1) < ew;
+          x1[j][q] = ok ? (ev[q] - mu[q >> 1]) * rs[q >> 1] : 0.f;
+          y[q] = ok ? g1[c + (q & 1)] * x1[j][q] + b1[c + (q & 1)] : 0.f;
+        }
+        st_bf2(erow + gq * se + c, y[0], y[1]);   // rnd(e_ln) over e
+        st_bf2(erow + (gq + 8) * se + c, y[2], y[3]);
+      }
+      __syncwarp();
+      float dl[NTE][4];
+#pragma unroll
+      for (int j = 0; j < NTE; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) dl[j][q] = 0.f;
+      {
+        uint32_t a[4];
+        lda(a, dcol, sd, 0, 0);
+#pragma unroll
+        for (int jb = 0; jb < NTE / 2; ++jb) {
+          uint32_t bb[4];
+          ldb_nk(bb, Ws, sd, 0, 16 * jb);
+          mma16816(dl[2 * jb], a, bb[0], bb[1]);
+          mma16816(dl[2 * jb + 1], a, bb[2], bb[3]);
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < NTE / 2; ++mt) {
+        uint32_t a[4], bb[4];
+        lda_t(a, erow, se, 0, 16 * mt);
+        ldb_kn(bb, dcol, sd, 0, 0);
+        mma16816(dwacc[mt][0], a, bb[0], bb[1]);
+        mma16816(dwacc[mt][1], a, bb[2], bb[3]);
+      }
+      // de = (dx - m1 - x1 m2) rstd + de_mid, dx = de_ln g1; dg1 += sum
+      // de_ln x1, db1 += sum de_ln (keys past l add 0)
+      float a0 = 0.f, c0 = 0.f, a1 = 0.f, c1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < NTE; ++j)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int c = 8 * j + 2 * tq + q;
+          if (c < ew) {
+            const float d0 = dl[j][q] * g1[c], d1 = dl[j][2 + q] * g1[c];
+            a0 += d0; c0 += d0 * x1[j][q];
+            a1 += d1; c1 += d1 * x1[j][2 + q];
+          }
+        }
+      const float m10 = quad_sum(a0) / ew, m20 = quad_sum(c0) / ew;
+      const float m11 = quad_sum(a1) / ew, m21 = quad_sum(c1) / ew;
+      __syncwarp();                          // e_ln is read
+#pragma unroll
+      for (int j = 0; j < NTE; ++j) {
+        const int cb = 8 * j + 2 * tq;
+        const float2 dm0 = ld_bf2(dmb + gq * se + cb);
+        const float2 dm1 = ld_bf2(dmb + (gq + 8) * se + cb);
+        const float dmv[4] = {dm0.x, dm0.y, dm1.x, dm1.y};
+        float de[4], sg1[2], sb1[2];
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int c = cb + q;
+          const bool ok = c < ew;
+          const float d0 = dl[j][q], d1 = dl[j][2 + q];
+          de[q] = ok ? (d0 * g1[c] - m10 - x1[j][q] * m20) * rs[0] + dmv[q]
+                     : 0.f;
+          de[2 + q] = ok ? (d1 * g1[c] - m11 - x1[j][2 + q] * m21) * rs[1] +
+                               dmv[2 + q]
+                         : 0.f;
+          sg1[q] = d0 * x1[j][q] + d1 * x1[j][2 + q];
+          sb1[q] = d0 + d1;
+        }
+        st_bf2(erow + gq * se + cb, de[0], de[1]);
+        st_bf2(erow + (gq + 8) * se + cb, de[2], de[3]);
+        // the tile's dg1 (X), db1 (Y) column sums; one owning lane each
+        const float cs = tile_colsum(sg1[0], sg1[1], sb1[0], sb1[1]);
+        if (!(lane & 4))
+          wrow[(lane & 16 ? EK : 0) + cb + (lane & 8 ? 1 : 0)] += cs;
+      }
+      __syncwarp();
+      store_rows16(DE + (row * l + j0) * ew, erow, se, nk, ew);
+    }
+    __syncwarp();                  // this row buffer is staged again next
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  if (warp == (rend - 1 - rbeg) % nw) sum_dq(rend - 1);
+
+  // ---- the warps' weight-gradient parts into the block's sums, in warp
+  // order (each element has one owning lane)
+  sdg = head_sum(sdg, HL);
+  sdp = head_sum(sdp, HL);
+  for (int w = 0; w < nw; ++w) {
+    if (warp == w) {
+#pragma unroll
+      for (int mo = 0; mo < NTE / 2; ++mo)
+#pragma unroll
+        for (int jn = 0; jn < NPT; ++jn)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int m = 16 * mo + gq + ((q >> 1) << 3);
+            const int n = 8 * jn + 2 * tq + (q & 1);
+            if (m < ew && n < nproj) acc[m * nproj + n] += dwacc[mo][jn][q];
+          }
+      if (kg == 0) {
+        if (p.gated) acc[ew * nproj + hd0] += sdg;
+        acc[ew * nproj + (nproj - h) + hd0] += sdp;
+      }
+      for (int c = lane; c < ew; c += 32) {
+        acc[ew * nproj + nproj + c] += wrow[c];
+        acc[ew * nproj + nproj + ew + c] += wrow[EK + c];
+      }
+    }
+    __syncthreads();
+  }
+
+  // ---- [sums | dk | dv] in shared memory (over the dead staging); rank r
+  // of the cluster adds its share over the ranks' shared memory in rank
+  // order and writes it once
+  const int kvo = r4(L.nwg);
+  float* red = acc;
+  if (fown)
+    for (int j = 0; j < nk; ++j) {
+      float* dkr = red + kvo + (j0 + j) * dh + f0;
+      float* dvr = red + kvo + l * dh + (j0 + j) * dh + f0;
+      *reinterpret_cast<float2*>(dkr) = make_float2(dka[j][0], dka[j][1]);
+      *reinterpret_cast<float2*>(dvr) = make_float2(dva[j][0], dva[j][1]);
+    }
+  cluster.sync();
+  const int nred = kvo + 2 * l * dh;
+  const int chunk = (nred + C - 1) / C;
+  const int e0 = rank * chunk, e1 = min(nred, e0 + chunk);
+  const float* rpk[ATT_MAX_CLUSTER];
+#pragma unroll
+  for (int q = 0; q < ATT_MAX_CLUSTER; ++q)
+    rpk[q] = cluster.map_shared_rank(red, q < C ? q : 0);
+  for (int e = e0 + tid; e < e1; e += blockDim.x) {
+    if (e >= L.nwg && e < kvo) continue;     // padding
+    float v[ATT_MAX_CLUSTER];
+#pragma unroll
+    for (int q = 0; q < ATT_MAX_CLUSTER; ++q) v[q] = q < C ? rpk[q][e] : 0.f;
+    float s = 0.f;
+#pragma unroll
+    for (int q = 0; q < ATT_MAX_CLUSTER; ++q)
+      if (q < C) s += v[q];
+    if (e < L.nwg) p.partials[(size_t)b * L.nwg + e] = s;
+    else if (e < kvo + l * dh) p.dk[(size_t)b * l * dh + e - kvo] = s;
+    else p.dv[(size_t)b * l * dh + e - kvo - l * dh] = s;
+  }
+  cluster.sync();      // no block leaves while another reads its memory
+}
+
+template <int NTE, int MAXW>
+int launch_tile(const AttnParams& p, float* dw, const AttnTileLayout& L,
+                cudaStream_t stream) {
+  auto kern = bwd_attn_tile_kernel<NTE, MAXW>;
+  cudaError_t err = allow_smem<bwd_attn_tile_kernel<NTE, MAXW>>(L.bytes);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(p.B * L.C));
+  cfg.blockDim = dim3((unsigned)(32 * L.W));
+  cfg.dynamicSmemBytes = L.bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)L.C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kern, p);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return launch_sum_partials(p.partials, p.B, L.nwg, dw, stream);
+}
+
+// Whether K5 (bf16, de_mid and dhh handed over in bf16) runs a shape on the
+// tiled body: where the shape is of its class, fits 227 KB and the cluster
+// body would seat fewer than 8 warps a block. K7 and K6 (f32 hand-off) keep
+// the cluster body.
+__host__ __device__ inline bool attn_takes_tile(int l, int ew, int h, int dh,
+                                                int gated) {
+  if (!attn_tile_class(l, ew, h, dh, gated)) return false;
+  if (AttnTileLayout(l, ew, h, dh, gated).bytes > (size_t)ATT_SMEM_MAX)
+    return false;
+  return attn_mma_layout(l, ew, h, dh, gated, false).W < ATT_MMA_WARPS;
+}
+
 // f32: the CUDA-core body (exact f32 products), one block a graph; k, v,
 // dk and dv in shared memory where they fit, else kv_global
 inline AttnLayout attn_simt_layout(int l, int ew, int h, int dh, int gated) {
@@ -1577,12 +2294,22 @@ int launch_simt(const AttnParams& p, float* dw, cudaStream_t stream) {
   return launch_sum_partials(p.partials, p.B, L.nw, dw, stream);
 }
 
-// bf16: the tensor-core cluster body, de_mid and dhh read as HT; MONO: the
-// mono switch (K6; HT float)
+// bf16: the tiled body where attn_takes_tile says so (K5 only), else the
+// tensor-core cluster body, de_mid and dhh read as HT; MONO: the mono switch
+// (K6; HT float)
 template <typename HT, bool MONO = false>
 int launch_bf16(const AttnParams& p, float* dw, cudaStream_t stream) {
-  const AttnMmaLayout L = attn_mma_layout(p.l, p.ew, p.h, p.dh, p.gated,
-                                          std::is_same<HT, float>::value);
+  constexpr bool F32H = std::is_same<HT, float>::value;
+  if constexpr (!F32H)
+    if (attn_takes_tile(p.l, p.ew, p.h, p.dh, p.gated)) {
+      // 9-12 warps (l 129-192): one block a SM either way, so up to 170
+      // registers a thread; else 128 (two blocks a SM up to 8 warps)
+      const AttnTileLayout T(p.l, p.ew, p.h, p.dh, p.gated);
+      return T.W > 8 && T.W <= 12 ? launch_tile<2, 12>(p, dw, T, stream)
+                                  : launch_tile<2, ATT_TILE_MAX_WARPS>(p, dw, T,
+                                                                       stream);
+    }
+  const AttnMmaLayout L = attn_mma_layout(p.l, p.ew, p.h, p.dh, p.gated, F32H);
   if (L.W == 0) return (int)cudaErrorInvalidConfiguration;
   if (L.general)
     return L.kvg ? launch_mma<true, HT, true, MONO>(p, dw, L, stream)

@@ -16,19 +16,25 @@
 // What bounds it on an H100: at the ZINC-500k training shape (b 128, l 40,
 // ew 64, h 8, dh 64, bf16) it moves ~91 MB (e, de_mid and de; hh and dhh;
 // q, k, v, gv, dq, dk, dv), ~27 us at 3.35 TB/s, against ~1.4 GFLOP of
-// products: bytes bound it. attn_bwd.cuh says what bounds the bf16 body now
-// and gives its measured time.
+// products: bytes bound it. In bf16 one of two bodies takes a shape, by the
+// shape alone: the tiled body (16 keys a warp, a block a graph's keys and a
+// range of its rows) at the long pads of narrow edges, the SBM, superpixel
+// and TSP l <= 256 pads, and the cluster body (a query row a warp) at every
+// other shape; attn_bwd.cuh gives both designs, what bounds each and their
+// measured times.
 
 #include "attn_bwd.cuh"
 
 // Shared memory the kernel needs, in bytes: f32 the one-block-a-graph
-// body's; bf16 the tensor-core body's at the most warps a block that fit in
-// 227 KB (at one warp and kv_global, above 227 KB, when none does). The
-// wrapper checks it.
+// body's; bf16 the tiled body's where it takes the shape, else the cluster
+// body's at the most warps a block that fit in 227 KB (at one warp and
+// kv_global, above 227 KB, when none does). The wrapper checks it.
 extern "C" long long fused_layer_bwd_attn_smem(int dtype, int l, int ew, int h,
                                                int dh, int gated) {
   if (dtype == 0)
     return (long long)egt::attn_simt_layout(l, ew, h, dh, gated).bytes();
+  if (egt::attn_takes_tile(l, ew, h, dh, gated))
+    return (long long)egt::AttnTileLayout(l, ew, h, dh, gated).bytes;
   return (long long)egt::attn_mma_layout(l, ew, h, dh, gated, false).bytes;
 }
 
@@ -36,16 +42,24 @@ extern "C" long long fused_layer_bwd_attn_smem(int dtype, int l, int ew, int h,
 // bf16 (K5) or, f32_handoff 1, in f32 (K7, and K6 under its mono switch):
 // out = [warps a block, blocks a graph (the cluster), rows a block, rows a
 // warp, 1 for the general body, shared memory bytes a block, 1 for
-// kv_global]; returns 0, or 1 (out untouched) when no layout fits 227 KB.
-// The one source of this layout for the three kernels' wrappers.
+// kv_global, 1 for the tiled body (K5 only), keys a warp takes of a row];
+// returns 0, or 1 (out untouched) when no layout fits 227 KB. The one source
+// of this layout for the three kernels' wrappers.
 extern "C" long long fused_layer_bwd_attn_geometry(int l, int ew, int h,
                                                    int dh, int gated,
                                                    int f32_handoff, int* out) {
+  if (!f32_handoff && egt::attn_takes_tile(l, ew, h, dh, gated)) {
+    const egt::AttnTileLayout T(l, ew, h, dh, gated);
+    out[0] = T.W; out[1] = T.C; out[2] = T.RB; out[3] = T.RB;
+    out[4] = 0; out[5] = (int)T.bytes; out[6] = 0; out[7] = 1; out[8] = 16;
+    return 0;
+  }
   const egt::AttnMmaLayout L =
       egt::attn_mma_layout(l, ew, h, dh, gated, f32_handoff != 0);
   if (L.W == 0) return 1;
   out[0] = L.W; out[1] = L.C; out[2] = L.RB; out[3] = L.P;
   out[4] = L.general ? 1 : 0; out[5] = (int)L.bytes; out[6] = L.kvg ? 1 : 0;
+  out[7] = 0; out[8] = l;
   return 0;
 }
 

@@ -55,6 +55,10 @@ BWD_TAIL_KERNEL = _cuda.CudaKernel("fused_layer_bwd_tail", _cuda.argtypes(
     "i ppp pppp pppp pp pp i L iii if"))
 BWD_ATTN_KERNEL = _cuda.CudaKernel("fused_layer_bwd_attn", _cuda.argtypes(
     "i pppp pppp pp pppp pppp ppp iiiii ii fff if uu fff"))
+# K5's launches by body: "f32" (one block a graph), "cluster" (bf16, a query
+# row a warp) and "tiled" (bf16, 16 keys a warp); `bwd_attn_geometry` names
+# the bf16 body a shape takes
+BWD_ATTN_BODIES = {"f32": 0, "cluster": 0, "tiled": 0}
 BWD_MERGED_KERNEL = _cuda.CudaKernel("fused_layer_bwd_merged", _cuda.argtypes(
     "i pppp pppp pp pppp pppp ppp pp pppp pp i iiiiiiii fff ifif uu fff"))
 BWD_MONO_KERNEL = _cuda.CudaKernel("fused_layer_bwd_mono", _cuda.argtypes(
@@ -526,9 +530,9 @@ def _attn_smem(code: int, l: int, ew: int, h: int, dh: int, gated: int) -> int:
 
 def bwd_attn_smem(spec: LayerSpec, dtype) -> int:
     """Shared memory K5 needs for one block, in bytes (f32: one block a
-    graph; bf16: the tensor-core body at the most warps a block that fit;
-    either with k, v, dk and dv in device memory where they do not fit
-    in shared memory)."""
+    graph, with k, v, dk and dv in device memory where they do not fit in
+    shared memory; bf16: the body `bwd_attn_geometry` names, the cluster
+    body at the most warps a block that fit)."""
     return _attn_smem(_cuda.DTYPE_CODES[dtype], spec.l, spec.ew, spec.h,
                       spec.dh, int(spec.gated))
 
@@ -536,7 +540,7 @@ def bwd_attn_smem(spec: LayerSpec, dtype) -> int:
 @functools.lru_cache(maxsize=None)
 def _attn_geometry(l: int, ew: int, h: int, dh: int, gated: int,
                    f32_handoff: int) -> tuple | None:
-    out = (ctypes.c_int * 7)()
+    out = (ctypes.c_int * 9)()
     if BWD_ATTN_KERNEL.query("fused_layer_bwd_attn_geometry", "iiiiiip",
                              l, ew, h, dh, gated, f32_handoff,
                              ctypes.addressof(out)):
@@ -548,17 +552,22 @@ def bwd_attn_geometry(spec: LayerSpec,
                       f32_handoff: bool = False) -> dict | None:
     """How K5's bf16 body spreads one graph over the card, from the kernel's
     own layout, with de_mid and dhh handed over in bf16 (K5) or in f32
-    (`f32_handoff`, K7, and K6 under its mono switch): `warps` a block (one
-    query row a warp), `cluster` blocks a graph, `rows_per_block`, `passes`
-    (rows a warp), `general` (the body for shapes past the register body's
-    tiles), `smem` bytes a block and `kv_global` (k, v, dk and dv in device
-    memory, one block a graph, where no layout with them in shared memory
-    fits); None when no layout fits 227 KB."""
+    (`f32_handoff`, K7, and K6 under its mono switch): `body` ("tiled": a
+    warp takes 16 keys of every row of its block, K5 only; "cluster": a
+    warp takes whole query rows), `warps` a block, `cluster` blocks a graph,
+    `rows_per_block`, `passes` (rows a warp), `keys_per_warp` (of a row),
+    `general` (the cluster body for shapes past the register body's tiles),
+    `smem` bytes a block and `kv_global` (the cluster body with k, v, dk
+    and dv in device memory, one block a graph, where no layout with them in
+    shared memory fits); None when no layout fits 227 KB."""
     g = _attn_geometry(spec.l, spec.ew, spec.h, spec.dh, int(spec.gated),
                        int(f32_handoff))
+    if g is None:
+        return None
     keys = ("warps", "cluster", "rows_per_block", "passes", "general", "smem",
             "kv_global")
-    return None if g is None else dict(zip(keys, g))
+    return dict(zip(keys, g), body="tiled" if g[7] else "cluster",
+                keys_per_warp=g[8])
 
 
 @functools.lru_cache(maxsize=None)
@@ -634,6 +643,8 @@ def _bwd_attn_cuda(spec: LayerSpec, e, qkv, mask, amask, w, hh, dhh, de_mid,
                     int(spec.clip is not None),
                     float(clip[0]), float(clip[1]), spec.scale, ea, ea_alpha,
                     *draw_args(spec, seed))
+    BWD_ATTN_BODIES["f32" if dt == torch.float32
+                    else bwd_attn_geometry(spec)["body"]] += 1
     dwgb, dbgb, dg1, db1 = torch.split(dw, sizes)
     dwgb = dwgb.view(ew, nproj)
     grads = dict(wb=dwgb[:, nproj - h:], bb=dbgb[nproj - h:], g1=dg1, b1=db1)

@@ -1156,7 +1156,11 @@ def test_tail_weight_gradients_bit_identical_across_launches(dev, dtype):
 # The rest run its general body: ew 80, 136 and 256 (64-column chunks), h 16
 # gated and h 32 (2h past 16), h 64 and 128 (two and four heads a lane), h 6
 # (no divisor of 32), odd dh, ew 10; h 64 at ew 96, l 4 gated takes one warp
-# a block (its dW sums in the block's)
+# a block (its dW sums in the block's). PATTERN's pads, l 128 and 192 at ew
+# 8, take the tiled body (16 keys a warp; l 150 too), and so do l 121 at ew
+# 10, h 4, dh 36 (element copies of the row's tiles, the da dot product over
+# 9 features) and l 200 at h 1 (one key a lane, 16 features a head); the
+# rest take the cluster body
 BWD_ATTN_SHAPES = {"flagship": (4, 40, 64, 8, 64), "ew8_l9": (3, 9, 8, 8, 64),
                    "ew48_l41": (3, 41, 48, 8, 48), "ew80_l41": (2, 41, 80, 8, 64),
                    "ew8_l150": (2, 150, 8, 8, 64), "h4_l37": (3, 37, 32, 4, 32),
@@ -1166,7 +1170,11 @@ BWD_ATTN_SHAPES = {"flagship": (4, 40, 64, 8, 64), "ew8_l9": (3, 9, 8, 8, 64),
                    "ew256_h4_l17": (2, 17, 256, 4, 32),
                    "h6_dh18_l13": (3, 13, 24, 6, 18),
                    "h1_dh7_l11": (2, 11, 10, 1, 7),
-                   "h64_ew96_l4": (2, 4, 96, 64, 64)}
+                   "h64_ew96_l4": (2, 4, 96, 64, 64),
+                   "ew8_l128": (3, 128, 8, 8, 64),
+                   "ew8_l192": (3, 192, 8, 8, 64),
+                   "ew10_h4_dh36_l121": (2, 121, 10, 4, 36),
+                   "ew16_h1_dh16_l200": (2, 200, 16, 1, 16)}
 
 
 def _bwd_attn_case(dev, dtype, shape, gated, constrained):
@@ -1214,12 +1222,17 @@ def _bwd_attn_case(dev, dtype, shape, gated, constrained):
 @pytest.mark.parametrize("constrained,gated", [(False, True), (True, False),
                                                (True, True)])
 def test_bwd_attn_kernel_matches_plain(dev, dtype, constrained, gated, shape):
-    """K5 (bf16: the tensor-core cluster body; f32: one block a graph)
-    against its plain version, the draws live, edge activation elu."""
+    """K5 (bf16: the tensor-core body its geometry names, tiled or
+    cluster; f32: one block a graph) against its plain version, the draws
+    live, edge activation elu; one launch, counted on that body."""
     args = _bwd_attn_case(dev, dtype, shape, gated, constrained)
     before = fl.BWD_ATTN_KERNEL.launches
+    body = "f32" if dtype == torch.float32 else \
+        fl.bwd_attn_geometry(args[0])["body"]
+    bodies = dict(fl.BWD_ATTN_BODIES)
     out = fl.fused_layer_bwd_attn(*args)
     assert fl.BWD_ATTN_KERNEL.launches == before + 1
+    assert fl.BWD_ATTN_BODIES == {**bodies, body: bodies[body] + 1}
     ref = fl.fused_layer_bwd_attn_plain(*args)
     for i, (o, r) in enumerate(zip(out[:4], ref[:4])):      # de dq dk dv
         _close(o, r, dtype, scaled=i >= 2)
@@ -1229,7 +1242,7 @@ def test_bwd_attn_kernel_matches_plain(dev, dtype, constrained, gated, shape):
 
 
 @pytest.mark.parametrize("shape", ["flagship", "ew8_l150", "ew136_l23",
-                                   "h64_ew96_l4"])
+                                   "h64_ew96_l4", "ew8_l192"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bwd_attn_sums_bit_identical_across_launches(dev, dtype, shape):
     """dk, dv and the six weight gradients: fixed-order sums (the cluster's
@@ -1240,6 +1253,22 @@ def test_bwd_attn_sums_bit_identical_across_launches(dev, dtype, shape):
     assert torch.equal(runs[0][3], runs[1][3])
     for k in runs[0][4]:
         assert torch.equal(runs[0][4][k], runs[1][4][k]), k
+
+
+@pytest.mark.parametrize("shape,body", [("flagship", "cluster"),
+                                        ("ew8_l128", "tiled"),
+                                        ("ew8_l192", "tiled")])
+def test_bwd_attn_counts_launches_by_body(dev, shape, body):
+    """The ZINC flagship keeps the cluster body (8 warps a block there);
+    PATTERN's pads take the tiled body, 16 keys a warp, at least 8 warps a
+    block; `BWD_ATTN_BODIES` counts each launch on its body."""
+    args = _bwd_attn_case(dev, torch.bfloat16, shape, True, False)
+    g = fl.bwd_attn_geometry(args[0])
+    assert g["body"] == body and g["warps"] >= 8, g
+    assert g["keys_per_warp"] == (16 if body == "tiled" else args[0].l), g
+    before = dict(fl.BWD_ATTN_BODIES)
+    fl.fused_layer_bwd_attn(*args)
+    assert fl.BWD_ATTN_BODIES == {**before, body: before[body] + 1}
 
 
 def _first_body_bytes(l, ew, h, dh, gated):
@@ -1254,9 +1283,10 @@ def _first_body_bytes(l, ew, h, dh, gated):
 @pytest.mark.parametrize("h", [1, 2, 4, 6, 8, 16, 32, 64, 128])
 def test_bwd_attn_bf16_takes_every_shape_the_first_body_took(dev, h):
     """Every shape whose bf16 shared memory fitted 227 KB in the first K5
-    body (one block a graph) fits in the cluster body, at l 1-256 and edge
-    widths 8-512: every query row has a block and a warp, at most 8 blocks
-    a cluster, and the geometry's bytes are those the wrapper checks."""
+    body (one block a graph) fits in the tiled or the cluster body, at l
+    1-256 and edge widths 8-512: every query row has a block and a warp
+    (tiled: every key too, 16 a warp), at most 8 blocks a cluster, and the
+    geometry's bytes are those the wrapper checks."""
     for dh in sorted({h, 2 * h, 7 * h, max(64, h) // h * h, 768 // h * h}):
         for ew in (8, 10, 48, 64, 80, 96, 128, 136, 256, 512):
             for gated in (True, False):
@@ -1275,8 +1305,19 @@ def test_bwd_attn_bf16_takes_every_shape_the_first_body_took(dev, h):
                         continue
                     w, c, rows = g["warps"], g["cluster"], g["rows_per_block"]
                     assert g["smem"] == smem <= 227 * 1024, where
-                    assert 1 <= w <= 8 and 1 <= c <= 8, where
+                    assert 1 <= c <= 8, where
                     assert c * rows >= l > (c - 1) * rows, where
+                    if g["body"] == "tiled":
+                        assert 16 * w >= l > 16 * (w - 1) and w <= 16, where
+                        assert g["passes"] == rows, where
+                        assert g["keys_per_warp"] == 16, where
+                        assert ew <= 16 and h <= 8 and dh % 2 == 0 \
+                            and dh <= 64, where
+                        assert not g["general"] and not g["kv_global"], where
+                        continue
+                    assert g["body"] == "cluster", where
+                    assert g["keys_per_warp"] == l, where
+                    assert 1 <= w <= 8, where
                     assert g["passes"] * w >= rows > (g["passes"] - 1) * w, \
                         where
                     assert g["general"] == (ew > 64 or (2 * h if gated else h)
@@ -1313,8 +1354,8 @@ def test_bwd_attn_refuses_a_shape_past_227_kb(dev):
 # (edge width 8, hidden 16, 8 heads, width 64) in both length buckets, on a
 # small batch with ragged node masks: l 128 is the last length at which the
 # bf16 K3 packs several query rows a block, l 192 the first shipped one of
-# one row and 8 warps (12 tiles of 16 keys); K5 takes one or a few warps a
-# block there (`bwd_attn_geometry`).
+# one row and 8 warps (12 tiles of 16 keys); K5 takes its tiled body there,
+# 16 keys a warp (`bwd_attn_geometry`).
 SBM_LENGTHS = (128, 192)
 
 
@@ -1401,10 +1442,18 @@ def test_whole_layer_kernels_at_tsp_shapes(dev, dtype, l):
 @pytest.mark.parametrize("gated", [True, False])
 @pytest.mark.parametrize("l", (256, 512))
 def test_bwd_attn_takes_kv_global_at_tsp_lengths(dev, l, gated):
+    """At l 512 K5's bf16 body keeps k, v, dk and dv in device memory, one
+    block a graph (the cluster body's kv_global); at l 256 the tiled body
+    takes the shape, 16 warps of 16 keys, a cluster of 8 blocks a graph."""
     spec = fl.LayerSpec(l=l, ew=8, h=8, dh=64, hidden=16, gated=gated,
                         constrained=False, clip=(-5.0, 5.0), edge_act=None,
                         act="elu", scale=8 ** -0.5, training=True)
     g = fl.bwd_attn_geometry(spec)
+    if l == 256:
+        assert g is not None and g["body"] == "tiled", g
+        assert g["warps"] == 16 and g["cluster"] == 8, g
+        assert g["rows_per_block"] == 32 and not g["kv_global"], g
+        return
     assert g is not None and g["kv_global"] and g["cluster"] == 1, g
     assert g["rows_per_block"] == l and not g["general"], g
 
